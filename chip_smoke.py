@@ -1,0 +1,324 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's main path on one CUDA card and check it.
+
+    python3 chip_smoke.py
+
+Run from the repository root on a machine with one NVIDIA Hopper card and
+the CUDA toolkit (nvcc). The script builds the port's CUDA kernels from
+``tpu_operator_torch/csrc``, holds each against its plain PyTorch version
+on the card, runs the full-width burn-in forward pass (``entry()``), and
+runs ``WorkloadComponent.validate()``, the node-validation workload, whose
+HBM and flash-attention legs must go through the kernels.
+
+Output: progress lines, then the ``nvidia-smi`` name and power limit, then
+one JSON line with every kernel's launches on the main path, error, times
+and bound, and as the last line
+``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
+Any failed check raises, and the script exits non-zero without that line.
+Without a CUDA card, or without the ``tpu_operator_torch`` package beside
+it, it fails.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import tempfile
+import time
+
+import torch
+
+
+class SmokeFailure(AssertionError):
+    pass
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
+    """Mean milliseconds of ``fn()`` on the card, by CUDA events around
+    ``iters`` back-to-back calls after ``warmup`` untimed ones."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(flops: float, nbytes: float, kind: str):
+    """Least time in ms for the work on this card: the larger of the bytes
+    over the data-sheet memory rate and the operations over the bf16
+    tensor-core peak, and which of the two it is."""
+    from tpu_operator_torch.ops.hbm import chip_peak_hbm_gbps
+    from tpu_operator_torch.ops.matmul import chip_peak_tflops
+    t_bytes = nbytes / (chip_peak_hbm_gbps(kind) * 1e9) * 1e3
+    t_ops = flops / (chip_peak_tflops(kind) * 1e12) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_card() -> tuple[str, str]:
+    kind = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    smi_line = smi.stdout.strip().splitlines()[0]
+    print(f"[card] torch.cuda.get_device_name: {kind}; "
+          f"count {torch.cuda.device_count()}; python {sys.version.split()[0]}"
+          f"; torch {torch.__version__}; cuda {torch.version.cuda}")
+    print(smi_line)
+    return kind, smi_line
+
+
+def phase_build() -> None:
+    from tpu_operator_torch import _native
+    t0 = time.perf_counter()
+    _native.library()
+    print(f"[build] {len(_native.sources())} sources -> "
+          f"{_native.library_path().name} in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+def phase_hbm(dev, kind) -> dict:
+    from tpu_operator_torch.ops import hbm
+    from tpu_operator_torch.parallel.numerics import reduction_tolerance
+    x, nbytes = hbm._alloc(256, dev)       # the main path's array: ones
+    sweeps = 2048                          # hbm_device_gbps's sweeps_hi
+    got = hbm.read_sum(x, sweeps).item()
+    want = hbm.read_sum_plain(x, sweeps).item()
+    check(got == want == x.numel() * sweeps,
+          f"K1 on ones: kernel {got} plain {want} exact "
+          f"{x.numel() * sweeps}")
+    err = abs(got - want)
+    print(f"[K1] ones, 256 MiB x {sweeps} sweeps: kernel {got:.0f} == plain "
+          f"{want:.0f} (exact)")
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    xr = torch.rand(x.shape, generator=gen, device=dev)
+    got_r = hbm.read_sum(xr, 3).item()
+    want_r = torch.sum(xr, dtype=torch.float64).item() * 3
+    # each thread adds its share of one sweep in f32, everything above it
+    # is f64: the f32 level is the only inexact one
+    per_thread = math.ceil(xr.numel() / (hbm.read_grid(dev) * hbm.THREADS))
+    tol = reduction_tolerance(torch.float32, per_thread)
+    rel = abs(got_r - want_r) / want_r
+    check(rel <= tol, f"K1 on random data: rel err {rel:.3e} > {tol:.3e}")
+    print(f"[K1] random f32, 3 sweeps: rel err {rel:.3e} against the f64 "
+          f"torch.sum (tolerance {tol:.3e}, {per_thread} f32 terms/thread)")
+
+    ms = cuda_ms(lambda: hbm.read_sum(x, sweeps), iters=3)
+    plain_ms = cuda_ms(lambda: hbm.read_sum_plain(x, sweeps), iters=20)
+    library_ms = cuda_ms(lambda: torch.sum(x), iters=20)
+    bound_ms, bound_by = bound(0.0, sweeps * nbytes, kind)
+    print(f"[K1] kernel {ms:.3f} ms for {sweeps} sweeps "
+          f"({sweeps * nbytes / ms / 1e6:.1f} GB/s); bound {bound_ms:.3f} ms "
+          f"({bound_by}); plain (one read) {plain_ms:.4f} ms; torch.sum "
+          f"(one read) {library_ms:.4f} ms "
+          f"({nbytes / library_ms / 1e6:.1f} GB/s)")
+    rep = hbm.hbm_device_gbps(device=dev)
+    peak = hbm.chip_peak_hbm_gbps(kind)
+    print(f"[K1] hbm_device_gbps: {rep.read_gbps:.1f} GB/s "
+          f"({rep.read_gbps / peak:.1%} of the {peak:.0f} GB/s data-sheet "
+          f"peak), backend {rep.backend}")
+    check(rep.backend == "cuda", f"hbm backend {rep.backend}")
+    del x, xr
+    # the read rate against the array's size: below the 50 MB L2 cache part
+    # of each sweep is served from L2; each launch reads 64 GiB
+    for size_mb in (16, 64, 256, 1024):
+        r = hbm.hbm_read_gbps(size_mb=size_mb, sweeps=64 * 1024 // size_mb,
+                              iters=3, device=dev)
+        print(f"[K1] size sweep: {size_mb} MiB x {64 * 1024 // size_mb} "
+              f"sweeps: {r.read_gbps:.1f} GB/s")
+    return {"name": "hbm_read", "route": "cuda",
+            "source": "tpu_operator_torch/csrc/hbm_read.cu",
+            "replaces": "tpu_operator/ops/hbm.py:61",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms,
+            "shape": f"f32 (65536, 1024) x {sweeps} sweeps",
+            "hbm_device_gbps": rep.read_gbps}
+
+
+def limit_ratio(got, ref, limit) -> float:
+    """The largest of |got − ref| / limit over the elements: above 1, the
+    comparison fails."""
+    return ((got.float() - ref).abs() / limit).max().item()
+
+
+def k2_faults(q, k, v, ref, causal: bool) -> dict:
+    """Two wrong kernels that the K2 limit must reject, written in bf16 as
+    the kernel writes: attention with the last 64-key tile dropped, and
+    the right output (``ref``, f32) scaled by 1 + 1/64."""
+    from tpu_operator_torch.ops.flash_attention import BLOCK
+    from tpu_operator_torch.parallel.ring_attention import softmax_weights
+    w = softmax_weights(q, k, causal=causal)
+    w[..., -BLOCK:] = 0.0
+    dropped = torch.matmul(w / w.sum(-1, keepdim=True), v.float())
+    return {"last kv tile dropped": dropped.to(q.dtype),
+            "output scaled by 1+1/64": (ref * (1 + 1 / 64)).to(q.dtype)}
+
+
+def phase_flash(dev, kind) -> dict:
+    import torch.nn.functional as F
+    from tpu_operator_torch.ops.flash_attention import (attention_plain,
+                                                        flash_attention,
+                                                        kernel_error_limit)
+    from tpu_operator_torch.parallel.numerics import attention_tolerance
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 is on: the plain f32 version would not be f32")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    main = None
+    # (heads, T, D, causal); the first is the validator's main-path shape
+    for h, t, d, causal in ((None, 4096, 128, True), (None, 4096, 128, False),
+                            (8, 1024, 128, True)):
+        shape = (t, d) if h is None else (h, t, d)
+        q, k, v = (torch.randn(shape, generator=gen, device=dev)
+                   .to(torch.bfloat16) for _ in range(3))
+        out = flash_attention(q, k, v, causal=causal)
+        check(out.shape == q.shape and out.dtype == q.dtype,
+              f"K2 output {tuple(out.shape)} {out.dtype}")
+        # the validator's gate: an absolute tolerance against the plain
+        # version in bf16
+        ref = attention_plain(q, k, v, causal=causal)
+        err = (out.float() - ref.float()).abs().max().item()
+        tol = attention_tolerance(torch.bfloat16, d, "cuda")
+        check(math.isfinite(err) and err <= tol,
+              f"K2 {shape} causal={causal}: max abs err {err:.3e} > "
+              f"{tol:.3e}")
+        # the per-element limit against the f32 plain output, and proof
+        # that it rejects a kernel that is slightly wrong
+        ref32, limit = kernel_error_limit(q, k, v, causal=causal)
+        ratio = limit_ratio(out, ref32, limit)
+        check(ratio <= 1.0, f"K2 {shape} causal={causal}: error "
+                            f"{ratio:.3f}x its per-element limit")
+        faults = {name: limit_ratio(bad, ref32, limit) for name, bad
+                  in k2_faults(q, k, v, ref32, causal).items()}
+        check(all(r > 1.0 for r in faults.values()),
+              f"K2 limit passes a planted fault: {faults}")
+        del ref32, limit
+        ms = cuda_ms(lambda: flash_attention(q, k, v, causal=causal),
+                     iters=20)
+        plain_ms = cuda_ms(lambda: attention_plain(q, k, v, causal=causal),
+                           iters=10)
+        # SDPA takes (N, L, E): one batch of one head, or the heads as N
+        q4, k4, v4 = ((x.unsqueeze(0) if h is None else x) for x in (q, k, v))
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=causal), iters=20)
+        heads = h or 1
+        pairs = t * (t + 1) // 2 if causal else t * t
+        flops = 4.0 * d * pairs * heads
+        nbytes = 4 * heads * t * d * 2
+        bound_ms, bound_by = bound(flops, nbytes, kind)
+        print(f"[K2] {shape} bf16 causal={causal}: max abs err {err:.3e} "
+              f"(tolerance {tol:.3e}); per-element limit ratio "
+              f"{ratio:.3f} (planted faults: "
+              + ", ".join(f"{n} {r:.2f}" for n, r in faults.items())
+              + f"); kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s); "
+              f"plain {plain_ms:.4f} ms; sdpa {library_ms:.4f} ms; bound "
+              f"{bound_ms:.4f} ms ({bound_by})")
+        if main is None:
+            main = {"name": "flash_fwd", "route": "cuda",
+                    "source": "tpu_operator_torch/csrc/flash_fwd.cu",
+                    "replaces": "tpu_operator/ops/flash_attention.py:48",
+                    "max_abs_err": err, "limit_ratio": ratio, "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "library_ms": library_ms,
+                    "shape": f"bf16 [{t}, {d}] causal"}
+    return main
+
+
+def phase_entry() -> None:
+    from tpu_operator_torch.entry import entry
+    from tpu_operator_torch.ops.burnin import BurninConfig, BurninModel
+    from tpu_operator_torch.parallel.numerics import residual_limit
+    cfg = BurninConfig()
+    model, args = entry()
+    with torch.no_grad():
+        y = model(*args)
+        torch.cuda.synchronize()
+        check(y.shape == (cfg.batch, cfg.d_model) and y.dtype == cfg.dtype,
+              f"entry output {tuple(y.shape)} {y.dtype}")
+        check(bool(torch.isfinite(y).all()), "entry output not finite")
+        w_in = model.w_in.detach().float().cpu()
+        w_out = model.w_out.detach().float().cpu()
+        x = args[0].float().cpu()
+        want = BurninModel(w_in, w_out)(x)
+        # a wrong forward the limit must reject: the last layer left out
+        short = BurninModel(w_in[:-1], w_out[:-1])(x)
+    limit = residual_limit(want, cfg.dtype, cfg.n_layers, "cuda")
+    ratio = limit_ratio(y.cpu(), want, limit)
+    fault = limit_ratio(short, want, limit)
+    check(ratio <= 1.0, f"entry: bf16 on the card vs f32 on the CPU: error "
+                        f"{ratio:.3f}x its per-element limit")
+    check(fault > 1.0, f"entry: the limit passes a forward without its "
+                       f"last layer ({fault:.3f}x)")
+    err = (y.float().cpu() - want).abs().max().item()
+    print(f"[entry] burn-in forward d_model={cfg.d_model} "
+          f"d_hidden={cfg.d_hidden} layers={cfg.n_layers} batch={cfg.batch}"
+          f" bf16 on {y.device}: finite; max abs err {err:.3e} against f32 "
+          f"on the CPU (output max {want.abs().max().item():.3f}); "
+          f"per-element limit ratio {ratio:.3f} (last layer left out: "
+          f"{fault:.2f})")
+
+
+def phase_validate() -> dict:
+    from tpu_operator_torch.validator.components import WorkloadComponent
+    with tempfile.TemporaryDirectory() as vdir:
+        comp = WorkloadComponent(device="cuda", validations_dir=vdir)
+        info = comp.run()
+        with open(comp.status_path()) as f:
+            status = json.load(f)
+    check(status["ok"] is True and status["info"] == json.loads(
+        json.dumps(info)), "status file does not hold the info")
+    check(info["hbm_backend"] == "cuda" and info["platform"] == "cuda",
+          f"validator ran off the card: {info}")
+    print(f"[validate] {json.dumps(info)}")
+    return info
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    from tpu_operator_torch.ops import flash_attention as flash_mod
+    from tpu_operator_torch.ops import hbm as hbm_mod
+
+    dev = torch.device("cuda", 0)
+    kind, smi_line = phase_card()
+    phase_build()
+    kernels = [phase_hbm(dev, kind), phase_flash(dev, kind)]
+
+    counters = {"hbm_read": hbm_mod.read_sum,
+                "flash_fwd": flash_mod.flash_attention}
+    for fn in counters.values():
+        fn.launches = 0
+    phase_entry()
+    phase_validate()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    for entry_ in kernels:
+        entry_["launches"] = launches[entry_["name"]]
+        check(entry_["launches"] > 0,
+              f"{entry_['name']} never launched on the main path")
+    print(f"[kernels] launches on the main path: {launches}")
+
+    print(smi_line)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,1 @@
+"""validator of the PyTorch/CUDA port; see the package docstring."""
