@@ -8,7 +8,10 @@ the CUDA toolkit (nvcc). The script builds the port's CUDA kernels from
 ``tpu_operator_torch/csrc``, holds each against its plain PyTorch version
 on the card, runs the full-width burn-in forward pass (``entry()``), and
 runs ``WorkloadComponent.validate()``, the node-validation workload, whose
-HBM and flash-attention legs must go through the kernels.
+HBM and flash-attention legs must go through the kernels. Then it holds the
+ring kernels (K3–K6) against their plain versions and the library sums for
+2, 4 and 8 virtual ranks on the card, and runs the multi-device dry run
+``dryrun_multigpu(4)``, whose ring checks must go through those kernels.
 
 Output: progress lines, then the ``nvidia-smi`` name and power limit, then
 one JSON line with every kernel's launches on the main path, error, times
@@ -238,6 +241,137 @@ def phase_flash(dev, kind) -> dict:
     return main
 
 
+# (name, wrapper, plain version, TPU kernel it replaces, rows per rank
+# divisible by n or 2n)
+RING_KERNELS = (
+    ("ring_all_gather", "ring_all_gather", "all_gather_plain", 48, 1),
+    ("ring_reduce_scatter", "ring_reduce_scatter", "reduce_scatter_plain",
+     216, 1),
+    ("ring_all_reduce", "ring_all_reduce", "all_reduce_plain", 126, 1),
+    ("ring_all_reduce_bidir", "ring_all_reduce_bidir",
+     "all_reduce_bidir_plain", 311, 2),
+)
+PAYLOAD_MB, PAYLOAD_COLS = 64, 512   # the validator's collective payload
+
+
+def ring_library(name: str, xs):
+    """The library result: what every rank (or rank d, for the
+    reduce-scatter) must hold."""
+    if name == "ring_all_gather":
+        return [torch.cat(xs)] * len(xs)
+    total = torch.stack(xs).sum(0)
+    if name == "ring_reduce_scatter":
+        return list(total.chunk(len(xs)))
+    return [total] * len(xs)
+
+
+def ring_bytes(name: str, n: int, per_rank: int) -> tuple[int, float]:
+    """Bytes the ranks must move (each rank's input read once and output
+    written once), and nccl-tests' bus-bandwidth factor on ``per_rank``
+    input bytes (``tpu_operator/parallel/collectives.py:15-19``)."""
+    if name == "ring_all_gather":
+        return n * (per_rank + n * per_rank), (n - 1) / n * n
+    if name == "ring_reduce_scatter":
+        return n * (per_rank + per_rank // n), (n - 1) / n
+    return n * 2 * per_rank, 2 * (n - 1) / n
+
+
+def phase_ring(dev, kind) -> list[dict]:
+    from tpu_operator_torch.parallel import ring
+    from tpu_operator_torch.parallel.numerics import reduction_tolerance
+    gen = torch.Generator(device=dev).manual_seed(5)
+    entries = {}
+    for n in (2, 4, 8):
+        tol = reduction_tolerance(torch.float32, n)
+        for name, wrapper, plain, line, step in RING_KERNELS:
+            fn, plain_fn = getattr(ring, wrapper), getattr(ring, plain)
+            payload_rows = PAYLOAD_MB * (1 << 20) // 4 // PAYLOAD_COLS
+            payload_rows += -payload_rows % (step * n)
+            # the dry run's array (2n², 128) split over the ranks, and the
+            # validator's 64 MiB per rank shaped as its ring bandwidth
+            # probe shapes it
+            for label, rows, cols in (("dry run", 2 * n, 128),
+                                      ("64 MiB", payload_rows, PAYLOAD_COLS)):
+                xs = [torch.randn((rows, cols), generator=gen, device=dev)
+                      for _ in range(n)]
+                outs = fn(xs)
+                want = plain_fn(xs)
+                check(all(torch.equal(o, w) for o, w in zip(outs, want)),
+                      f"{name} n={n} {label}: kernel differs from its plain "
+                      "version")
+                lib = ring_library(name, xs)
+                errs = [(o - w).abs().max().item() for o, w in zip(outs, lib)]
+                if name == "ring_all_gather":
+                    check(max(errs) == 0.0,
+                          f"{name} n={n} {label}: differs from torch.cat")
+                else:
+                    ok = all(bool(((o - w).abs() <= tol + tol * w.abs()).all())
+                             for o, w in zip(outs, lib))
+                    check(ok, f"{name} n={n} {label}: max abs err "
+                              f"{max(errs):.3e} against the library sum, "
+                              f"beyond reduction_tolerance {tol:.3e}")
+                print(f"[{name}] n={n} {label} per rank ({rows}, {cols}) "
+                      f"f32: == plain (exact); max abs err {max(errs):.3e} "
+                      f"against the library (tolerance "
+                      f"{0.0 if name == 'ring_all_gather' else tol:.3e})")
+                if n == 4 and label == "64 MiB":
+                    entries[name] = ring_timing(
+                        name, fn, plain_fn, xs, want, kind, line, max(errs))
+                del xs, outs, want, lib
+    return [entries[name] for name, *_ in RING_KERNELS]
+
+
+def ring_timing(name, fn, plain_fn, xs, want, kind, line, lib_err) -> dict:
+    """Times one kernel alone: its launch is set up once (slots, signal
+    words, pointer table) and the timed loop holds only the launches, each
+    with the zeroing of its signal words. ``want`` is the plain version's
+    result on ``xs``."""
+    from tpu_operator_torch.parallel import ring
+    n = len(xs)
+    per_rank = xs[0].numel() * 4
+    launch = ring.RingLaunch(name.removeprefix("ring_"), xs)
+    ms = cuda_ms(launch.launch, iters=10)
+    launch.raise_on_stall()
+    err = max((o - w).abs().max().item() for o, w in zip(launch.outs, want))
+    check(err == 0.0, f"{name} n={n}: repeated launches differ from the "
+                      f"plain version by {err:.3e}")
+    # what a caller of the wrapper waits per call: set-up, the launch and
+    # the read of the status words
+    call_ms = cuda_ms(lambda: fn(xs), iters=10)
+    plain_ms = cuda_ms(lambda: plain_fn(xs), iters=3)
+    if name == "ring_all_gather":
+        library_ms = cuda_ms(lambda: torch.cat(xs), iters=10)
+    else:
+        library_ms = cuda_ms(lambda: torch.stack(xs).sum(0), iters=10)
+    nbytes, factor = ring_bytes(name, n, per_rank)
+    bound_ms, bound_by = bound(0.0, nbytes, kind)
+    busbw = factor * per_rank / ms / 1e6
+    print(f"[{name}] n={n} x 64 MiB: kernel {ms:.4f} ms; wrapper call "
+          f"{call_ms:.4f} ms; plain {plain_ms:.4f} ms; library "
+          f"{library_ms:.4f} ms; bound "
+          f"{bound_ms:.4f} ms ({bound_by}, {nbytes / 2**20:.0f} MiB); busbw "
+          f"{busbw:.1f} GB/s (loopback on one card: device-memory copies, "
+          f"not NVLink)")
+    return {"name": name, "route": "cuda",
+            "source": "tpu_operator_torch/csrc/ring.cu",
+            "replaces": f"tpu_operator/parallel/ring.py:{line}",
+            "max_abs_err": err, "library_max_abs_err": lib_err, "ms": ms,
+            "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms,
+            "shape": f"f32 n=4 x ({xs[0].shape[0]}, {xs[0].shape[1]}) per rank",
+            "loopback_busbw_gbps": busbw}
+
+
+def phase_dryrun() -> None:
+    from tpu_operator_torch.entry import dryrun_multigpu
+    t0 = time.perf_counter()
+    loss = dryrun_multigpu(4)
+    torch.cuda.synchronize()
+    check(math.isfinite(loss), f"dry run loss {loss}")
+    print(f"[dryrun] dryrun_multigpu(4) at full width: "
+          f"{time.perf_counter() - t0:.3f} s on the host clock")
+
+
 def phase_entry() -> None:
     from tpu_operator_torch.entry import entry
     from tpu_operator_torch.ops.burnin import BurninConfig, BurninModel
@@ -293,24 +427,37 @@ def main() -> int:
         return 2
     from tpu_operator_torch.ops import flash_attention as flash_mod
     from tpu_operator_torch.ops import hbm as hbm_mod
+    from tpu_operator_torch.parallel import ring as ring_mod
 
     dev = torch.device("cuda", 0)
     kind, smi_line = phase_card()
     phase_build()
-    kernels = [phase_hbm(dev, kind), phase_flash(dev, kind)]
+    kernels = [phase_hbm(dev, kind), phase_flash(dev, kind),
+               *phase_ring(dev, kind)]
 
-    counters = {"hbm_read": hbm_mod.read_sum,
-                "flash_fwd": flash_mod.flash_attention}
-    for fn in counters.values():
-        fn.launches = 0
-    phase_entry()
-    phase_validate()
-    launches = {name: fn.launches for name, fn in counters.items()}
+    # each path runs with its kernels' counts set to 0 just before it and
+    # read just after
+    paths = (
+        ("single-GPU validation", (phase_entry, phase_validate),
+         {"hbm_read": hbm_mod.read_sum,
+          "flash_fwd": flash_mod.flash_attention}),
+        ("dry run", (phase_dryrun,),
+         {name: getattr(ring_mod, wrapper)
+          for name, wrapper, *_ in RING_KERNELS}),
+    )
+    launches = {}
+    for path, phases, counters in paths:
+        for fn in counters.values():
+            fn.launches = 0
+        for phase in phases:
+            phase()
+        counts = {name: fn.launches for name, fn in counters.items()}
+        print(f"[kernels] launches on the {path} path: {counts}")
+        launches.update(counts)
     for entry_ in kernels:
         entry_["launches"] = launches[entry_["name"]]
         check(entry_["launches"] > 0,
               f"{entry_['name']} never launched on the main path")
-    print(f"[kernels] launches on the main path: {launches}")
 
     print(smi_line)
     print(json.dumps({"kernels": kernels}))

@@ -6,7 +6,8 @@ imports no JAX, so it also runs where only PyTorch is installed:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 ``chip_smoke.py`` holds the same kernels against the same plain versions at
-the main path's full shapes.
+the main path's full shapes. The ring kernels (K3–K6) hold n virtual ranks
+on the one card and must give their plain versions' bits exactly.
 """
 
 import math
@@ -16,6 +17,7 @@ import torch
 
 from tpu_operator_torch.ops import flash_attention as flash_mod
 from tpu_operator_torch.ops import hbm
+from tpu_operator_torch.parallel import ring
 from tpu_operator_torch.parallel.numerics import (attention_tolerance,
                                                   reduction_tolerance)
 
@@ -83,3 +85,93 @@ def test_flash_kernel_rejects_what_it_cannot_take(cuda):
     odd = torch.zeros((256, 96), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dim"):
         flash_mod.flash_attention(odd, odd, odd)
+
+
+RING = {"all_gather": (ring.ring_all_gather, ring.all_gather_plain),
+        "reduce_scatter": (ring.ring_reduce_scatter, ring.reduce_scatter_plain),
+        "all_reduce": (ring.ring_all_reduce, ring.all_reduce_plain),
+        "all_reduce_bidir": (ring.ring_all_reduce_bidir,
+                             ring.all_reduce_bidir_plain)}
+
+
+def _ranks(device, n, rows, cols, seed=3):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn((rows, cols), generator=gen, device=device)
+            for _ in range(n)]
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("name", sorted(RING))
+def test_ring_kernel_equals_plain(cuda, name, n):
+    fn, plain = RING[name]
+    xs = _ranks(cuda, n, 2 * n * n, 128)
+    before = fn.launches
+    outs = fn(xs)
+    assert fn.launches == before + 1
+    want = plain(xs)
+    assert len(outs) == n
+    for got, exp in zip(outs, want):
+        assert got.shape == exp.shape and torch.equal(got, exp)
+
+
+@pytest.mark.parametrize("blocks", [None, 2, 6])
+@pytest.mark.parametrize("name", sorted(RING))
+def test_ring_kernel_equals_plain_over_many_blocks(cuda, name, blocks):
+    fn, plain = RING[name]
+    xs = _ranks(cuda, 4, 4096, 512, seed=4)
+    outs = fn(xs, blocks=blocks)
+    for got, exp in zip(outs, plain(xs)):
+        assert torch.equal(got, exp)
+
+
+@pytest.mark.parametrize("name", sorted(RING))
+def test_ring_launch_repeats_from_zeroed_signal_words(cuda, name):
+    """A launch set up once and made three times in a row, as a timing
+    loop makes it, ends with the plain version's result."""
+    _, plain = RING[name]
+    xs = _ranks(cuda, 4, 4096, 512, seed=5)
+    launch = ring.RingLaunch(name, xs)
+    for _ in range(3):
+        launch.launch()
+    launch.raise_on_stall()
+    for got, exp in zip(launch.outs, plain(xs)):
+        assert torch.equal(got, exp)
+
+
+@pytest.mark.parametrize("name", sorted(RING))
+def test_ring_grid_too_large_to_be_resident_raises(cuda, name):
+    fn, _ = RING[name]
+    xs = _ranks(cuda, 4, 32, 128)
+    too_many = 2 * ring.resident_blocks(cuda)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        fn(xs, blocks=too_many)
+    # the card is still usable, and the kernel still right
+    fn(xs)
+
+
+def test_ring_stall_raises_instead_of_hanging(cuda, monkeypatch):
+    """With no time to wait, a rank that has to wait for its neighbour
+    gives up: the wrapper raises on the status words."""
+    monkeypatch.setattr(ring, "TIMEOUT_NS", 0)
+    xs = _ranks(cuda, 8, 8 * 4096, 512)
+    with pytest.raises(ring.RingStall, match="timed out"):
+        ring.ring_all_reduce(xs)
+
+
+def test_ring_kernels_reject_what_they_cannot_take(cuda):
+    xs = [torch.zeros((8, 128), dtype=torch.float64, device=cuda)] * 2
+    with pytest.raises(ValueError, match="float32"):
+        ring.ring_all_reduce(xs)
+    with pytest.raises(ValueError, match="16-byte"):
+        ring.ring_all_reduce([torch.zeros((4, 3), device=cuda)] * 2)
+    with pytest.raises(ValueError, match="several devices"):
+        ring.ring_all_reduce([torch.zeros((4, 4), device=cuda),
+                              torch.zeros((4, 4))])
+
+
+def test_dryrun_on_the_card_goes_through_the_ring_kernels(cuda):
+    from tpu_operator_torch.entry import dryrun_multigpu
+    counters = [fn for fn, _ in RING.values()]
+    before = [fn.launches for fn in counters]
+    assert math.isfinite(dryrun_multigpu(4))
+    assert all(fn.launches > b for fn, b in zip(counters, before))

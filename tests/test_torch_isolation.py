@@ -87,11 +87,12 @@ def test_import_builds_nothing_and_loads_no_jax():
 
 
 def _entry_points():
-    from tpu_operator_torch.entry import entry
+    from tpu_operator_torch.entry import dryrun_multigpu, entry
     from tpu_operator_torch.ops.burnin import init_burnin
     from tpu_operator_torch.ops.hbm import hbm_device_gbps, hbm_read_gbps
     from tpu_operator_torch.ops.matmul import matmul_tflops
     return {"entry": entry, "init_burnin": init_burnin,
+            "dryrun_multigpu": lambda: dryrun_multigpu(4),
             "hbm_read_gbps": hbm_read_gbps,
             "hbm_device_gbps": hbm_device_gbps,
             "matmul_tflops": matmul_tflops}

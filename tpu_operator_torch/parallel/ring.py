@@ -1,0 +1,436 @@
+"""Hand-scheduled ring collectives (K3–K6) over virtual ranks, in CUDA.
+
+The port of ``tpu_operator/parallel/ring.py``: an all-gather, a
+reduce-scatter, an all-reduce and a bidirectional all-reduce whose schedule
+is pinned hop by hop, so that their rate can be set against the library
+collectives'. Each wrapper takes one tensor per rank, in ring order (rank r
+sends to rank r + 1), and returns one per rank.
+
+For CUDA tensors, all ranks lie on one card as virtual ranks (see
+``parallel/mesh.py``) and one cooperative launch of ``csrc/ring.cu`` holds
+them all; the source says how a rank reaches its neighbours and what bounds
+it. f32 only. For CPU tensors the wrapper runs the plain version: a hop-by-hop
+simulation of the same schedule (the same slots, the same chunk arithmetic
+as the TPU kernels, the same ``received + local`` adds) that also keeps a
+ledger of the credits. The kernels and the plain versions give the same
+bits, and the plain versions the same bits as the TPU kernels.
+
+The ``*_sharded`` functions split a whole array over a mesh axis and
+assemble the result as the reference's ``shard_map`` in/out specs do, so the
+tests compare like with like.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from tpu_operator_torch import _native
+from tpu_operator_torch.parallel.mesh import Mesh
+
+THREADS = 256          # threads per block of the kernel (kThreads)
+SIG_WORDS = 16         # signal words per block (kSigWords)
+STATUS_WORD = 15       # a non-zero status means a wait timed out (kStatus)
+TIMEOUT_NS = 5_000_000_000
+_STALLS = {1: "entry barrier", 2: "credit", 3: "receive"}
+
+
+class CreditError(RuntimeError):
+    """A slot was written before its credit, or a credit was never used."""
+
+
+class RingStall(RuntimeError):
+    """A rank of a ring kernel waited past its timeout."""
+
+
+class _Ledger:
+    """Credits granted and writes made, per rank and receive slot."""
+
+    def __init__(self, n: int):
+        self.granted = [[0, 0] for _ in range(n)]
+        self.written = [[0, 0] for _ in range(n)]
+
+    def grant(self, rank: int, slot: int) -> None:
+        self.granted[rank][slot] += 1
+
+    def write(self, rank: int, slot: int) -> None:
+        if self.written[rank][slot] >= self.granted[rank][slot]:
+            raise CreditError(f"slot {slot} of rank {rank} written before "
+                              "its credit")
+        self.written[rank][slot] += 1
+
+    def open(self, hops: int) -> None:
+        """Both slots of every rank start free: the first two hops'
+        targets are granted at entry."""
+        for rank in range(len(self.granted)):
+            if hops >= 1:
+                self.grant(rank, 1)
+            if hops >= 2:
+                self.grant(rank, 0)
+
+    def close(self) -> None:
+        if self.granted != self.written:
+            raise CreditError(f"credits granted {self.granted} but used "
+                              f"{self.written}")
+
+
+class _Slots:
+    """Every rank's two receive slots, with the credit ledger."""
+
+    def __init__(self, like: list[torch.Tensor], ledger: _Ledger):
+        self.bufs = [[torch.empty_like(x) for _ in range(2)] for x in like]
+        self.ledger = ledger
+
+    def store(self, rank: int, slot: int, payload: torch.Tensor) -> None:
+        self.ledger.write(rank, slot)
+        self.bufs[rank][slot].copy_(payload)
+
+    def __getitem__(self, key):
+        rank, slot = key
+        return self.bufs[rank][slot]
+
+
+# -- plain versions ---------------------------------------------------------
+
+def all_gather_plain(xs, ledger: _Ledger | None = None):
+    """K3's schedule: n - 1 hops; after hop t rank d holds the chunk that
+    started at rank d - t - 1 and forwards it at hop t + 1."""
+    n = len(xs)
+    rows = xs[0].shape[0]
+    ledger = ledger or _Ledger(n)
+    outs = [x.new_empty((n * rows, *x.shape[1:])) for x in xs]
+    for d, x in enumerate(xs):
+        outs[d][d * rows:(d + 1) * rows] = x
+    slots = _Slots(xs, ledger)
+    hops = n - 1
+    ledger.open(hops)
+    for t in range(hops):
+        s = (t + 1) % 2
+        for d in range(n):
+            src = (d - t) % n
+            slots.store((d + 1) % n, s, outs[d][src * rows:(src + 1) * rows])
+        for d in range(n):
+            src = (d - t - 1) % n
+            outs[d][src * rows:(src + 1) * rows] = slots[d, s]
+            if t + 2 < hops:
+                ledger.grant(d, s)
+    ledger.close()
+    return outs
+
+
+def reduce_scatter_plain(xs, ledger: _Ledger | None = None):
+    """K4's schedule: at hop t rank d sends the running sum of chunk
+    d - t - 1 (its own copy at hop 0; what arrived at hop t - 1 plus its
+    copy after that); after n - 1 hops what arrives plus its own copy is
+    chunk d, fully summed. The input is never written."""
+    n = len(xs)
+    chunk = xs[0].shape[0] // n
+    if n == 1:
+        return [xs[0].clone()]
+    ledger = ledger or _Ledger(n)
+
+    def local(d, c):
+        return xs[d][c * chunk:(c + 1) * chunk]
+
+    slots = _Slots([local(d, 0) for d in range(n)], ledger)
+    hops = n - 1
+    ledger.open(hops)
+    for t in range(hops):
+        s = (t + 1) % 2
+        payloads = [local(d, (d - t - 1) % n) if t == 0
+                    else slots[d, t % 2] + local(d, (d - t - 1) % n)
+                    for d in range(n)]
+        for d in range(n):
+            slots.store((d + 1) % n, s, payloads[d])
+            if 1 <= t < hops - 1:
+                ledger.grant(d, t % 2)
+    ledger.close()
+    return [slots[d, hops % 2] + local(d, d) for d in range(n)]
+
+
+def _all_reduce_ring(outs, chunk: int, reverse: bool, ledger: _Ledger):
+    """The TPU all-reduce's 2(n - 1) hops over ``outs`` (one tensor per
+    rank), in place: rightward with ``ring.py``'s forward chunk arithmetic,
+    or leftward with its reverse arithmetic."""
+    n = len(outs)
+    hops = 2 * (n - 1)
+
+    def rows(c):
+        return slice(c * chunk, (c + 1) * chunk)
+
+    def indices(d, t):
+        if t < n - 1:       # reduce-scatter hop i
+            i = t
+            return ((d + i, d + i + 1) if reverse else (d - i, d - i - 1))
+        i = t - (n - 1)     # all-gather hop i
+        return ((d - 1 + i, d + i) if reverse else (d + 1 - i, d - i))
+
+    slots = _Slots([o[rows(0)] for o in outs], ledger)
+    ledger.open(hops)
+    for t in range(hops):
+        s = (t + 1) % 2
+        for d in range(n):
+            send_c = indices(d, t)[0] % n
+            slots.store((d + (-1 if reverse else 1)) % n, s,
+                        outs[d][rows(send_c)])
+        for d in range(n):
+            recv_c = indices(d, t)[1] % n
+            got = slots[d, s]
+            if t < n - 1:
+                got = got + outs[d][rows(recv_c)]   # received + local
+            outs[d][rows(recv_c)] = got
+            if t + 2 < hops:
+                ledger.grant(d, s)
+    ledger.close()
+
+
+def all_reduce_plain(xs, ledger: _Ledger | None = None):
+    """K5's schedule: reduce-scatter then all-gather, 2(n - 1) hops, in
+    place in a copy of each input; chunk c finishes on rank c - 1."""
+    n = len(xs)
+    outs = [x.clone() for x in xs]
+    _all_reduce_ring(outs, xs[0].shape[0] // n, False, ledger or _Ledger(n))
+    return outs
+
+
+def all_reduce_bidir_plain(xs, ledgers: tuple[_Ledger, _Ledger] | None = None):
+    """K6's schedule: K5's rightward ring over the top half of each tensor
+    and its mirror image, leftward, over the bottom half, each with its own
+    slots and credits."""
+    n = len(xs)
+    half = xs[0].shape[0] // 2
+    fwd, rev = ledgers or (_Ledger(n), _Ledger(n))
+    outs = [x.clone() for x in xs]
+    _all_reduce_ring([o[:half] for o in outs], half // n, False, fwd)
+    _all_reduce_ring([o[half:] for o in outs], half // n, True, rev)
+    return outs
+
+
+# -- kernel wrappers --------------------------------------------------------
+
+def _check_ranks(xs, step_rows: int, what: str) -> torch.device:
+    """The device all ranks' tensors lie on; raises on what no version
+    takes."""
+    if not xs:
+        raise ValueError("no ranks")
+    n = len(xs)
+    shape, dtype = xs[0].shape, xs[0].dtype
+    if xs[0].dim() < 1:
+        raise ValueError("each rank needs a tensor of at least one axis")
+    if any(x.shape != shape or x.dtype != dtype for x in xs):
+        raise ValueError(f"{what}: the ranks' tensors differ in shape or "
+                         "dtype")
+    devices = {x.device for x in xs}
+    if len(devices) != 1:
+        raise ValueError(f"{what}: the ranks' tensors lie on several devices "
+                         f"{sorted(map(str, devices))}; the kernel holds "
+                         "virtual ranks on one card")
+    if shape[0] % step_rows:
+        raise ValueError(f"rows {shape[0]} not divisible by "
+                         + (f"2*{n}" if step_rows == 2 * n else f"{n}"))
+    dev = devices.pop()
+    if dev.type == "cuda" and dtype != torch.float32:
+        raise ValueError(f"{what}: the ring kernels take float32, got {dtype}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+_resident: dict[int, int] = {}
+
+
+def resident_blocks(device: torch.device) -> int:
+    """Blocks of the ring kernel that fit on the card at once."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if index not in _resident:
+        out = ctypes.c_int(0)
+        with torch.cuda.device(index):
+            _native.check(_native.library().ring_resident_blocks(
+                ctypes.byref(out)), "ring_resident_blocks")
+        _resident[index] = out.value
+    return _resident[index]
+
+
+class RingLaunch:
+    """One ring kernel over fixed ranks, set up once: the outputs, each
+    rank's slots and signal words, and the pointer table on the card.
+
+    :meth:`launch` zeroes the signal words and launches the kernel, both on
+    the current stream, and does not synchronise; :meth:`raise_on_stall`
+    synchronises and raises if a rank timed out. The wrappers do both for
+    every call; a timing loop can repeat :meth:`launch` alone."""
+
+    _KERNELS = {  # wrapper → (C entry point, comm slots, directions)
+        "all_gather": ("ring_all_gather_f32", 2, 1),
+        "reduce_scatter": ("ring_reduce_scatter_f32", 2, 1),
+        "all_reduce": ("ring_all_reduce_f32", 2, 1),
+        "all_reduce_bidir": ("ring_all_reduce_bidir_f32", 4, 2),
+    }
+
+    def __init__(self, kind: str, xs, blocks: int | None = None):
+        self.name, slot_chunks, directions = self._KERNELS[kind]
+        n = len(xs)
+        dev = xs[0].device
+        if kind == "all_gather":
+            self.outs = [x.new_empty((n * x.shape[0], *x.shape[1:]))
+                         for x in xs]
+            chunk_elems = xs[0].numel()
+        elif kind == "reduce_scatter":
+            self.outs = [x.new_empty((x.shape[0] // n, *x.shape[1:]))
+                         for x in xs]
+            chunk_elems = xs[0].numel() // n
+        else:
+            self.outs = [torch.empty_like(x) for x in xs]
+            chunk_elems = xs[0].numel() // (n * directions)
+        if chunk_elems % 4:
+            raise ValueError(f"the ring kernels move 16-byte vectors: a chunk "
+                             f"of {chunk_elems} floats is not a multiple of 4")
+        if any(t.data_ptr() % 16 or not t.is_contiguous()
+               for t in (*xs, *self.outs)):
+            raise ValueError("the ring kernels take contiguous 16-byte "
+                             "aligned tensors")
+        self.chunk4 = chunk_elems // 4
+        if blocks is not None and blocks % directions:
+            raise ValueError(f"blocks {blocks} must be even: half per "
+                             "direction")
+        if blocks is None:
+            per_dir = max(1, min(resident_blocks(dev) // (n * directions),
+                                 math.ceil(self.chunk4 / THREADS)))
+            blocks = per_dir * directions
+        self.n, self.blocks, self.device = n, blocks, dev
+        slots = [torch.empty(slot_chunks * chunk_elems, dtype=torch.float32,
+                             device=dev) for _ in range(n)]
+        # separate allocations, as the ranks' would be on separate cards
+        self.sigs = [torch.empty(blocks * SIG_WORDS, dtype=torch.int32,
+                                 device=dev) for _ in range(n)]
+        self.status = [s.view(blocks, SIG_WORDS)[:, STATUS_WORD]
+                       for s in self.sigs]
+        rows = [[xs[d].data_ptr(), self.outs[d].data_ptr(),
+                 slots[d].data_ptr(), slots[(d + 1) % n].data_ptr(),
+                 slots[(d - 1) % n].data_ptr(), self.sigs[d].data_ptr(),
+                 self.sigs[(d + 1) % n].data_ptr(),
+                 self.sigs[(d - 1) % n].data_ptr()] for d in range(n)]
+        # from pinned memory, so the copy does not wait for the card
+        self.table = torch.tensor(rows, dtype=torch.int64).pin_memory().to(
+            dev, non_blocking=True)
+        self.held = (list(xs), slots)   # what the table points at
+
+    def launch(self) -> None:
+        torch._foreach_zero_(self.sigs)
+        with torch.cuda.device(self.device):
+            err = getattr(_native.library(), self.name)(
+                self.table.data_ptr(), self.n, self.chunk4, self.blocks,
+                TIMEOUT_NS, torch.cuda.current_stream().cuda_stream)
+        _native.check(err, f"{self.name} (n={self.n}, blocks={self.blocks})")
+
+    def raise_on_stall(self) -> None:
+        status = torch.stack(self.status).cpu()   # waits for the launches
+        if bool(status.any()):
+            rank, block = (int(i) for i in status.nonzero()[0])
+            what = _STALLS.get(int(status[rank, block]), "?")
+            raise RingStall(f"{self.name}: rank {rank} block {block} timed "
+                            f"out waiting for its {what}")
+
+
+def _run(kind: str, xs, blocks: int | None):
+    ring = RingLaunch(kind, xs, blocks)
+    ring.launch()
+    ring.raise_on_stall()
+    return ring.outs
+
+
+def ring_all_gather(xs, *, blocks: int | None = None):
+    """All-gather (K3): every rank gets the ranks' tensors concatenated on
+    axis 0, in ring order."""
+    dev = _check_ranks(xs, 1, "ring_all_gather")
+    if dev.type == "cpu":
+        return all_gather_plain(xs)
+    outs = _run("all_gather", xs, blocks)
+    ring_all_gather.launches += 1
+    return outs
+
+
+def ring_reduce_scatter(xs, *, blocks: int | None = None):
+    """Reduce-scatter (K4): rank d gets chunk d (axis 0) of the sum, the
+    ``lax.psum_scatter(tiled=True)`` convention. Axis 0 must be divisible
+    by the number of ranks."""
+    dev = _check_ranks(xs, len(xs), "ring_reduce_scatter")
+    if dev.type == "cpu":
+        return reduce_scatter_plain(xs)
+    outs = _run("reduce_scatter", xs, blocks)
+    ring_reduce_scatter.launches += 1
+    return outs
+
+
+def ring_all_reduce(xs, *, blocks: int | None = None):
+    """All-reduce (K5): every rank gets the sum. Axis 0 must be divisible
+    by the number of ranks."""
+    dev = _check_ranks(xs, len(xs), "ring_all_reduce")
+    if dev.type == "cpu":
+        return all_reduce_plain(xs)
+    outs = _run("all_reduce", xs, blocks)
+    ring_all_reduce.launches += 1
+    return outs
+
+
+def ring_all_reduce_bidir(xs, *, blocks: int | None = None):
+    """Bidirectional all-reduce (K6): the top half circulates rightward and
+    the bottom half leftward, at once. Axis 0 must be divisible by twice
+    the number of ranks; ``blocks``, if given, must be even."""
+    dev = _check_ranks(xs, 2 * len(xs), "ring_all_reduce_bidir")
+    if dev.type == "cpu":
+        return all_reduce_bidir_plain(xs)
+    outs = _run("all_reduce_bidir", xs, blocks)
+    ring_all_reduce_bidir.launches += 1
+    return outs
+
+
+ring_all_gather.launches = 0
+ring_reduce_scatter.launches = 0
+ring_all_reduce.launches = 0
+ring_all_reduce_bidir.launches = 0
+
+
+# -- over a mesh axis, as the reference's shard_map wrappers -----------------
+
+def _shards(arr: torch.Tensor, mesh: Mesh, axis: str) -> list[torch.Tensor]:
+    """Rank r's block of ``arr`` (axis 0 split over ``axis``, replicated
+    over the others): ``in_specs=P(axis, None)``."""
+    n = mesh.shape[axis]
+    if arr.shape[0] % n:
+        raise ValueError(f"rows {arr.shape[0]} not divisible by {n}")
+    parts = arr.chunk(n)
+    return [parts[mesh.coords(r)[axis]].to(mesh.device(r), copy=True)
+            for r in range(mesh.size)]
+
+
+def _over_groups(fn, arr, mesh: Mesh, axis: str):
+    """Run ``fn`` over each ring (group) of ``axis``; the first group's
+    outputs, in ring order."""
+    xs = _shards(arr, mesh, axis)
+    return [fn([xs[r] for r in group]) for group in mesh.groups(axis)][0]
+
+
+def ring_all_gather_sharded(arr, mesh: Mesh, axis: str):
+    """``arr`` sharded on axis 0 over ``axis`` → the gathered whole
+    (``out_specs=P(None, None)``)."""
+    return _over_groups(ring_all_gather, arr, mesh, axis)[0]
+
+
+def ring_reduce_scatter_sharded(arr, mesh: Mesh, axis: str):
+    """Each rank's shard is its addend; the sum comes back sharded over
+    ``axis``, chunk d on rank d (``out_specs=P(axis, None)``)."""
+    return torch.cat(_over_groups(ring_reduce_scatter, arr, mesh, axis))
+
+
+def ring_all_reduce_sharded(arr, mesh: Mesh, axis: str):
+    """Each rank's shard is its addend; the replicated sum."""
+    return _over_groups(ring_all_reduce, arr, mesh, axis)[0]
+
+
+def ring_all_reduce_bidir_sharded(arr, mesh: Mesh, axis: str):
+    """As :func:`ring_all_reduce_sharded`, through the bidirectional ring."""
+    return _over_groups(ring_all_reduce_bidir, arr, mesh, axis)[0]

@@ -153,6 +153,12 @@ def _efficiency_gate(tflops: float, kind: str, min_efficiency: float):
     return peak, eff, matched
 
 
+def _significant(rate: float) -> float:
+    """A rate to four significant digits: a slow CPU's rate stays above
+    zero where a fixed number of decimals would round it away."""
+    return float(f"{rate:.4g}")
+
+
 class WorkloadComponent(Component):
     """The device workload on the local card: matmul probe, HBM probe and
     flash-attention check."""
@@ -219,7 +225,7 @@ class WorkloadComponent(Component):
                                                   self.min_efficiency)
         info = {"devices": torch.cuda.device_count() if on_gpu else 1,
                 "platform": dev.type,
-                "matmul_tflops": round(rep.tflops, 2),
+                "matmul_tflops": _significant(rep.tflops),
                 "efficiency": round(eff, 4) if eff is not None else None,
                 # denominator provenance, so a green gate is auditable
                 "device_kind": kind, "peak_tflops": peak,
@@ -235,7 +241,7 @@ class WorkloadComponent(Component):
                                    iters=1, device=dev, repeats=1))
         except ProbeError as e:
             raise ValidationFailed(str(e)) from None
-        info["hbm_read_gbps"] = round(hbm.read_gbps, 1)
+        info["hbm_read_gbps"] = _significant(hbm.read_gbps)
         info["hbm_backend"] = hbm.backend
         legs["hbm"] = time.perf_counter() - t0
         t0 = time.perf_counter()
