@@ -10,7 +10,10 @@ on the card, runs the full-width burn-in forward pass (``entry()``), and
 runs ``WorkloadComponent.validate()``, the node-validation workload, whose
 HBM and flash-attention legs must go through the kernels. Then it holds the
 ring kernels (K3–K6) against their plain versions and the library sums for
-2, 4 and 8 virtual ranks on the card, and runs the multi-device dry run
+2, 4 and 8 virtual ranks on the card, times them at 4 × 64 MiB (with the
+bytes their schedules move, a library call that fills all n outputs, and
+for K3 and K5 a sweep of piece sizes) and
+at 4 × 64 KiB (the per-hop handshake), and runs the multi-device dry run
 ``dryrun_multigpu(4)``, whose ring checks must go through those kernels.
 
 Output: progress lines, then the ``nvidia-smi`` name and power limit, then
@@ -251,6 +254,9 @@ RING_KERNELS = (
     ("ring_all_reduce_bidir", "ring_all_reduce_bidir",
      "all_reduce_bidir_plain", 311, 2),
 )
+# K3's and K5's schedule on the card, beside the TPU kernels' one
+DIRECT_PLAIN = {"ring_all_gather": "all_gather_direct_plain",
+                "ring_all_reduce": "all_reduce_direct_plain"}
 PAYLOAD_MB, PAYLOAD_COLS = 64, 512   # the validator's collective payload
 
 
@@ -276,6 +282,35 @@ def ring_bytes(name: str, n: int, per_rank: int) -> tuple[int, float]:
     return n * 2 * per_rank, 2 * (n - 1) / n
 
 
+def design_bytes(name: str, n: int, per_rank: int) -> int:
+    """Bytes the kernel's own schedule reads and writes in device memory,
+    all ranks together (``csrc/ring.cu``'s note): K3 and K5 write into the
+    neighbour's output; K4 and K6 go through slots."""
+    c = per_rank // n               # the chunk of a hop, but K3's
+    return n * {"ring_all_gather": per_rank * (2 * n - 1),
+                "ring_reduce_scatter": c * (3 * n - 1),
+                "ring_all_reduce": c * (5 * n - 4),
+                "ring_all_reduce_bidir": c * (11 * n - 9)}[name]
+
+
+def ring_library_n(name: str, xs, outs):
+    """One call that computes the function with a library call and leaves
+    it in every rank's output, as the kernel does."""
+    n = len(xs)
+    if name == "ring_all_gather":
+        def run():
+            for o in outs:
+                torch.cat(xs, out=o)
+    elif name == "ring_reduce_scatter":
+        def run():
+            torch._foreach_copy_(outs, torch.stack(xs).sum(0).chunk(n))
+    else:
+        def run():
+            torch.sum(torch.stack(xs), 0, out=outs[0])
+            torch._foreach_copy_(outs[1:], [outs[0]] * (n - 1))
+    return run
+
+
 def phase_ring(dev, kind) -> list[dict]:
     from tpu_operator_torch.parallel import ring
     from tpu_operator_torch.parallel.numerics import reduction_tolerance
@@ -299,6 +334,15 @@ def phase_ring(dev, kind) -> list[dict]:
                 check(all(torch.equal(o, w) for o, w in zip(outs, want)),
                       f"{name} n={n} {label}: kernel differs from its plain "
                       "version")
+                if name in DIRECT_PLAIN:
+                    # the card's own schedule, one piece a rank (its bits do
+                    # not depend on the blocks and pieces)
+                    direct = getattr(ring, DIRECT_PLAIN[name])(
+                        xs, piece_bytes=4 * xs[0].numel())
+                    check(all(torch.equal(o, w) for o, w in zip(outs, direct)),
+                          f"{name} n={n} {label}: kernel differs from the "
+                          "plain version of its own schedule")
+                    del direct
                 lib = ring_library(name, xs)
                 errs = [(o - w).abs().max().item() for o, w in zip(outs, lib)]
                 if name == "ring_all_gather":
@@ -311,13 +355,16 @@ def phase_ring(dev, kind) -> list[dict]:
                               f"{max(errs):.3e} against the library sum, "
                               f"beyond reduction_tolerance {tol:.3e}")
                 print(f"[{name}] n={n} {label} per rank ({rows}, {cols}) "
-                      f"f32: == plain (exact); max abs err {max(errs):.3e} "
+                      f"f32: == plain (exact"
+                      + (", both schedules" if name in DIRECT_PLAIN else "")
+                      + f"); max abs err {max(errs):.3e} "
                       f"against the library (tolerance "
                       f"{0.0 if name == 'ring_all_gather' else tol:.3e})")
                 if n == 4 and label == "64 MiB":
                     entries[name] = ring_timing(
                         name, fn, plain_fn, xs, want, kind, line, max(errs))
                 del xs, outs, want, lib
+    ring_small(dev)
     return [entries[name] for name, *_ in RING_KERNELS]
 
 
@@ -327,6 +374,7 @@ def ring_timing(name, fn, plain_fn, xs, want, kind, line, lib_err) -> dict:
     with the zeroing of its signal words. ``want`` is the plain version's
     result on ``xs``."""
     from tpu_operator_torch.parallel import ring
+    from tpu_operator_torch.parallel.numerics import reduction_tolerance
     n = len(xs)
     per_rank = xs[0].numel() * 4
     launch = ring.RingLaunch(name.removeprefix("ring_"), xs)
@@ -343,23 +391,94 @@ def ring_timing(name, fn, plain_fn, xs, want, kind, line, lib_err) -> dict:
         library_ms = cuda_ms(lambda: torch.cat(xs), iters=10)
     else:
         library_ms = cuda_ms(lambda: torch.stack(xs).sum(0), iters=10)
+    lib_outs = [torch.empty_like(o) for o in launch.outs]
+    library_n = ring_library_n(name, xs, lib_outs)
+    library_n_ms = cuda_ms(library_n, iters=10)
+    tol = reduction_tolerance(torch.float32, n)
+    check(all(torch.equal(o, w) if name == "ring_all_gather" else
+              bool(((o - w).abs() <= tol + tol * w.abs()).all())
+              for o, w in zip(lib_outs, ring_library(name, xs))),
+          f"{name}: the {n}-output library call gives another result")
     nbytes, factor = ring_bytes(name, n, per_rank)
     bound_ms, bound_by = bound(0.0, nbytes, kind)
+    moved = design_bytes(name, n, per_rank)
     busbw = factor * per_rank / ms / 1e6
     print(f"[{name}] n={n} x 64 MiB: kernel {ms:.4f} ms; wrapper call "
           f"{call_ms:.4f} ms; plain {plain_ms:.4f} ms; library "
-          f"{library_ms:.4f} ms; bound "
-          f"{bound_ms:.4f} ms ({bound_by}, {nbytes / 2**20:.0f} MiB); busbw "
+          f"{library_ms:.4f} ms (one output), {library_n_ms:.4f} ms "
+          f"({n} outputs); bound "
+          f"{bound_ms:.4f} ms ({bound_by}, {nbytes / 2**20:.0f} MiB); "
+          f"the design moves {moved / 2**20:.0f} MiB: "
+          f"{moved / ms / 1e9:.1f} TB/s effective; busbw "
           f"{busbw:.1f} GB/s (loopback on one card: device-memory copies, "
           f"not NVLink)")
+    extra = {}
+    if launch.direct:
+        extra = {"piece_bytes": 16 * launch.piece4,
+                 "sweep": ring_sweep(name, xs, want)}
     return {"name": name, "route": "cuda",
             "source": "tpu_operator_torch/csrc/ring.cu",
             "replaces": f"tpu_operator/parallel/ring.py:{line}",
             "max_abs_err": err, "library_max_abs_err": lib_err, "ms": ms,
             "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms,
+            "library_n_ms": library_n_ms, "design_bytes": moved,
             "shape": f"f32 n=4 x ({xs[0].shape[0]}, {xs[0].shape[1]}) per rank",
-            "loopback_busbw_gbps": busbw}
+            "loopback_busbw_gbps": busbw, "blocks": launch.blocks, **extra}
+
+
+# piece bytes; None: one piece per slice
+SWEEP_PIECES = (8 << 10, 16 << 10, 32 << 10, 64 << 10, 128 << 10, None)
+
+
+def ring_sweep(name, xs, want) -> dict:
+    """K3's or K5's kernel-alone time by piece size, each checked against
+    the plain version after its launches."""
+    from tpu_operator_torch.parallel import ring
+    kind = name.removeprefix("ring_")
+    times = {}
+    whole = 4 * xs[0].numel()          # at least a slice
+    for piece in SWEEP_PIECES:
+        launch = ring.RingLaunch(kind, xs, piece_bytes=piece or whole)
+        ms = cuda_ms(launch.launch, iters=10)
+        launch.raise_on_stall()
+        check(all(torch.equal(o, w) for o, w in zip(launch.outs, want)),
+              f"{name} piece {piece}: differs from plain")
+        label = f"{piece >> 10} KiB" if piece else "slice"
+        times[label] = ms
+        print(f"[{name}] sweep: {label} ({launch.blocks} blocks/rank, "
+              f"piece {16 * launch.piece4} B): {ms:.4f} ms")
+    return times
+
+
+def ring_small(dev) -> None:
+    """Each ring kernel alone at 64 KiB per rank, where the handshakes and
+    not the bytes set the time. The launch and the entry barrier cost about
+    the same at n = 2 and n = 8, so the difference over the hops added is
+    what one hop's wait, copy and signal cost (the least of 5 means of 50
+    launches each, since a launch's own time varies by microseconds)."""
+    from tpu_operator_torch.parallel import ring
+    gen = torch.Generator(device=dev).manual_seed(9)
+    for name, _, plain, *_ in RING_KERNELS:
+        times, hops = {}, {}
+        for n in (2, 8):
+            xs = [torch.randn((64, 256), generator=gen, device=dev)
+                  for _ in range(n)]
+            launch = ring.RingLaunch(name.removeprefix("ring_"), xs)
+            times[n] = min(cuda_ms(launch.launch, iters=50, warmup=3)
+                           for _ in range(5))
+            launch.raise_on_stall()
+            want = getattr(ring, plain)(xs)
+            check(all(torch.equal(o, w) for o, w in zip(launch.outs, want)),
+                  f"{name} n={n} at 64 KiB per rank: differs from plain")
+            hops[n] = n - 1 if name in ("ring_all_gather",
+                                        "ring_reduce_scatter") \
+                else 2 * (n - 1)
+        per_hop = (times[8] - times[2]) / (hops[8] - hops[2])
+        print(f"[{name}] 64 KiB per rank: kernel {times[2] * 1e3:.1f} us "
+              f"at n=2 ({hops[2]} hops), {times[8] * 1e3:.1f} us at n=8 "
+              f"({hops[8]} hops, {launch.blocks} blocks/rank): "
+              f"{per_hop * 1e3:.2f} us per hop")
 
 
 def phase_dryrun() -> None:

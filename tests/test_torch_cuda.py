@@ -142,7 +142,7 @@ def test_ring_launch_repeats_from_zeroed_signal_words(cuda, name):
 def test_ring_grid_too_large_to_be_resident_raises(cuda, name):
     fn, _ = RING[name]
     xs = _ranks(cuda, 4, 32, 128)
-    too_many = 2 * ring.resident_blocks(cuda)
+    too_many = 2 * ring.resident_blocks(cuda, name)
     with pytest.raises(RuntimeError, match="CUDA error"):
         fn(xs, blocks=too_many)
     # the card is still usable, and the kernel still right
@@ -156,6 +156,64 @@ def test_ring_stall_raises_instead_of_hanging(cuda, monkeypatch):
     xs = _ranks(cuda, 8, 8 * 4096, 512)
     with pytest.raises(ring.RingStall, match="timed out"):
         ring.ring_all_reduce(xs)
+
+
+def test_all_gather_stall_raises_instead_of_hanging(cuda, monkeypatch):
+    monkeypatch.setattr(ring, "TIMEOUT_NS", 0)
+    xs = _ranks(cuda, 8, 4096, 512)
+    with pytest.raises(ring.RingStall, match="timed out"):
+        ring.ring_all_gather(xs)
+
+
+DIRECT = {"all_gather": ring.all_gather_direct_plain,
+          "all_reduce": ring.all_reduce_direct_plain}
+
+
+@pytest.mark.parametrize("n", [2, 4, 8])
+@pytest.mark.parametrize("name", sorted(DIRECT))
+def test_direct_kernel_equals_its_schedule_and_the_slot_schedule(cuda, name,
+                                                                  n):
+    """K3 and K5 give the bits of their own schedule's plain version (run
+    here with other blocks and pieces: the bits do not depend on them) and
+    of the slot schedule's."""
+    fn, slots = RING[name]
+    xs = _ranks(cuda, n, 2 * n * 64, 128, seed=6)
+    outs = fn(xs)
+    for got, direct, slot in zip(outs, DIRECT[name](xs, blocks=3,
+                                                    piece_bytes=4096),
+                                 slots(xs)):
+        assert torch.equal(got, direct) and torch.equal(got, slot)
+
+
+@pytest.mark.parametrize("piece_bytes", [16, 4112, 24576, 1 << 30])
+@pytest.mark.parametrize("name", sorted(DIRECT))
+def test_direct_kernel_pieces_need_not_divide_the_slice(cuda, name,
+                                                        piece_bytes):
+    """Slices of 4096 (K3) and 1024 (K5) vectors cut into pieces of 1, 257
+    (a prime) and 1536 vectors, or one piece a slice."""
+    _, slots = RING[name]
+    xs = _ranks(cuda, 4, 4 * 56, 512, seed=7)
+    launch = ring.RingLaunch(name, xs, blocks=7, piece_bytes=piece_bytes)
+    launch.launch()
+    launch.raise_on_stall()
+    for got, exp in zip(launch.outs, slots(xs)):
+        assert torch.equal(got, exp)
+
+
+@pytest.mark.parametrize("rows", ["dry run", "one per chunk"])
+@pytest.mark.parametrize("n", [2, 4, 8])
+@pytest.mark.parametrize("name", sorted(DIRECT))
+def test_direct_kernel_on_chunks_smaller_than_a_block(cuda, name, n, rows):
+    """The dry run's (2n², 128) shapes (a K5 chunk of 2n rows of 32
+    vectors: fewer than a block's 256 threads at n = 2) and one row of 128
+    per rank and chunk (32 vectors)."""
+    _, slots = RING[name]
+    xs = _ranks(cuda, n, 2 * n * n if rows == "dry run" else n, 128, seed=8)
+    launch = ring.RingLaunch(name, xs)
+    launch.launch()
+    launch.raise_on_stall()
+    for got, exp in zip(launch.outs, slots(xs)):
+        assert torch.equal(got, exp)
 
 
 def test_ring_kernels_reject_what_they_cannot_take(cuda):

@@ -7,73 +7,117 @@
 // They compute the same values as those kernels, bit for bit: the same hops,
 // the same chunk indices and the same `received + local` f32 adds, in the
 // same order. Nothing else is done to the data (no fast math, no multiply),
-// so each kernel also equals its plain version in parallel/ring.py exactly.
+// so each kernel also equals its plain versions in parallel/ring.py exactly.
 //
 // Ranks. blockIdx.y is the rank. A rank's code reads one RankPtrs entry and
-// reaches nothing but what it names: its own input, output, comm slots and
-// signal words, and its two neighbours' comm slots and signal words. On one
-// card these are separate allocations of virtual ranks; the same code would
-// run across cards with peer pointers in the table (and epoch counters in
-// place of the signal words that the wrapper zeroes before each launch).
+// reaches nothing but what it names: its own input, output and signal words,
+// its right neighbour's output (K3, K5), its own and its neighbours' comm
+// slots (K4, K6), and its neighbours' signal words. On one card these are
+// separate allocations of virtual ranks; the same code would run across
+// cards with peer pointers in the table (and epoch counters in place of the
+// signal words that the wrapper zeroes before each launch).
 //
 // Independent rings per block. Each rank runs on gridDim.x blocks; block b of
 // a rank moves the b-th slice of every chunk and signals only block b of its
 // neighbours, so the launch holds gridDim.x independent rings and the blocks
-// of one rank never wait for each other. The bidirectional kernel gives the
-// first half of the blocks the rightward ring over the top half of the
-// tensor and the second half the leftward ring over the bottom half; the two
-// directions run at once on separate blocks, each with its own slots and
-// credits.
+// of one rank never wait for each other.
 //
-// The protocol (per block, per rank; words in the rank's signal area):
-//   - entry barrier: signal both neighbours' barrier word once, wait for 2;
+// What bounds them on an H100: device-memory bytes. They only copy and add;
+// on one card every hop is a read and a write of device memory (the least
+// time counts each rank's input read once and its output written once, over
+// 3.35 TB/s). Across cards the bound would be the NVLink rate instead.
+//
+// K3 and K5 (all_gather_kernel, all_reduce_kernel): the sender writes into
+// the right neighbour's output. Every location a rank writes there is one
+// that nobody reads or writes until the rank's signal says it is there, so
+// there are no comm slots and no credits; the only signal left is one
+// monotone "arrived" counter per block. Per rank, with c the chunk:
+//   K3, hop 0:      out[d] and right.out[d] <- in          (read c, write 2c)
+//       hop t >= 1: right.out[d-t] <- out[d-t]             (read c, write c)
+//   K5 reduce-scatter hop 0:  right.out[d] <- in[d]
+//       hop i >= 1:           right.out[d-i] <- out[d-i] + in[d-i]
+//      all-gather hop 0:      v = out[d+1] + in[d+1]; out[d+1], right.out[d+1] <- v
+//       hop i >= 1:           right.out[d+1-i] <- out[d+1-i]
+// Per rank K3 moves c(2n - 1) bytes and K5 c(5n - 4), c the chunk of a hop;
+// the slot design, which K4/K6 keep, moved c(4n - 2) and c(11n - 9): an
+// initial copy into the output, then per hop a store into the slot, a read
+// of it and a write of the output. A partial sum lives in the receiver's own
+// output; the all-gather overwrites it only after a chain of signals that
+// passes through the rank that read it. Each piece is written exactly once
+// by K3, so K3 needs no ordering beyond "arrived".
+//
+// Pieces. A block cuts its slice into pieces (the wrapper's PIECE_BYTES,
+// chosen by a sweep on the card) and runs each piece through all
+// of its hops before the next (piece-major), signalling per piece. A piece is
+// forwarded moments after it arrived. The intent is that with some hundred
+// blocks in flight the bytes between a write and its forwarding read fit in
+// the 50 MB L2, so that the forwarded read is served from there, where the
+// slice-major order of K4/K6 re-reads every forwarded chunk from device
+// memory (the hit rate is not measured). The left neighbour walks the same
+// (piece, hop) order, so the counter stays monotone: the k-th arrival is
+// always the same piece and hop. A piece moves through registers (16-byte
+// ld/st.global.cg, kUnroll loads in flight per thread). Hopper's bulk copies
+// (cp.async.bulk through shared memory on an mbarrier) were timed against
+// this loop on an H100 and were no faster (PERF.md), so they are not used.
+//
+// K4 and K6 (ring_kernel) keep the slot protocol of the TPU kernels:
 //   - a hop: wait for a credit for the right neighbour's receive slot
 //     (t + 1) % 2, store the payload straight into that slot with 16-byte
-//     stores, then raise the neighbour's receive counter for the slot.
-//     The TPU kernel's remote DMA becomes these stores; its send semaphore is
-//     the __syncthreads() before the signal; the staging copy into comm_buf
-//     is gone (the payload is stored from the source chunk);
+//     stores, then raise the neighbour's receive counter for the slot;
 //   - credits: a slot is granted back to the sender once its contents have
 //     been consumed and only if the sender will write it again, so every
-//     grant is used. Both slots start free (there is no staging), so the
-//     first two hops' slots are granted at entry.
-//   - signalling: __syncthreads, then thread 0 does a system fence and a
-//     release add at system scope (red.release.sys); waiting: thread 0 spins
-//     on acquire loads at system scope (never a plain load, which the
-//     compiler may hoist), then __syncthreads. Slots written by a neighbour
-//     are read with ld.global.cg so that no stale L1 line is used.
-//   - a wait that sees no progress for timeout_ns (the GPU's global timer)
-//     writes a code into the rank's status word and ends the block; the
-//     wrapper reads the status words after the launch and raises. A stalled
-//     ring fails instead of hanging.
+//     grant is used. Both slots start free, so the first two hops' slots are
+//     granted at entry. K6 gives the first half of the blocks the rightward
+//     ring over the top half of the tensor and the second half the leftward
+//     ring over the bottom half, each with its own slots and credits.
+//
+// Common to all: an entry barrier (signal both neighbours' barrier word
+// once, wait for 2), which across cards keeps a rank from writing into an
+// output or slot that a previous collective still uses. Signalling is
+// __syncthreads, then a release add at system scope (red.release.sys) by
+// thread 0; waiting is thread 0 spinning on acquire loads at system scope,
+// then __syncthreads. K4/K6 and the barrier also put a system fence before
+// the add and after the wait; K3/K5 do not (release() and acquire() below):
+// the fences are not needed for the ordering, and they make every hop's
+// handshake slower (PERF.md). Data written by a neighbour is
+// read with ld.global.cg so that no stale L1 line is used. A wait that sees
+// no progress for timeout_ns (the GPU's global timer) writes a code into the
+// rank's status word and ends the block; the wrapper reads the status words
+// after the launch and raises. Each K3/K5 block waits for its last arrival
+// before it ends, so a stalled left rank is caught there too.
 //
 // Residency. A rank spinning on a neighbour that never got an SM would hang,
 // so the launch is cooperative: cudaLaunchCooperativeKernel refuses a grid
 // that cannot be resident all at once. The wrapper sizes gridDim.x from
-// ring_resident_blocks() / n.
-//
-// Bound on an H100: device-memory bytes. The kernels only copy and add; on
-// one card each hop is a read and a write of a chunk in device memory (the
-// least time counts each rank's input read once and its output written once,
-// over 3.35 TB/s). Across cards the bound would be the NVLink rate instead.
+// ring_resident_blocks() / n, for the kernel it launches.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kUnroll = 4;     // float4s each thread loads before it stores
 constexpr int kSigWords = 16;  // per block: 64 bytes of signal words
 constexpr int kBarrier = 0;
 constexpr int kRecv = 1;       // kRecv + slot: payloads received into the slot
+constexpr int kArrived = 1;    // K3/K5: pieces that arrived in my output
 constexpr int kCap = 3;        // kCap + slot: credits to write the receiver's slot
 constexpr int kStatus = 15;    // non-zero: a wait timed out (code below)
 
-enum Mode { kAllGather = 0, kReduceScatter = 1, kAllReduce = 2, kBidir = 3 };
-enum Stall { kStallBarrier = 1, kStallCredit = 2, kStallRecv = 3 };
+enum Mode { kReduceScatter = 0, kBidir = 1 };
+enum Stall {
+  kStallBarrier = 1,
+  kStallCredit = 2,
+  kStallRecv = 3,
+  kStallArrival = 4
+};
+// the kernels, as ring_resident_blocks names them
+enum Kernel { kAllGatherKernel = 0, kRingKernel = 1, kAllReduceKernel = 2 };
 
 struct RankPtrs {
   const float* in;
   float* out;
+  float* right_out;    // the right neighbour's output (K3, K5)
   float* slots;        // this rank's receive slots: [directions][2][chunk]
   float* right_slots;  // the right neighbour's receive slots
   float* left_slots;   // the left neighbour's receive slots
@@ -134,6 +178,46 @@ __device__ __forceinline__ bool wait_for(const unsigned* word,
   return ok != 0;
 }
 
+// K3/K5's lighter pair. The release at system scope alone orders every
+// thread's earlier accesses before the add (__syncthreads orders the other
+// threads' before thread 0's), and the acquire every later one after the
+// wait, so neither needs a separate system fence.
+__device__ __forceinline__ void release(unsigned* word) {
+  __syncthreads();
+  if (threadIdx.x == 0) add_release(word, 1u);
+}
+
+__device__ __forceinline__ bool acquire(const unsigned* word, unsigned target,
+                                        unsigned* status, unsigned code,
+                                        long long timeout_ns) {
+  __shared__ int ok;
+  if (threadIdx.x == 0) {
+    int good = 1;
+    const unsigned long long start = now_ns();
+    while (load_acquire(word) < target) {
+      if (static_cast<long long>(now_ns() - start) > timeout_ns) {
+        good = 0;
+        *status = code;
+        break;
+      }
+    }
+    ok = good;
+  }
+  __syncthreads();
+  return ok != 0;
+}
+
+// Signal both neighbours' barrier word for block b, wait for theirs.
+__device__ __forceinline__ bool barrier(const RankPtrs& p, int b, unsigned* my,
+                                        long long timeout_ns) {
+  if (threadIdx.x == 0) {
+    __threadfence_system();
+    add_release(p.right_sig + b * kSigWords + kBarrier, 1u);
+    add_release(p.left_sig + b * kSigWords + kBarrier, 1u);
+  }
+  return wait_for(my + kBarrier, 2u, my + kStatus, kStallBarrier, timeout_ns);
+}
+
 // dst[i] = a[i], or a[i] + b[i] (received + local), for the float4s
 // i in [lo, hi).
 __device__ __forceinline__ void move(float4* dst, const float4* a,
@@ -192,40 +276,12 @@ struct Ring {
                     timeout_ns);
   }
 
-  __device__ bool enter(const RankPtrs& p, int b) {
-    if (threadIdx.x == 0) {
-      __threadfence_system();
-      add_release(p.right_sig + b * kSigWords + kBarrier, 1u);
-      add_release(p.left_sig + b * kSigWords + kBarrier, 1u);
-    }
-    return wait_for(my + kBarrier, 2u, my + kStatus, kStallBarrier,
-                    timeout_ns);
-  }
-
   // both slots start free: credit the first two hops' targets
   __device__ void open(int hops) {
     if (hops >= 1) grant(1);
     if (hops >= 2) grant(0);
   }
 };
-
-// K3: out[c] = rank c's input, for every c, in n - 1 hops.
-__device__ __forceinline__ void all_gather(Ring& r, const float4* in,
-                                           float4* out, int d) {
-  const int n = r.n;
-  const long long c4 = r.chunk4;
-  move(out + d * c4, in, nullptr, r.lo, r.hi);
-  const int hops = n - 1;
-  r.open(hops);
-  for (int t = 0; t < hops; ++t) {
-    const int s = (t + 1) & 1;
-    // after hop t the chunk that started t ranks to my left is mine
-    const float4* src = t == 0 ? in : out + wrap(d - t, n) * c4;
-    if (!r.send(s, src, nullptr) || !r.receive(s)) return;
-    move(out + wrap(d - t - 1, n) * c4, r.slot(s), nullptr, r.lo, r.hi);
-    if (t + 2 < hops) r.grant(s);
-  }
-}
 
 // K4: out = chunk d of the sum. At hop t rank d sends the running sum of
 // chunk d - t - 1; the sum lives in the slots and the input is never written.
@@ -253,11 +309,11 @@ __device__ __forceinline__ void reduce_scatter(Ring& r, const float4* in,
   move(out, r.slot(hops & 1), in + d * c4, r.lo, r.hi);
 }
 
-// K5 (and each direction of K6): reduce-scatter then all-gather, 2(n - 1)
-// hops, in place in `out`; chunk c is fully summed on rank c - 1. `rank` is
-// the rank's position along the ring's direction and `mirror` maps chunk
-// labels back for the leftward ring (rank and chunk both mirrored, which is
-// the TPU kernel's reverse index arithmetic).
+// Each direction of K6: reduce-scatter then all-gather, 2(n - 1) hops, in
+// place in `out`; chunk c is fully summed on rank c - 1. `rank` is the rank's
+// position along the ring's direction and `mirror` maps chunk labels back
+// for the leftward ring (rank and chunk both mirrored, which is the TPU
+// kernel's reverse index arithmetic).
 __device__ __forceinline__ void all_reduce(Ring& r, const float4* in,
                                            float4* out, int rank,
                                            bool mirror) {
@@ -282,6 +338,7 @@ __device__ __forceinline__ void all_reduce(Ring& r, const float4* in,
   }
 }
 
+// K4 and K6.
 __global__ void __launch_bounds__(kThreads)
 ring_kernel(const RankPtrs* __restrict__ ranks, int n, long long chunk4,
             int mode, long long timeout_ns) {
@@ -310,74 +367,252 @@ ring_kernel(const RankPtrs* __restrict__ ranks, int n, long long chunk4,
   r.credits0 = r.credits1 = 0;
   r.received0 = r.received1 = 0;
 
-  if (n > 1 && !r.enter(p, b)) return;
+  if (n > 1 && !barrier(p, b, r.my, timeout_ns)) return;
   const float4* in = reinterpret_cast<const float4*>(p.in);
   float4* out = reinterpret_cast<float4*>(p.out);
-  switch (mode) {
-    case kAllGather:
-      all_gather(r, in, out, d);
-      break;
-    case kReduceScatter:
-      reduce_scatter(r, in, out, d);
-      break;
-    case kAllReduce:
-      all_reduce(r, in, out, d, false);
-      break;
-    case kBidir: {
-      // the bottom half starts n chunks in
-      const long long off = dir * n * chunk4;
-      all_reduce(r, in + off, out + off, dir ? wrap(-d, n) : d, dir == 1);
-      break;
-    }
+  if (mode == kReduceScatter) {
+    reduce_scatter(r, in, out, d);
+  } else {
+    // the bottom half starts n chunks in
+    const long long off = dir * n * chunk4;
+    all_reduce(r, in + off, out + off, dir ? wrap(-d, n) : d, dir == 1);
   }
 }
 
-int launch(int mode, const void* ranks, int n, long long chunk4, int blocks,
-           long long timeout_ns, void* stream) {
-  const RankPtrs* table = static_cast<const RankPtrs*>(ranks);
-  void* args[] = {&table, &n, &chunk4, &mode, &timeout_ns};
-  cudaError_t err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<void*>(ring_kernel), dim3(blocks, n), dim3(kThreads),
-      args, 0, static_cast<cudaStream_t>(stream));
+// ---- K3 and K5 ------------------------------------------------------------
+
+// received + local, in that order
+__device__ __forceinline__ float4 sum4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+// dst0[i] (and dst1[i], if given) = a[i], or a[i] + b[i] (received + local),
+// for the float4s i in [lo, hi). Each thread loads kUnroll vectors of each
+// source before it stores any.
+__device__ __forceinline__ void forward(float4* dst0, float4* dst1,
+                                        const float4* a, const float4* b,
+                                        long long lo, long long hi) {
+  constexpr long long kStride = static_cast<long long>(kUnroll) * kThreads;
+  long long i = lo + threadIdx.x;
+  for (; i + (kUnroll - 1) * kThreads < hi; i += kStride) {
+    float4 v[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) v[u] = __ldcg(a + i + u * kThreads);
+    if (b != nullptr) {
+      float4 w[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) w[u] = __ldcg(b + i + u * kThreads);
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) v[u] = sum4(v[u], w[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      __stcg(dst0 + i + u * kThreads, v[u]);
+      if (dst1 != nullptr) __stcg(dst1 + i + u * kThreads, v[u]);
+    }
+  }
+  for (; i < hi; i += kThreads) {
+    float4 v = __ldcg(a + i);
+    if (b != nullptr) v = sum4(v, __ldcg(b + i));
+    __stcg(dst0 + i, v);
+    if (dst1 != nullptr) __stcg(dst1 + i, v);
+  }
+}
+
+// One block of a rank in K3 or K5: where its signals go, and the arrivals
+// it has waited for (the same count in every thread).
+struct Direct {
+  int n;
+  long long chunk4, timeout_ns;
+  unsigned* my;      // my signal words (this block)
+  unsigned* to;      // the right neighbour's signal words (this block)
+  unsigned awaited;  // arrivals counted so far
+
+  // float4 offset of chunk c (mod n)
+  __device__ long long at(int c) const {
+    return static_cast<long long>(wrap(c, n)) * chunk4;
+  }
+  // wait for the next piece to arrive in my output
+  __device__ bool arrival() {
+    return acquire(my + kArrived, ++awaited, my + kStatus, kStallArrival,
+                   timeout_ns);
+  }
+  // a piece arrival that nothing forwards: awaited at the end
+  __device__ void skip() { ++awaited; }
+  __device__ bool last() {
+    return acquire(my + kArrived, awaited, my + kStatus, kStallArrival,
+                   timeout_ns);
+  }
+  // my piece is in the right neighbour's output
+  __device__ void sent() { release(to + kArrived); }
+  // one hop of one piece [s, e): wait for its arrival if `wait`, then
+  // dst0 (and dst1) <- a (+ b), then signal the right neighbour
+  __device__ bool hop(bool wait, float4* dst0, float4* dst1, const float4* a,
+                      const float4* b, long long s, long long e) {
+    if (wait && !arrival()) return false;
+    forward(dst0, dst1, a, b, s, e);
+    sent();
+    return true;
+  }
+};
+
+__device__ __forceinline__ Direct direct(const RankPtrs& p, int n,
+                                         long long chunk4,
+                                         long long timeout_ns) {
+  Direct r;
+  r.n = n;
+  r.chunk4 = chunk4;
+  r.timeout_ns = timeout_ns;
+  r.my = p.sig + blockIdx.x * kSigWords;
+  r.to = p.right_sig + blockIdx.x * kSigWords;
+  r.awaited = 0;
+  return r;
+}
+
+// K3: out[c] = rank c's input, for every c, in n - 1 hops per piece.
+__global__ void __launch_bounds__(kThreads)
+all_gather_kernel(const RankPtrs* __restrict__ ranks, int n, long long chunk4,
+                  long long piece4, long long timeout_ns) {
+  const int d = blockIdx.y;
+  const RankPtrs p = ranks[d];
+  const long long lo = chunk4 * blockIdx.x / gridDim.x;
+  const long long hi = chunk4 * (blockIdx.x + 1) / gridDim.x;
+  const float4* in = reinterpret_cast<const float4*>(p.in);
+  float4* out = reinterpret_cast<float4*>(p.out);
+  float4* right = reinterpret_cast<float4*>(p.right_out);
+  if (n == 1) {
+    forward(out, nullptr, in, nullptr, lo, hi);
+    return;
+  }
+  Direct r = direct(p, n, chunk4, timeout_ns);
+  if (!barrier(p, blockIdx.x, r.my, timeout_ns)) return;
+  for (long long s = lo; s < hi; s += piece4) {
+    const long long e = s + piece4 < hi ? s + piece4 : hi;
+    // hop 0: my chunk into my output and the right neighbour's
+    if (!r.hop(false, out + r.at(d), right + r.at(d), in, nullptr, s, e))
+      return;
+    // hop t: the chunk that started t ranks to my left arrived at hop t - 1
+    for (int t = 1; t < n - 1; ++t) {
+      const long long c = r.at(d - t);
+      if (!r.hop(true, right + c, nullptr, out + c, nullptr, s, e)) return;
+    }
+    r.skip();  // chunk d + 1 arrives last and goes no further
+  }
+  r.last();
+}
+
+// K5: reduce-scatter then all-gather, 2(n - 1) hops per piece; chunk c is
+// complete on rank c - 1. Partial sums are held in the receiver's output.
+__global__ void __launch_bounds__(kThreads)
+all_reduce_kernel(const RankPtrs* __restrict__ ranks, int n, long long chunk4,
+                  long long piece4, long long timeout_ns) {
+  const int d = blockIdx.y;
+  const RankPtrs p = ranks[d];
+  const long long lo = chunk4 * blockIdx.x / gridDim.x;
+  const long long hi = chunk4 * (blockIdx.x + 1) / gridDim.x;
+  const float4* in = reinterpret_cast<const float4*>(p.in);
+  float4* out = reinterpret_cast<float4*>(p.out);
+  float4* right = reinterpret_cast<float4*>(p.right_out);
+  if (n == 1) {
+    forward(out, nullptr, in, nullptr, lo, hi);
+    return;
+  }
+  Direct r = direct(p, n, chunk4, timeout_ns);
+  if (!barrier(p, blockIdx.x, r.my, timeout_ns)) return;
+  for (long long s = lo; s < hi; s += piece4) {
+    const long long e = s + piece4 < hi ? s + piece4 : hi;
+    // reduce-scatter hop 0: my addend of chunk d starts its way right
+    const long long c0 = r.at(d);
+    if (!r.hop(false, right + c0, nullptr, in + c0, nullptr, s, e)) return;
+    // hop i: the partial of chunk d - i arrived; add mine, pass it on
+    for (int i = 1; i < n - 1; ++i) {
+      const long long c = r.at(d - i);
+      if (!r.hop(true, right + c, nullptr, out + c, in + c, s, e)) return;
+    }
+    // all-gather hop 0: my addend completes chunk d + 1; keep it and send it
+    const long long f = r.at(d + 1);
+    if (!r.hop(true, out + f, right + f, out + f, in + f, s, e)) return;
+    // hop i: the sum of chunk d + 1 - i arrived; pass it on
+    for (int i = 1; i < n - 1; ++i) {
+      const long long c = r.at(d + 1 - i);
+      if (!r.hop(true, right + c, nullptr, out + c, nullptr, s, e)) return;
+    }
+    r.skip();  // the sum of chunk d + 2 arrives last and goes no further
+  }
+  r.last();
+}
+
+const void* kernel_fn(int kernel) {
+  if (kernel == kAllGatherKernel)
+    return reinterpret_cast<const void*>(all_gather_kernel);
+  if (kernel == kAllReduceKernel)
+    return reinterpret_cast<const void*>(all_reduce_kernel);
+  return reinterpret_cast<const void*>(ring_kernel);
+}
+
+int launch(int kernel, void** args, int n, int blocks, void* stream) {
+  const cudaError_t err = cudaLaunchCooperativeKernel(
+      kernel_fn(kernel), dim3(blocks, n), dim3(kThreads), args, 0,
+      static_cast<cudaStream_t>(stream));
   cudaError_t last = cudaGetLastError();  // clears a non-sticky error
   return static_cast<int>(err != cudaSuccess ? err : last);
+}
+
+int launch_ring(int mode, const void* ranks, int n, long long chunk4,
+                int blocks, long long timeout_ns, void* stream) {
+  const RankPtrs* table = static_cast<const RankPtrs*>(ranks);
+  void* args[] = {&table, &n, &chunk4, &mode, &timeout_ns};
+  return launch(kRingKernel, args, n, blocks, stream);
+}
+
+int launch_direct(int kernel, const void* ranks, int n, long long chunk4,
+                  int blocks, long long piece4, long long timeout_ns,
+                  void* stream) {
+  const RankPtrs* table = static_cast<const RankPtrs*>(ranks);
+  void* args[] = {&table, &n, &chunk4, &piece4, &timeout_ns};
+  return launch(kernel, args, n, blocks, stream);
 }
 
 }  // namespace
 
 // ranks: device array of n RankPtrs; chunk4: float4s per chunk; blocks:
-// gridDim.x (even for bidir). Runs on `stream`; returns the launch's error.
+// gridDim.x (even for bidir); piece4: float4s per piece (K3, K5). Runs on
+// `stream`; returns the launch's error.
 extern "C" int ring_all_gather_f32(const void* ranks, int n, long long chunk4,
-                                   int blocks, long long timeout_ns,
-                                   void* stream) {
-  return launch(kAllGather, ranks, n, chunk4, blocks, timeout_ns, stream);
+                                   int blocks, long long piece4,
+                                   long long timeout_ns, void* stream) {
+  return launch_direct(kAllGatherKernel, ranks, n, chunk4, blocks, piece4,
+                       timeout_ns, stream);
 }
 
 extern "C" int ring_reduce_scatter_f32(const void* ranks, int n,
                                        long long chunk4, int blocks,
                                        long long timeout_ns, void* stream) {
-  return launch(kReduceScatter, ranks, n, chunk4, blocks, timeout_ns, stream);
+  return launch_ring(kReduceScatter, ranks, n, chunk4, blocks, timeout_ns,
+                     stream);
 }
 
 extern "C" int ring_all_reduce_f32(const void* ranks, int n, long long chunk4,
-                                   int blocks, long long timeout_ns,
-                                   void* stream) {
-  return launch(kAllReduce, ranks, n, chunk4, blocks, timeout_ns, stream);
+                                   int blocks, long long piece4,
+                                   long long timeout_ns, void* stream) {
+  return launch_direct(kAllReduceKernel, ranks, n, chunk4, blocks, piece4,
+                       timeout_ns, stream);
 }
 
 extern "C" int ring_all_reduce_bidir_f32(const void* ranks, int n,
                                          long long chunk4, int blocks,
                                          long long timeout_ns, void* stream) {
-  return launch(kBidir, ranks, n, chunk4, blocks, timeout_ns, stream);
+  return launch_ring(kBidir, ranks, n, chunk4, blocks, timeout_ns, stream);
 }
 
-// Blocks of ring_kernel that can be resident at once on the current device.
-extern "C" int ring_resident_blocks(int* out) {
+// Blocks of one ring kernel that can be resident at once on the current
+// device: kernel 0 is K3, 1 is K4/K6, 2 is K5.
+extern "C" int ring_resident_blocks(int kernel, int* out) {
   int device = 0, per_sm = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, ring_kernel, kThreads, 0);
+        &per_sm, kernel_fn(kernel), kThreads, 0);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   *out = per_sm * sms;

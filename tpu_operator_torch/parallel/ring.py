@@ -10,10 +10,14 @@ For CUDA tensors, all ranks lie on one card as virtual ranks (see
 ``parallel/mesh.py``) and one cooperative launch of ``csrc/ring.cu`` holds
 them all; the source says how a rank reaches its neighbours and what bounds
 it. f32 only. For CPU tensors the wrapper runs the plain version: a hop-by-hop
-simulation of the same schedule (the same slots, the same chunk arithmetic
-as the TPU kernels, the same ``received + local`` adds) that also keeps a
-ledger of the credits. The kernels and the plain versions give the same
-bits, and the plain versions the same bits as the TPU kernels.
+simulation of the TPU kernels' schedule (the same slots, the same chunk
+arithmetic, the same ``received + local`` adds) that also keeps a ledger of
+the credits. K4 and K6 follow that schedule on the card too. K3 and K5 follow
+another on the card, in which the sender writes straight into its right
+neighbour's output, piece by piece; ``all_gather_direct_plain`` and
+``all_reduce_direct_plain`` run that schedule with one coroutine per (rank,
+block) under a seeded scheduler, blocking on the kernel's own counters. All
+of them give the same bits, and the same bits as the TPU kernels.
 
 The ``*_sharded`` functions split a whole array over a mesh axis and
 assemble the result as the reference's ``shard_map`` in/out specs do, so the
@@ -22,8 +26,10 @@ tests compare like with like.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import math
+import random
 
 import torch
 
@@ -34,7 +40,10 @@ THREADS = 256          # threads per block of the kernel (kThreads)
 SIG_WORDS = 16         # signal words per block (kSigWords)
 STATUS_WORD = 15       # a non-zero status means a wait timed out (kStatus)
 TIMEOUT_NS = 5_000_000_000
-_STALLS = {1: "entry barrier", 2: "credit", 3: "receive"}
+_STALLS = {1: "entry barrier", 2: "credit", 3: "receive", 4: "arrival"}
+# K3 and K5 move each block's slice in pieces of this many bytes, chosen
+# by chip_smoke.py's sweep (PERF.md)
+PIECE_BYTES = 16 << 10
 
 
 class CreditError(RuntimeError):
@@ -43,6 +52,11 @@ class CreditError(RuntimeError):
 
 class RingStall(RuntimeError):
     """A rank of a ring kernel waited past its timeout."""
+
+
+class ProtocolError(RuntimeError):
+    """A schedule deadlocked: every block waits for an arrival that no
+    block will send."""
 
 
 class _Ledger:
@@ -208,6 +222,161 @@ def all_reduce_bidir_plain(xs, ledgers: tuple[_Ledger, _Ledger] | None = None):
     return outs
 
 
+# -- plain versions of K3's and K5's schedules on the card -------------------
+
+def pieces(chunk4: int, blocks: int, piece4: int, b: int):
+    """Block b's pieces as the K3/K5 kernels cut them: [s, e) in 16-byte
+    vectors of a chunk of ``chunk4`` vectors."""
+    lo, hi = chunk4 * b // blocks, chunk4 * (b + 1) // blocks
+    return [(s, min(s + piece4, hi)) for s in range(lo, hi, piece4)]
+
+
+class _Scheduler:
+    """Runs one coroutine per (rank, block) to its end, picking at random
+    (from ``seed``) which runnable one takes its next step. A coroutine
+    yields the counter and target it waits for before a step, as a block's
+    thread 0 spins on an acquire load, or None for a step that waits for
+    nothing; the step itself (its reads, writes and signal) runs whole."""
+
+    def __init__(self, seed: int):
+        self.rng = random.Random(seed)
+        self.counters = collections.Counter()
+
+    def signal(self, key) -> None:
+        self.counters[key] += 1
+
+    def ready(self, key, target: int) -> bool:
+        return self.counters[key] >= target
+
+    def run(self, coroutines) -> None:
+        waits = {}
+        for co in coroutines:
+            waits[co] = next(co, StopIteration)
+        waits = {co: w for co, w in waits.items() if w is not StopIteration}
+        while waits:
+            runnable = [co for co, w in waits.items()
+                        if w is None or self.ready(*w)]
+            if not runnable:
+                raise ProtocolError("deadlock: every block waits, on "
+                                    f"{sorted(set(waits.values()))}")
+            co = self.rng.choice(runnable)
+            w = next(co, StopIteration)
+            if w is StopIteration:
+                del waits[co]
+            else:
+                waits[co] = w
+
+
+def _direct(xs, gather: bool, blocks: int, piece_bytes: int, seed: int,
+            trace: list | None):
+    """K3's (``gather``) or K5's schedule on the card, on flat views of the
+    ranks' tensors. ``trace``, if given, receives every access to an
+    output piece in the order it ran: ("write", rank, chunk, s, kind) with
+    kind "partial" or "final", and ("read", rank, chunk, s)."""
+    n = len(xs)
+    flat = [x.reshape(-1) for x in xs]
+    chunk = flat[0].numel() // (1 if gather else n)
+    if chunk % 4 or piece_bytes <= 0 or piece_bytes % 16:
+        raise ValueError("chunks and pieces are whole 16-byte vectors")
+    chunk4, piece4 = chunk // 4, piece_bytes // 16
+    outs = [torch.full((n * chunk,), float("nan"), dtype=x.dtype,
+                       device=x.device) for x in flat]
+    if n == 1:
+        outs[0].copy_(flat[0])
+        return outs
+    sched = _Scheduler(seed)
+    log = trace if trace is not None else []
+
+    def rows(c, s, e):
+        return slice(c * chunk + 4 * s, c * chunk + 4 * e)
+
+    def read(rank, c, s, e):
+        log.append(("read", rank, c, s))
+        return outs[rank][rows(c, s, e)].clone()
+
+    def write(rank, c, s, e, value, kind):
+        log.append(("write", rank, c, s, kind))
+        outs[rank][rows(c, s, e)] = value
+
+    def local(d, c, s, e):
+        return flat[d][rows(c, s, e)]
+
+    def block(d, b):
+        right, left = (d + 1) % n, (d - 1) % n
+        arrived = ("arrived", d, b)
+        sched.signal(("barrier", right, b))
+        sched.signal(("barrier", left, b))
+        yield ("barrier", d, b), 2
+        awaited = 0
+
+        def send(c, s, e, value, kind):
+            write(right, c, s, e, value, kind)
+            sched.signal(("arrived", right, b))
+
+        for s, e in pieces(chunk4, blocks, piece4, b):
+            if gather:
+                yield None
+                mine = local(d, 0, s, e)
+                write(d, d, s, e, mine, "final")
+                send(d, s, e, mine, "final")
+                for t in range(1, n - 1):
+                    awaited += 1
+                    yield arrived, awaited
+                    c = (d - t) % n
+                    send(c, s, e, read(d, c, s, e), "final")
+                awaited += 1
+                continue
+            yield None
+            send(d, s, e, local(d, d, s, e), "partial")
+            for i in range(1, n - 1):
+                awaited += 1
+                yield arrived, awaited
+                c = (d - i) % n
+                send(c, s, e, read(d, c, s, e) + local(d, c, s, e),
+                     "partial")
+            awaited += 1
+            yield arrived, awaited
+            f = (d + 1) % n
+            total = read(d, f, s, e) + local(d, f, s, e)
+            write(d, f, s, e, total, "final")
+            send(f, s, e, total, "final")
+            for i in range(1, n - 1):
+                awaited += 1
+                yield arrived, awaited
+                c = (d + 1 - i) % n
+                send(c, s, e, read(d, c, s, e), "final")
+            awaited += 1
+        yield arrived, awaited
+
+    sched.run([block(d, b) for d in range(n) for b in range(blocks)])
+    return outs
+
+
+def all_gather_direct_plain(xs, *, blocks: int = 1,
+                            piece_bytes: int = PIECE_BYTES, seed: int = 0,
+                            trace: list | None = None):
+    """K3's schedule on the card: per block and piece, hop 0 writes my
+    input into my output and my right neighbour's; hop t forwards the
+    chunk that arrived at hop t - 1 into the right neighbour's output.
+    Every rank's (block, piece) steps interleave as ``seed`` picks."""
+    n, rows = len(xs), xs[0].shape[0]
+    outs = _direct(xs, True, blocks, piece_bytes, seed, trace)
+    return [o.view(n * rows, *xs[0].shape[1:]) for o in outs]
+
+
+def all_reduce_direct_plain(xs, *, blocks: int = 1,
+                            piece_bytes: int = PIECE_BYTES, seed: int = 0,
+                            trace: list | None = None):
+    """K5's schedule on the card: the reduce-scatter passes partial sums
+    from each rank's output into its right neighbour's, adding the local
+    addend on the way; the all-gather's first hop adds the last addend and
+    every later hop forwards the sum over the partial it replaces."""
+    if xs[0].shape[0] % len(xs):
+        raise ValueError(f"rows {xs[0].shape[0]} not divisible by {len(xs)}")
+    outs = _direct(xs, False, blocks, piece_bytes, seed, trace)
+    return [o.view(xs[0].shape) for o in outs]
+
+
 # -- kernel wrappers --------------------------------------------------------
 
 def _check_ranks(xs, step_rows: int, what: str) -> torch.device:
@@ -238,40 +407,50 @@ def _check_ranks(xs, step_rows: int, what: str) -> torch.device:
     return dev
 
 
-_resident: dict[int, int] = {}
+_resident: dict[tuple, int] = {}
 
 
-def resident_blocks(device: torch.device) -> int:
-    """Blocks of the ring kernel that fit on the card at once."""
+def resident_blocks(device: torch.device, kind: str) -> int:
+    """Blocks of the ring kernel behind wrapper ``kind`` that fit on the
+    card at once (K4 and K6 share one kernel)."""
     index = device.index if device.index is not None \
         else torch.cuda.current_device()
-    if index not in _resident:
+    key = (index, RingLaunch._KERNELS[kind][3])
+    if key not in _resident:
         out = ctypes.c_int(0)
         with torch.cuda.device(index):
             _native.check(_native.library().ring_resident_blocks(
-                ctypes.byref(out)), "ring_resident_blocks")
-        _resident[index] = out.value
-    return _resident[index]
+                key[1], ctypes.byref(out)), "ring_resident_blocks")
+        _resident[key] = out.value
+    return _resident[key]
 
 
 class RingLaunch:
     """One ring kernel over fixed ranks, set up once: the outputs, each
-    rank's slots and signal words, and the pointer table on the card.
+    rank's slots (K4, K6) and signal words, and the pointer table on the
+    card.
 
     :meth:`launch` zeroes the signal words and launches the kernel, both on
     the current stream, and does not synchronise; :meth:`raise_on_stall`
     synchronises and raises if a rank timed out. The wrappers do both for
-    every call; a timing loop can repeat :meth:`launch` alone."""
+    every call; a timing loop can repeat :meth:`launch` alone.
 
-    _KERNELS = {  # wrapper → (C entry point, comm slots, directions)
-        "all_gather": ("ring_all_gather_f32", 2, 1),
-        "reduce_scatter": ("ring_reduce_scatter_f32", 2, 1),
-        "all_reduce": ("ring_all_reduce_f32", 2, 1),
-        "all_reduce_bidir": ("ring_all_reduce_bidir_f32", 4, 2),
+    ``piece_bytes`` (K3 and K5 only, for the tests and ``chip_smoke.py``'s
+    sweep) overrides :data:`PIECE_BYTES`."""
+
+    # wrapper → (C entry point, comm slot chunks, directions, kernel id of
+    # ring_resident_blocks); K3 and K5 write into the neighbour's output
+    _KERNELS = {
+        "all_gather": ("ring_all_gather_f32", 0, 1, 0),
+        "reduce_scatter": ("ring_reduce_scatter_f32", 2, 1, 1),
+        "all_reduce": ("ring_all_reduce_f32", 0, 1, 2),
+        "all_reduce_bidir": ("ring_all_reduce_bidir_f32", 4, 2, 1),
     }
 
-    def __init__(self, kind: str, xs, blocks: int | None = None):
-        self.name, slot_chunks, directions = self._KERNELS[kind]
+    def __init__(self, kind: str, xs, blocks: int | None = None,
+                 piece_bytes: int | None = None):
+        self.name, slot_chunks, directions, _ = self._KERNELS[kind]
+        self.direct = direct = slot_chunks == 0
         n = len(xs)
         dev = xs[0].device
         if kind == "all_gather":
@@ -293,14 +472,25 @@ class RingLaunch:
             raise ValueError("the ring kernels take contiguous 16-byte "
                              "aligned tensors")
         self.chunk4 = chunk_elems // 4
+        if not direct and piece_bytes is not None:
+            raise ValueError(f"{kind}: pieces are K3's and K5's")
+        piece_bytes = PIECE_BYTES if piece_bytes is None else piece_bytes
+        if piece_bytes <= 0 or piece_bytes % 16:
+            raise ValueError(f"a piece of {piece_bytes} bytes is not a whole "
+                             "number of 16-byte vectors")
+        piece4 = min(piece_bytes // 16, max(1, self.chunk4))
         if blocks is not None and blocks % directions:
             raise ValueError(f"blocks {blocks} must be even: half per "
                              "direction")
         if blocks is None:
-            per_dir = max(1, min(resident_blocks(dev) // (n * directions),
+            fit = resident_blocks(dev, kind)
+            per_dir = max(1, min(fit // (n * directions),
                                  math.ceil(self.chunk4 / THREADS)))
             blocks = per_dir * directions
         self.n, self.blocks, self.device = n, blocks, dev
+        # no piece is longer than a block's slice
+        self.piece4 = min(piece4, math.ceil(self.chunk4 / blocks)) \
+            if direct else 0
         slots = [torch.empty(slot_chunks * chunk_elems, dtype=torch.float32,
                              device=dev) for _ in range(n)]
         # separate allocations, as the ranks' would be on separate cards
@@ -309,6 +499,7 @@ class RingLaunch:
         self.status = [s.view(blocks, SIG_WORDS)[:, STATUS_WORD]
                        for s in self.sigs]
         rows = [[xs[d].data_ptr(), self.outs[d].data_ptr(),
+                 self.outs[(d + 1) % n].data_ptr(),
                  slots[d].data_ptr(), slots[(d + 1) % n].data_ptr(),
                  slots[(d - 1) % n].data_ptr(), self.sigs[d].data_ptr(),
                  self.sigs[(d + 1) % n].data_ptr(),
@@ -320,10 +511,11 @@ class RingLaunch:
 
     def launch(self) -> None:
         torch._foreach_zero_(self.sigs)
+        pieces = (self.piece4,) if self.direct else ()
         with torch.cuda.device(self.device):
             err = getattr(_native.library(), self.name)(
                 self.table.data_ptr(), self.n, self.chunk4, self.blocks,
-                TIMEOUT_NS, torch.cuda.current_stream().cuda_stream)
+                *pieces, TIMEOUT_NS, torch.cuda.current_stream().cuda_stream)
         _native.check(err, f"{self.name} (n={self.n}, blocks={self.blocks})")
 
     def raise_on_stall(self) -> None:
