@@ -8,12 +8,16 @@ the CUDA toolkit (nvcc). The script builds the port's CUDA kernels from
 ``tpu_operator_torch/csrc``, holds each against its plain PyTorch version
 on the card, runs the full-width burn-in forward pass (``entry()``), and
 runs ``WorkloadComponent.validate()``, the node-validation workload, whose
-HBM and flash-attention legs must go through the kernels. Then it holds the
-ring kernels (K3–K6) against their plain versions and the library sums for
-2, 4 and 8 virtual ranks on the card, times them at 4 × 64 MiB (with the
-bytes their schedules move, a library call that fills all n outputs, and
-for K3 and K5 a sweep of piece sizes) and
-at 4 × 64 KiB (the per-hop handshake), and runs the multi-device dry run
+HBM and flash-attention legs must go through the kernels. K2 (flash
+attention) is timed inside a CUDA graph, so that the host's time per call
+is not in it, with a sweep of the most kv tiles a unit of its work takes,
+and beside every SDPA backend (flash, cuDNN, memory-efficient, math) on
+the 4-D form of the same inputs; the fastest is its library time. Then it
+holds the ring kernels (K3–K6) against their plain versions and the library
+sums for 2, 4 and 8 virtual ranks on the card, times them at 4 × 64 MiB
+(with the bytes their schedules move, a library call that fills all n
+outputs, and for K3, K5 and K6 a sweep of piece sizes) and at 4 × 64 KiB
+(the per-hop handshake), and runs the multi-device dry run
 ``dryrun_multigpu(4)``, whose ring checks must go through those kernels.
 
 Output: progress lines, then the ``nvidia-smi`` name and power limit, then
@@ -29,6 +33,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -57,6 +62,29 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     start.record()
     for _ in range(iters):
         fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int) -> float:
+    """Mean milliseconds of ``fn()`` on the card alone: ``iters`` calls
+    captured in one CUDA graph, replayed once untimed and once timed by
+    CUDA events, so that the host's time per call (Python, argument checks,
+    the launch itself) is not in it. ``fn`` runs once first, uncaptured,
+    to set up what it caches."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
@@ -175,8 +203,86 @@ def k2_faults(q, k, v, ref, causal: bool) -> dict:
             "output scaled by 1+1/64": (ref * (1 + 1 / 64)).to(q.dtype)}
 
 
-def phase_flash(dev, kind) -> dict:
+SDPA_BACKENDS = ("FLASH_ATTENTION", "CUDNN_ATTENTION", "EFFICIENT_ATTENTION",
+                 "MATH")
+
+
+def sdpa_times(q, k, v, causal: bool, ref32) -> dict:
+    """Each SDPA backend alone on the 4-D ([1, H, T, D]) form of the inputs:
+    its time in ms, or None where it refused them, with its max abs error
+    against the f32 plain output. Only a 4-D input reaches the fused
+    backends; on 3-D input SDPA runs its math backend."""
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    q4, k4, v4 = (x.reshape(1, -1, *x.shape[-2:]) for x in (q, k, v))
+    times = {}
+    for name in SDPA_BACKENDS:
+        with sdpa_kernel(getattr(SDPBackend, name)):
+            def run():
+                return F.scaled_dot_product_attention(q4, k4, v4,
+                                                      is_causal=causal)
+            try:
+                out = run()
+            except RuntimeError as exc:
+                times[name] = None
+                print(f"[K2] sdpa {name}: refused "
+                      f"({str(exc).splitlines()[0][:120]})")
+                continue
+            err = (out.reshape(ref32.shape).float() - ref32).abs().max().item()
+            times[name] = graph_ms(run, iters=20)
+            print(f"[K2] sdpa {name}: {times[name]:.4f} ms in a graph "
+                  f"({cuda_ms(run, iters=20):.4f} ms a call from the host), "
+                  f"max abs err {err:.3e}")
+    return times
+
+
+# kv tiles per unit; None: one unit per q tile (no combine)
+SWEEP_SPLITS = (2, 4, 8, 16, None)
+
+
+def flash_sweep(q, k, v, causal, ref32, limit) -> dict:
+    """K2's time by the most kv tiles a unit takes, each result held to the
+    per-element limit."""
+    from tpu_operator_torch.ops import flash_attention as flash
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    times = {}
+    for split in SWEEP_SPLITS:
+        s = split or q.shape[-2] // flash.BLOCK
+        out = flash.flash_launch(q, k, v, scale, causal, s)
+        ratio = limit_ratio(out, ref32, limit)
+        check(ratio <= 1.0, f"K2 split {split}: error {ratio:.3f}x its "
+                            "per-element limit")
+        label = str(split or "none")
+        times[label] = graph_ms(
+            lambda: flash.flash_launch(q, k, v, scale, causal, s), iters=20)
+        units = len(flash.work_list(1, q.shape[-2], causal, s)[0])
+        print(f"[K2] split sweep: at most {label} kv tiles a unit "
+              f"({units} units): {times[label]:.4f} ms, limit ratio "
+              f"{ratio:.3f}")
+    return times
+
+
+def flash_profile(q, k, v, causal) -> dict:
+    """Device microseconds per call of each K2 kernel (the unit kernel and
+    the merge), from torch.profiler over 10 wrapper calls; empty where the
+    profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    from tpu_operator_torch.ops.flash_attention import flash_attention
+    flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+    times = {}
+    for e in prof.key_averages():
+        name = re.search(r"flash_\w*kernel", e.key)
+        if name and e.device_time_total > 0:
+            times[name.group()] = e.device_time_total / 10
+    return times
+
+
+def phase_flash(dev, kind) -> dict:
     from tpu_operator_torch.ops.flash_attention import (attention_plain,
                                                         flash_attention,
                                                         kernel_error_limit)
@@ -212,15 +318,28 @@ def phase_flash(dev, kind) -> dict:
                   in k2_faults(q, k, v, ref32, causal).items()}
         check(all(r > 1.0 for r in faults.values()),
               f"K2 limit passes a planted fault: {faults}")
-        del ref32, limit
-        ms = cuda_ms(lambda: flash_attention(q, k, v, causal=causal),
-                     iters=20)
+        sweep = profiled = None
+        if main is None:
+            sweep = flash_sweep(q, k, v, causal, ref32, limit)
+            profiled = flash_profile(q, k, v, causal)
+            print("[K2] device time per call by kernel (torch.profiler): "
+                  + (", ".join(f"{name} {us:.2f} us"
+                               for name, us in profiled.items())
+                     or "none seen"))
+        del limit
+        # the kernels alone, and a call of the wrapper from the host
+        ms = graph_ms(lambda: flash_attention(q, k, v, causal=causal),
+                      iters=20)
+        call_ms = cuda_ms(lambda: flash_attention(q, k, v, causal=causal),
+                          iters=20)
         plain_ms = cuda_ms(lambda: attention_plain(q, k, v, causal=causal),
                            iters=10)
-        # SDPA takes (N, L, E): one batch of one head, or the heads as N
-        q4, k4, v4 = ((x.unsqueeze(0) if h is None else x) for x in (q, k, v))
-        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-            q4, k4, v4, is_causal=causal), iters=20)
+        sdpa = sdpa_times(q, k, v, causal, ref32)
+        del ref32
+        ran = {name: t for name, t in sdpa.items() if t is not None}
+        check(bool(ran), "no SDPA backend took the inputs")
+        backend = min(ran, key=ran.get)
+        library_ms = ran[backend]
         heads = h or 1
         pairs = t * (t + 1) // 2 if causal else t * t
         flops = 4.0 * d * pairs * heads
@@ -231,16 +350,22 @@ def phase_flash(dev, kind) -> dict:
               f"{ratio:.3f} (planted faults: "
               + ", ".join(f"{n} {r:.2f}" for n, r in faults.items())
               + f"); kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s); "
-              f"plain {plain_ms:.4f} ms; sdpa {library_ms:.4f} ms; bound "
+              f"wrapper call {call_ms:.4f} ms; plain {plain_ms:.4f} ms; "
+              f"fastest sdpa {backend} "
+              f"{library_ms:.4f} ms (math {sdpa['MATH']:.4f} ms); bound "
               f"{bound_ms:.4f} ms ({bound_by})")
         if main is None:
             main = {"name": "flash_fwd", "route": "cuda",
                     "source": "tpu_operator_torch/csrc/flash_fwd.cu",
                     "replaces": "tpu_operator/ops/flash_attention.py:48",
                     "max_abs_err": err, "limit_ratio": ratio, "ms": ms,
-                    "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "call_ms": call_ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms,
                     "bound_by": bound_by, "library_ms": library_ms,
-                    "shape": f"bf16 [{t}, {d}] causal"}
+                    "library_backend": backend,
+                    "library_math_ms": sdpa["MATH"],
+                    "shape": f"bf16 [{t}, {d}] causal", "split_sweep": sweep,
+                    "profiled_us": profiled}
     return main
 
 
@@ -254,9 +379,10 @@ RING_KERNELS = (
     ("ring_all_reduce_bidir", "ring_all_reduce_bidir",
      "all_reduce_bidir_plain", 311, 2),
 )
-# K3's and K5's schedule on the card, beside the TPU kernels' one
+# K3's, K5's and K6's schedule on the card, beside the TPU kernels' one
 DIRECT_PLAIN = {"ring_all_gather": "all_gather_direct_plain",
-                "ring_all_reduce": "all_reduce_direct_plain"}
+                "ring_all_reduce": "all_reduce_direct_plain",
+                "ring_all_reduce_bidir": "all_reduce_bidir_direct_plain"}
 PAYLOAD_MB, PAYLOAD_COLS = 64, 512   # the validator's collective payload
 
 
@@ -284,13 +410,14 @@ def ring_bytes(name: str, n: int, per_rank: int) -> tuple[int, float]:
 
 def design_bytes(name: str, n: int, per_rank: int) -> int:
     """Bytes the kernel's own schedule reads and writes in device memory,
-    all ranks together (``csrc/ring.cu``'s note): K3 and K5 write into the
-    neighbour's output; K4 and K6 go through slots."""
-    c = per_rank // n               # the chunk of a hop, but K3's
+    all ranks together (``csrc/ring.cu``'s note): K3, K5 and K6 write into
+    the neighbour's output; K4 goes through slots."""
+    c = per_rank // n    # a hop's chunk (K6: a chunk of each half); K3's
+    # hop moves a whole rank's input
     return n * {"ring_all_gather": per_rank * (2 * n - 1),
                 "ring_reduce_scatter": c * (3 * n - 1),
                 "ring_all_reduce": c * (5 * n - 4),
-                "ring_all_reduce_bidir": c * (11 * n - 9)}[name]
+                "ring_all_reduce_bidir": c * (5 * n - 4)}[name]
 
 
 def ring_library_n(name: str, xs, outs):
@@ -432,8 +559,8 @@ SWEEP_PIECES = (8 << 10, 16 << 10, 32 << 10, 64 << 10, 128 << 10, None)
 
 
 def ring_sweep(name, xs, want) -> dict:
-    """K3's or K5's kernel-alone time by piece size, each checked against
-    the plain version after its launches."""
+    """K3's, K5's or K6's kernel-alone time by piece size, each checked
+    against the plain version after its launches."""
     from tpu_operator_torch.parallel import ring
     kind = name.removeprefix("ring_")
     times = {}

@@ -58,7 +58,10 @@ def test_read_kernel_rejects_what_it_cannot_take(cuda):
 
 @pytest.mark.parametrize("shape,causal", [
     ((256, 128), True), ((256, 128), False), ((4, 256, 128), True),
-    ((64, 128), True)])
+    ((64, 128), True), ((128, 128), True),
+    # 9 q tiles: q tile 8 is one unit of SPLIT = 8 kv tiles and a remainder
+    ((576, 128), True), ((576, 128), False), ((2, 576, 128), True),
+    ((4096, 128), True), ((4096, 128), False)])
 def test_flash_kernel_matches_plain(cuda, shape, causal):
     gen = torch.Generator(device=cuda).manual_seed(2)
     q, k, v = (torch.randn(shape, generator=gen, device=cuda)
@@ -73,6 +76,29 @@ def test_flash_kernel_matches_plain(cuda, shape, causal):
     assert err <= attention_tolerance(torch.bfloat16, shape[-1], "cuda")
     ref, limit = flash_mod.kernel_error_limit(q, k, v, causal=causal)
     assert bool(((out.float() - ref).abs() <= limit).all())
+
+
+@pytest.mark.parametrize("split", [1, 3, 100])
+def test_flash_kernel_units_of_any_length(cuda, split):
+    """Units of one kv tile (every q tile but the first split), of three
+    (ragged against nine tiles) and whole rows (no combine)."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = (torch.randn((2, 576, 128), generator=gen, device=cuda)
+               .to(torch.bfloat16) for _ in range(3))
+    for causal in (True, False):
+        out = flash_mod.flash_launch(q, k, v, 128 ** -0.5, causal, split)
+        ref, limit = flash_mod.kernel_error_limit(q, k, v, causal=causal)
+        assert bool(((out.float() - ref).abs() <= limit).all())
+
+
+def test_flash_kernel_gives_the_same_bits_twice(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    q, k, v = (torch.randn((4096, 128), generator=gen, device=cuda)
+               .to(torch.bfloat16) for _ in range(3))
+    for causal in (True, False):
+        first = flash_mod.flash_attention(q, k, v, causal=causal)
+        assert torch.equal(first, flash_mod.flash_attention(q, k, v,
+                                                            causal=causal))
 
 
 def test_flash_kernel_rejects_what_it_cannot_take(cuda):
@@ -165,23 +191,35 @@ def test_all_gather_stall_raises_instead_of_hanging(cuda, monkeypatch):
         ring.ring_all_gather(xs)
 
 
+def test_all_reduce_bidir_stall_raises_instead_of_hanging(cuda, monkeypatch):
+    monkeypatch.setattr(ring, "TIMEOUT_NS", 0)
+    xs = _ranks(cuda, 8, 8 * 4096, 512)
+    with pytest.raises(ring.RingStall, match="timed out"):
+        ring.ring_all_reduce_bidir(xs)
+
+
 DIRECT = {"all_gather": ring.all_gather_direct_plain,
-          "all_reduce": ring.all_reduce_direct_plain}
+          "all_reduce": ring.all_reduce_direct_plain,
+          "all_reduce_bidir": ring.all_reduce_bidir_direct_plain}
+
+
+def _blocks(name, per_direction):
+    """K6 splits its blocks over two directions."""
+    return 2 * per_direction if name == "all_reduce_bidir" else per_direction
 
 
 @pytest.mark.parametrize("n", [2, 4, 8])
 @pytest.mark.parametrize("name", sorted(DIRECT))
 def test_direct_kernel_equals_its_schedule_and_the_slot_schedule(cuda, name,
                                                                   n):
-    """K3 and K5 give the bits of their own schedule's plain version (run
-    here with other blocks and pieces: the bits do not depend on them) and
-    of the slot schedule's."""
+    """K3, K5 and K6 give the bits of their own schedule's plain version
+    (run here with other blocks and pieces: the bits do not depend on them)
+    and of the slot schedule's."""
     fn, slots = RING[name]
     xs = _ranks(cuda, n, 2 * n * 64, 128, seed=6)
     outs = fn(xs)
-    for got, direct, slot in zip(outs, DIRECT[name](xs, blocks=3,
-                                                    piece_bytes=4096),
-                                 slots(xs)):
+    for got, direct, slot in zip(outs, DIRECT[name](
+            xs, blocks=_blocks(name, 3), piece_bytes=4096), slots(xs)):
         assert torch.equal(got, direct) and torch.equal(got, slot)
 
 
@@ -189,11 +227,12 @@ def test_direct_kernel_equals_its_schedule_and_the_slot_schedule(cuda, name,
 @pytest.mark.parametrize("name", sorted(DIRECT))
 def test_direct_kernel_pieces_need_not_divide_the_slice(cuda, name,
                                                         piece_bytes):
-    """Slices of 4096 (K3) and 1024 (K5) vectors cut into pieces of 1, 257
-    (a prime) and 1536 vectors, or one piece a slice."""
+    """Slices of 4096 (K3), 1024 (K5) and 512 (K6) vectors cut into pieces
+    of 1, 257 (a prime) and 1536 vectors, or one piece a slice."""
     _, slots = RING[name]
     xs = _ranks(cuda, 4, 4 * 56, 512, seed=7)
-    launch = ring.RingLaunch(name, xs, blocks=7, piece_bytes=piece_bytes)
+    launch = ring.RingLaunch(name, xs, blocks=_blocks(name, 7),
+                             piece_bytes=piece_bytes)
     launch.launch()
     launch.raise_on_stall()
     for got, exp in zip(launch.outs, slots(xs)):
@@ -205,10 +244,11 @@ def test_direct_kernel_pieces_need_not_divide_the_slice(cuda, name,
 @pytest.mark.parametrize("name", sorted(DIRECT))
 def test_direct_kernel_on_chunks_smaller_than_a_block(cuda, name, n, rows):
     """The dry run's (2n², 128) shapes (a K5 chunk of 2n rows of 32
-    vectors: fewer than a block's 256 threads at n = 2) and one row of 128
-    per rank and chunk (32 vectors)."""
+    vectors, K6's of n rows: fewer than a block's 256 threads at n = 2) and
+    one row of 128 per rank and chunk (32 vectors)."""
     _, slots = RING[name]
-    xs = _ranks(cuda, n, 2 * n * n if rows == "dry run" else n, 128, seed=8)
+    rows = 2 * n * n if rows == "dry run" else _blocks(name, 1) * n
+    xs = _ranks(cuda, n, rows, 128, seed=8)
     launch = ring.RingLaunch(name, xs)
     launch.launch()
     launch.raise_on_stall()

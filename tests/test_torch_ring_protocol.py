@@ -1,8 +1,10 @@
-"""The schedules of the card's K3 and K5 kernels, on the CPU.
+"""The schedules of the card's K3, K5 and K6 kernels, on the CPU.
 
-``ring.all_gather_direct_plain`` and ``ring.all_reduce_direct_plain`` run
-the kernels' schedule (the sender writes into its right neighbour's output,
-piece by piece, and signals one "arrived" counter per block) with one
+``ring.all_gather_direct_plain``, ``ring.all_reduce_direct_plain`` and
+``ring.all_reduce_bidir_direct_plain`` run the kernels' schedule (the sender
+writes into its neighbour's output, piece by piece, and signals one
+"arrived" counter per block; K6 runs K5's rightward over the top half and
+its mirror image leftward over the bottom half) with one
 coroutine per (rank, block), blocking on the same counters the kernels wait
 on; a seeded scheduler picks which runnable block steps next. Whatever the
 interleaving, the result must equal the slot schedule's plain version (which
@@ -84,6 +86,10 @@ def test_direct_all_reduce_follows_the_protocol():
     _for_150_schedules(_check_all_reduce)
 
 
+def test_direct_all_reduce_bidir_follows_the_protocol():
+    _for_150_schedules(_check_all_reduce_bidir)
+
+
 def _check_all_gather(case):
     n, blocks, piece4 = case["n"], case["blocks"], case["piece4"]
     rows, cols = case["rows_per_rank"] * n, 4 * case["cols4"]
@@ -104,32 +110,50 @@ def _check_all_gather(case):
 
 
 def _check_all_reduce(case):
+    _check_reduce(case, bidir=False)
+
+
+def _check_all_reduce_bidir(case):
+    _check_reduce(case, bidir=True)
+
+
+def _check_reduce(case, bidir):
     n, blocks, piece4 = case["n"], case["blocks"], case["piece4"]
-    rows, cols = case["rows_per_rank"] * n, 4 * case["cols4"]
+    directions = 2 if bidir else 1
+    rows = case["rows_per_rank"] * n * directions
+    cols = 4 * case["cols4"]
     xs = _ranks(n, rows, cols, case["seed"] % 1000)
     trace = []
-    got = ring.all_reduce_direct_plain(xs, blocks=blocks,
-                                       piece_bytes=16 * piece4,
-                                       seed=case["seed"], trace=trace)
-    for g, w in zip(got, ring.all_reduce_plain(xs)):
+    fn, plain = ((ring.all_reduce_bidir_direct_plain,
+                  ring.all_reduce_bidir_plain) if bidir else
+                 (ring.all_reduce_direct_plain, ring.all_reduce_plain))
+    got = fn(xs, blocks=directions * blocks, piece_bytes=16 * piece4,
+             seed=case["seed"], trace=trace)
+    for g, w in zip(got, plain(xs)):
         assert torch.equal(g, w)
     assert _violations(trace) == []
     if n > 1:
-        # every location ends with the sum; every chunk but a rank's own
-        # held one partial first (chunk d is completed by rank d - 1)
-        chunk4 = rows * cols // n // 4
+        # every location ends with the sum; every chunk but the one a rank
+        # completes itself held one partial first (rightward chunk d is
+        # completed by rank d - 1; leftward, chunk n + d by rank d + 1)
+        chunk4 = rows * cols // (n * directions) // 4
         finals = {e[1:4] for e in trace if e[0] == "write"
                   and e[4] == "final"}
-        assert finals == _locations(n, chunk4, blocks, piece4)
+        assert finals == {(r, half * n + c, s)
+                          for half in range(directions)
+                          for r, c, s in _locations(n, chunk4, blocks,
+                                                    piece4)}
         partials = collections.Counter(e[1:4] for e in trace
                                        if e[0] == "write"
                                        and e[4] == "partial")
         assert set(partials.values()) == {1}
-        assert set(partials) == {(r, c, s) for r, c, s in finals if r != c}
+        assert set(partials) == {(r, c, s) for r, c, s in finals
+                                 if r != c % n}
 
 
 @pytest.mark.parametrize("fn", [ring.all_gather_direct_plain,
-                                ring.all_reduce_direct_plain])
+                                ring.all_reduce_direct_plain,
+                                ring.all_reduce_bidir_direct_plain])
 def test_a_wait_one_arrival_short_is_caught(fn, monkeypatch):
     """The checks have teeth: let every block go on one arrival early
     and some interleaving reads a piece before it arrived, or the result
@@ -141,8 +165,10 @@ def test_a_wait_one_arrival_short_is_caught(fn, monkeypatch):
                                        - (key[0] == "arrived")))
     n = 4
     xs = _ranks(n, 2 * n, 8, 0)
-    exact = (ring.all_gather_plain if fn is ring.all_gather_direct_plain
-             else ring.all_reduce_plain)(xs)
+    exact = {ring.all_gather_direct_plain: ring.all_gather_plain,
+             ring.all_reduce_direct_plain: ring.all_reduce_plain,
+             ring.all_reduce_bidir_direct_plain:
+                 ring.all_reduce_bidir_plain}[fn](xs)
     caught = 0
     for seed in range(20):
         trace = []
@@ -173,11 +199,13 @@ def test_cpu_wrappers_keep_the_slot_schedule():
     """On the CPU the wrappers run the slot schedule's plain versions, and
     the direct schedules agree with them."""
     xs = _ranks(4, 8, 16, 1)
-    for wrapper, slots, direct in (
+    for wrapper, slots, direct, blocks in (
             (ring.ring_all_gather, ring.all_gather_plain,
-             ring.all_gather_direct_plain),
+             ring.all_gather_direct_plain, 3),
             (ring.ring_all_reduce, ring.all_reduce_plain,
-             ring.all_reduce_direct_plain)):
+             ring.all_reduce_direct_plain, 3),
+            (ring.ring_all_reduce_bidir, ring.all_reduce_bidir_plain,
+             ring.all_reduce_bidir_direct_plain, 6)):
         got = wrapper(xs)
-        for g, s, d in zip(got, slots(xs), direct(xs, blocks=3)):
+        for g, s, d in zip(got, slots(xs), direct(xs, blocks=blocks)):
             assert torch.equal(g, s) and torch.equal(g, d)

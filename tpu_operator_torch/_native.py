@@ -39,11 +39,12 @@ _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 # or ctypes would pass them as 32-bit ints and cut them
 _SIGNATURES = {
     "hbm_read_sum": (_P, _LL, _I, _P, _I, _P, _P),
-    "flash_fwd_bf16": (_P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
+    "flash_fwd_bf16": (_P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _F,
+                       _I, _P),
     "ring_all_gather_f32": (_P, _I, _LL, _I, _LL, _LL, _P),
     "ring_reduce_scatter_f32": (_P, _I, _LL, _I, _LL, _P),
     "ring_all_reduce_f32": (_P, _I, _LL, _I, _LL, _LL, _P),
-    "ring_all_reduce_bidir_f32": (_P, _I, _LL, _I, _LL, _P),
+    "ring_all_reduce_bidir_f32": (_P, _I, _LL, _I, _LL, _LL, _P),
     "ring_resident_blocks": (_I, _P),
 }
 

@@ -11,11 +11,12 @@
 //
 // Ranks. blockIdx.y is the rank. A rank's code reads one RankPtrs entry and
 // reaches nothing but what it names: its own input, output and signal words,
-// its right neighbour's output (K3, K5), its own and its neighbours' comm
-// slots (K4, K6), and its neighbours' signal words. On one card these are
-// separate allocations of virtual ranks; the same code would run across
-// cards with peer pointers in the table (and epoch counters in place of the
-// signal words that the wrapper zeroes before each launch).
+// its right neighbour's output (K3, K5, K6) and its left one's (K6), its own
+// and its right neighbour's comm slots (K4), and its neighbours' signal
+// words. On one card these are separate allocations of virtual ranks; the
+// same code would run across cards with peer pointers in the table (and
+// epoch counters in place of the signal words that the wrapper zeroes
+// before each launch).
 //
 // Independent rings per block. Each rank runs on gridDim.x blocks; block b of
 // a rank moves the b-th slice of every chunk and signals only block b of its
@@ -27,11 +28,12 @@
 // time counts each rank's input read once and its output written once, over
 // 3.35 TB/s). Across cards the bound would be the NVLink rate instead.
 //
-// K3 and K5 (all_gather_kernel, all_reduce_kernel): the sender writes into
-// the right neighbour's output. Every location a rank writes there is one
-// that nobody reads or writes until the rank's signal says it is there, so
-// there are no comm slots and no credits; the only signal left is one
-// monotone "arrived" counter per block. Per rank, with c the chunk:
+// K3, K5 and K6 (all_gather_kernel, all_reduce_kernel,
+// all_reduce_bidir_kernel): the sender writes into the neighbour's output.
+// Every location a rank writes there is one that nobody reads or writes
+// until the rank's signal says it is there, so there are no comm slots and
+// no credits; the only signal left is one monotone "arrived" counter per
+// block. Per rank, with c the chunk:
 //   K3, hop 0:      out[d] and right.out[d] <- in          (read c, write 2c)
 //       hop t >= 1: right.out[d-t] <- out[d-t]             (read c, write c)
 //   K5 reduce-scatter hop 0:  right.out[d] <- in[d]
@@ -39,52 +41,60 @@
 //      all-gather hop 0:      v = out[d+1] + in[d+1]; out[d+1], right.out[d+1] <- v
 //       hop i >= 1:           right.out[d+1-i] <- out[d+1-i]
 // Per rank K3 moves c(2n - 1) bytes and K5 c(5n - 4), c the chunk of a hop;
-// the slot design, which K4/K6 keep, moved c(4n - 2) and c(11n - 9): an
+// the slot design, which K4 keeps, moved c(4n - 2) and c(11n - 9): an
 // initial copy into the output, then per hop a store into the slot, a read
-// of it and a write of the output. A partial sum lives in the receiver's own
-// output; the all-gather overwrites it only after a chain of signals that
-// passes through the rank that read it. Each piece is written exactly once
-// by K3, so K3 needs no ordering beyond "arrived".
+// of it and a write of the output. A partial sum lives in the receiver's
+// own output; the all-gather overwrites it only after a chain of signals
+// that passes through the rank that read it. Each piece is written exactly
+// once by K3, so K3 needs no ordering beyond "arrived".
 //
-// Pieces. A block cuts its slice into pieces (the wrapper's PIECE_BYTES,
-// chosen by a sweep on the card) and runs each piece through all
-// of its hops before the next (piece-major), signalling per piece. A piece is
-// forwarded moments after it arrived. The intent is that with some hundred
-// blocks in flight the bytes between a write and its forwarding read fit in
-// the 50 MB L2, so that the forwarded read is served from there, where the
-// slice-major order of K4/K6 re-reads every forwarded chunk from device
-// memory (the hit rate is not measured). The left neighbour walks the same
-// (piece, hop) order, so the counter stays monotone: the k-th arrival is
-// always the same piece and hop. A piece moves through registers (16-byte
-// ld/st.global.cg, kUnroll loads in flight per thread). Hopper's bulk copies
-// (cp.async.bulk through shared memory on an mbarrier) were timed against
-// this loop on an H100 and were no faster (PERF.md), so they are not used.
+// K6 is K5's schedule twice: the first half of a rank's blocks runs it
+// rightward over the top half of the tensor, the second half runs its
+// mirror image leftward over the bottom half (the rank's position along
+// that ring is -d mod n and the chunk labels are mirrored, which is the TPU
+// kernel's reverse index arithmetic). Leftward block b writes into its left
+// neighbour's output and signals that neighbour's block b. Both directions
+// share K5's per-piece body (all_reduce_piece), so K6 makes the same adds in
+// the same order as the slot schedule, and moves K5's c(5n - 4) per rank.
 //
-// K4 and K6 (ring_kernel) keep the slot protocol of the TPU kernels:
+// Pieces. A block cuts its slice into pieces (the wrapper's PIECE_BYTES or,
+// for K6, BIDIR_PIECE_BYTES, each chosen by a sweep on the card) and runs
+// each piece through all of its hops before the next (piece-major),
+// signalling per piece. A piece is forwarded moments after it arrived. The
+// intent is that with some hundred blocks in flight the bytes between a
+// write and its forwarding read fit in the 50 MB L2, so that the forwarded
+// read is served from there, where the slice-major order of K4 re-reads
+// every forwarded chunk from device memory (the hit rate is not measured).
+// The neighbour that sends to a block walks the same (piece, hop) order, so
+// the counter stays monotone: the k-th arrival is always the same piece and
+// hop. A piece moves through registers (16-byte ld/st.global.cg, kUnroll
+// loads in flight per thread). Hopper's bulk copies (cp.async.bulk through
+// shared memory on an mbarrier) were timed against this loop on an H100 and
+// were no faster (PERF.md), so they are not used.
+//
+// K4 (ring_kernel) keeps the slot protocol of the TPU kernel:
 //   - a hop: wait for a credit for the right neighbour's receive slot
 //     (t + 1) % 2, store the payload straight into that slot with 16-byte
 //     stores, then raise the neighbour's receive counter for the slot;
 //   - credits: a slot is granted back to the sender once its contents have
 //     been consumed and only if the sender will write it again, so every
 //     grant is used. Both slots start free, so the first two hops' slots are
-//     granted at entry. K6 gives the first half of the blocks the rightward
-//     ring over the top half of the tensor and the second half the leftward
-//     ring over the bottom half, each with its own slots and credits.
+//     granted at entry.
 //
 // Common to all: an entry barrier (signal both neighbours' barrier word
 // once, wait for 2), which across cards keeps a rank from writing into an
 // output or slot that a previous collective still uses. Signalling is
 // __syncthreads, then a release add at system scope (red.release.sys) by
 // thread 0; waiting is thread 0 spinning on acquire loads at system scope,
-// then __syncthreads. K4/K6 and the barrier also put a system fence before
-// the add and after the wait; K3/K5 do not (release() and acquire() below):
+// then __syncthreads. K4 and the barrier also put a system fence before
+// the add and after the wait; K3/K5/K6 do not (release() and acquire() below):
 // the fences are not needed for the ordering, and they make every hop's
 // handshake slower (PERF.md). Data written by a neighbour is
 // read with ld.global.cg so that no stale L1 line is used. A wait that sees
 // no progress for timeout_ns (the GPU's global timer) writes a code into the
 // rank's status word and ends the block; the wrapper reads the status words
-// after the launch and raises. Each K3/K5 block waits for its last arrival
-// before it ends, so a stalled left rank is caught there too.
+// after the launch and raises. Each K3/K5/K6 block waits for its last
+// arrival before it ends, so a stalled neighbour is caught there too.
 //
 // Residency. A rank spinning on a neighbour that never got an SM would hang,
 // so the launch is cooperative: cudaLaunchCooperativeKernel refuses a grid
@@ -100,11 +110,10 @@ constexpr int kUnroll = 4;     // float4s each thread loads before it stores
 constexpr int kSigWords = 16;  // per block: 64 bytes of signal words
 constexpr int kBarrier = 0;
 constexpr int kRecv = 1;       // kRecv + slot: payloads received into the slot
-constexpr int kArrived = 1;    // K3/K5: pieces that arrived in my output
+constexpr int kArrived = 1;    // K3/K5/K6: pieces that arrived in my output
 constexpr int kCap = 3;        // kCap + slot: credits to write the receiver's slot
 constexpr int kStatus = 15;    // non-zero: a wait timed out (code below)
 
-enum Mode { kReduceScatter = 0, kBidir = 1 };
 enum Stall {
   kStallBarrier = 1,
   kStallCredit = 2,
@@ -112,15 +121,20 @@ enum Stall {
   kStallArrival = 4
 };
 // the kernels, as ring_resident_blocks names them
-enum Kernel { kAllGatherKernel = 0, kRingKernel = 1, kAllReduceKernel = 2 };
+enum Kernel {
+  kAllGatherKernel = 0,
+  kRingKernel = 1,
+  kAllReduceKernel = 2,
+  kAllReduceBidirKernel = 3
+};
 
 struct RankPtrs {
   const float* in;
   float* out;
-  float* right_out;    // the right neighbour's output (K3, K5)
-  float* slots;        // this rank's receive slots: [directions][2][chunk]
+  float* right_out;    // the right neighbour's output (K3, K5, K6)
+  float* left_out;     // the left neighbour's output (K6)
+  float* slots;        // this rank's receive slots (K4): [2][chunk]
   float* right_slots;  // the right neighbour's receive slots
-  float* left_slots;   // the left neighbour's receive slots
   unsigned* sig;       // this rank's signal words: [gridDim.x][kSigWords]
   unsigned* right_sig;
   unsigned* left_sig;
@@ -178,7 +192,7 @@ __device__ __forceinline__ bool wait_for(const unsigned* word,
   return ok != 0;
 }
 
-// K3/K5's lighter pair. The release at system scope alone orders every
+// K3/K5/K6's lighter pair. The release at system scope alone orders every
 // thread's earlier accesses before the add (__syncthreads orders the other
 // threads' before thread 0's), and the acquire every later one after the
 // wait, so neither needs a separate system fence.
@@ -238,14 +252,14 @@ __device__ __forceinline__ void move(float4* dst, const float4* a,
 
 __device__ __forceinline__ int wrap(int i, int n) { return ((i % n) + n) % n; }
 
-// One block's view of its ring: the slice it moves, where it sends, and the
+// One K4 block's view of its ring: the slice it moves, where it sends, and the
 // counters its thread 0 waits on (every thread keeps the same counts). The
 // counts are scalars, not arrays indexed by slot, and every function that
 // takes a Ring is inlined, so the struct lives in registers.
 struct Ring {
   int n;
   long long chunk4, lo, hi, timeout_ns;
-  float4* my_slots;   // my receive slots for this direction
+  float4* my_slots;   // my receive slots
   float4* to_slots;   // the receive slots of the rank I send to
   unsigned* my;       // my signal words (this block)
   unsigned* to;       // the signal words of the rank I send to (this block)
@@ -309,77 +323,33 @@ __device__ __forceinline__ void reduce_scatter(Ring& r, const float4* in,
   move(out, r.slot(hops & 1), in + d * c4, r.lo, r.hi);
 }
 
-// Each direction of K6: reduce-scatter then all-gather, 2(n - 1) hops, in
-// place in `out`; chunk c is fully summed on rank c - 1. `rank` is the rank's
-// position along the ring's direction and `mirror` maps chunk labels back
-// for the leftward ring (rank and chunk both mirrored, which is the TPU
-// kernel's reverse index arithmetic).
-__device__ __forceinline__ void all_reduce(Ring& r, const float4* in,
-                                           float4* out, int rank,
-                                           bool mirror) {
-  const int n = r.n;
-  const long long c4 = r.chunk4;
-  for (int c = 0; c < n; ++c)
-    move(out + c * c4, in + c * c4, nullptr, r.lo, r.hi);
-  const int hops = 2 * (n - 1);
-  r.open(hops);
-  for (int t = 0; t < hops; ++t) {
-    const int s = (t + 1) & 1;
-    const bool reduce = t < n - 1;
-    const int i = reduce ? t : t - (n - 1);
-    int send_c = reduce ? rank - i : rank + 1 - i;
-    int recv_c = reduce ? rank - i - 1 : rank - i;
-    send_c = wrap(mirror ? -send_c : send_c, n);
-    recv_c = wrap(mirror ? -recv_c : recv_c, n);
-    if (!r.send(s, out + send_c * c4, nullptr) || !r.receive(s)) return;
-    float4* dst = out + recv_c * c4;
-    move(dst, r.slot(s), reduce ? dst : nullptr, r.lo, r.hi);
-    if (t + 2 < hops) r.grant(s);
-  }
-}
-
-// K4 and K6.
+// K4.
 __global__ void __launch_bounds__(kThreads)
 ring_kernel(const RankPtrs* __restrict__ ranks, int n, long long chunk4,
-            int mode, long long timeout_ns) {
+            long long timeout_ns) {
   const int d = blockIdx.y;
   const RankPtrs p = ranks[d];
   const int b = blockIdx.x;
-  int rings = gridDim.x;  // blocks (slices) per direction
-  int dir = 0;            // 0: send right; 1: send left (bidir's bottom half)
-  if (mode == kBidir) {
-    rings = gridDim.x / 2;
-    dir = b >= rings;
-  }
-  const int slice = b - dir * rings;
   Ring r;
   r.n = n;
   r.chunk4 = chunk4;
-  r.lo = chunk4 * slice / rings;
-  r.hi = chunk4 * (slice + 1) / rings;
+  r.lo = chunk4 * b / gridDim.x;
+  r.hi = chunk4 * (b + 1) / gridDim.x;
   r.timeout_ns = timeout_ns;
-  r.my_slots = reinterpret_cast<float4*>(p.slots) + dir * 2 * chunk4;
-  r.to_slots = reinterpret_cast<float4*>(dir ? p.left_slots : p.right_slots) +
-               dir * 2 * chunk4;
+  r.my_slots = reinterpret_cast<float4*>(p.slots);
+  r.to_slots = reinterpret_cast<float4*>(p.right_slots);
   r.my = p.sig + b * kSigWords;
-  r.to = (dir ? p.left_sig : p.right_sig) + b * kSigWords;
-  r.from = (dir ? p.right_sig : p.left_sig) + b * kSigWords;
+  r.to = p.right_sig + b * kSigWords;
+  r.from = p.left_sig + b * kSigWords;
   r.credits0 = r.credits1 = 0;
   r.received0 = r.received1 = 0;
 
   if (n > 1 && !barrier(p, b, r.my, timeout_ns)) return;
-  const float4* in = reinterpret_cast<const float4*>(p.in);
-  float4* out = reinterpret_cast<float4*>(p.out);
-  if (mode == kReduceScatter) {
-    reduce_scatter(r, in, out, d);
-  } else {
-    // the bottom half starts n chunks in
-    const long long off = dir * n * chunk4;
-    all_reduce(r, in + off, out + off, dir ? wrap(-d, n) : d, dir == 1);
-  }
+  reduce_scatter(r, reinterpret_cast<const float4*>(p.in),
+                 reinterpret_cast<float4*>(p.out), d);
 }
 
-// ---- K3 and K5 ------------------------------------------------------------
+// ---- K3, K5 and K6 ---------------------------------------------------------
 
 // received + local, in that order
 __device__ __forceinline__ float4 sum4(float4 a, float4 b) {
@@ -419,18 +389,20 @@ __device__ __forceinline__ void forward(float4* dst0, float4* dst1,
   }
 }
 
-// One block of a rank in K3 or K5: where its signals go, and the arrivals
-// it has waited for (the same count in every thread).
+// One block of a rank in K3, K5 or K6: where its signals go, and the
+// arrivals it has waited for (the same count in every thread).
 struct Direct {
   int n;
   long long chunk4, timeout_ns;
   unsigned* my;      // my signal words (this block)
-  unsigned* to;      // the right neighbour's signal words (this block)
+  unsigned* to;      // the signal words of the rank I send to (this block)
   unsigned awaited;  // arrivals counted so far
 
-  // float4 offset of chunk c (mod n)
+  // float4 offset of chunk c (mod n); kMirror labels the chunks of the
+  // leftward ring in the mirror image
+  template <bool kMirror = false>
   __device__ long long at(int c) const {
-    return static_cast<long long>(wrap(c, n)) * chunk4;
+    return static_cast<long long>(wrap(kMirror ? -c : c, n)) * chunk4;
   }
   // wait for the next piece to arrive in my output
   __device__ bool arrival() {
@@ -443,10 +415,10 @@ struct Direct {
     return acquire(my + kArrived, awaited, my + kStatus, kStallArrival,
                    timeout_ns);
   }
-  // my piece is in the right neighbour's output
+  // my piece is in the neighbour's output
   __device__ void sent() { release(to + kArrived); }
   // one hop of one piece [s, e): wait for its arrival if `wait`, then
-  // dst0 (and dst1) <- a (+ b), then signal the right neighbour
+  // dst0 (and dst1) <- a (+ b), then signal the neighbour
   __device__ bool hop(bool wait, float4* dst0, float4* dst1, const float4* a,
                       const float4* b, long long s, long long e) {
     if (wait && !arrival()) return false;
@@ -456,15 +428,16 @@ struct Direct {
   }
 };
 
-__device__ __forceinline__ Direct direct(const RankPtrs& p, int n,
-                                         long long chunk4,
+// `to_sig`: the signal words of the rank this block sends to
+__device__ __forceinline__ Direct direct(const RankPtrs& p, unsigned* to_sig,
+                                         int n, long long chunk4,
                                          long long timeout_ns) {
   Direct r;
   r.n = n;
   r.chunk4 = chunk4;
   r.timeout_ns = timeout_ns;
   r.my = p.sig + blockIdx.x * kSigWords;
-  r.to = p.right_sig + blockIdx.x * kSigWords;
+  r.to = to_sig + blockIdx.x * kSigWords;
   r.awaited = 0;
   return r;
 }
@@ -484,7 +457,7 @@ all_gather_kernel(const RankPtrs* __restrict__ ranks, int n, long long chunk4,
     forward(out, nullptr, in, nullptr, lo, hi);
     return;
   }
-  Direct r = direct(p, n, chunk4, timeout_ns);
+  Direct r = direct(p, p.right_sig, n, chunk4, timeout_ns);
   if (!barrier(p, blockIdx.x, r.my, timeout_ns)) return;
   for (long long s = lo; s < hi; s += piece4) {
     const long long e = s + piece4 < hi ? s + piece4 : hi;
@@ -501,8 +474,38 @@ all_gather_kernel(const RankPtrs* __restrict__ ranks, int n, long long chunk4,
   r.last();
 }
 
-// K5: reduce-scatter then all-gather, 2(n - 1) hops per piece; chunk c is
-// complete on rank c - 1. Partial sums are held in the receiver's output.
+// One piece [s, e) of K5's schedule: reduce-scatter then all-gather,
+// 2(n - 1) hops; chunk c is complete on rank c - 1. Partial sums are held in
+// the receiver's output: `to` is the output of the rank this block sends to,
+// `pos` the rank's position along the ring, and kMirror labels the chunks of
+// the leftward ring (K6's bottom half).
+template <bool kMirror>
+__device__ __forceinline__ bool all_reduce_piece(Direct& r, const float4* in,
+                                                 float4* out, float4* to,
+                                                 int pos, long long s,
+                                                 long long e) {
+  const int n = r.n;
+  // reduce-scatter hop 0: my addend of chunk pos starts its way
+  const long long c0 = r.at<kMirror>(pos);
+  if (!r.hop(false, to + c0, nullptr, in + c0, nullptr, s, e)) return false;
+  // hop i: the partial of chunk pos - i arrived; add mine, pass it on
+  for (int i = 1; i < n - 1; ++i) {
+    const long long c = r.at<kMirror>(pos - i);
+    if (!r.hop(true, to + c, nullptr, out + c, in + c, s, e)) return false;
+  }
+  // all-gather hop 0: my addend completes chunk pos + 1; keep it and send it
+  const long long f = r.at<kMirror>(pos + 1);
+  if (!r.hop(true, out + f, to + f, out + f, in + f, s, e)) return false;
+  // hop i: the sum of chunk pos + 1 - i arrived; pass it on
+  for (int i = 1; i < n - 1; ++i) {
+    const long long c = r.at<kMirror>(pos + 1 - i);
+    if (!r.hop(true, to + c, nullptr, out + c, nullptr, s, e)) return false;
+  }
+  r.skip();  // the sum of chunk pos + 2 arrives last and goes no further
+  return true;
+}
+
+// K5: all_reduce_piece rightward, piece by piece.
 __global__ void __launch_bounds__(kThreads)
 all_reduce_kernel(const RankPtrs* __restrict__ ranks, int n, long long chunk4,
                   long long piece4, long long timeout_ns) {
@@ -517,27 +520,46 @@ all_reduce_kernel(const RankPtrs* __restrict__ ranks, int n, long long chunk4,
     forward(out, nullptr, in, nullptr, lo, hi);
     return;
   }
-  Direct r = direct(p, n, chunk4, timeout_ns);
+  Direct r = direct(p, p.right_sig, n, chunk4, timeout_ns);
   if (!barrier(p, blockIdx.x, r.my, timeout_ns)) return;
   for (long long s = lo; s < hi; s += piece4) {
     const long long e = s + piece4 < hi ? s + piece4 : hi;
-    // reduce-scatter hop 0: my addend of chunk d starts its way right
-    const long long c0 = r.at(d);
-    if (!r.hop(false, right + c0, nullptr, in + c0, nullptr, s, e)) return;
-    // hop i: the partial of chunk d - i arrived; add mine, pass it on
-    for (int i = 1; i < n - 1; ++i) {
-      const long long c = r.at(d - i);
-      if (!r.hop(true, right + c, nullptr, out + c, in + c, s, e)) return;
-    }
-    // all-gather hop 0: my addend completes chunk d + 1; keep it and send it
-    const long long f = r.at(d + 1);
-    if (!r.hop(true, out + f, right + f, out + f, in + f, s, e)) return;
-    // hop i: the sum of chunk d + 1 - i arrived; pass it on
-    for (int i = 1; i < n - 1; ++i) {
-      const long long c = r.at(d + 1 - i);
-      if (!r.hop(true, right + c, nullptr, out + c, nullptr, s, e)) return;
-    }
-    r.skip();  // the sum of chunk d + 2 arrives last and goes no further
+    if (!all_reduce_piece<false>(r, in, out, right, d, s, e)) return;
+  }
+  r.last();
+}
+
+// K6: the first half of the blocks runs K5's schedule rightward over the top
+// half of the tensor (n chunks), the second half its mirror image leftward
+// over the bottom half; chunk4 is a chunk of one half.
+__global__ void __launch_bounds__(kThreads)
+all_reduce_bidir_kernel(const RankPtrs* __restrict__ ranks, int n,
+                        long long chunk4, long long piece4,
+                        long long timeout_ns) {
+  const int d = blockIdx.y;
+  const RankPtrs p = ranks[d];
+  const int rings = gridDim.x / 2;  // blocks per direction
+  const bool left = blockIdx.x >= rings;
+  const int slice = blockIdx.x - (left ? rings : 0);
+  const long long lo = chunk4 * slice / rings;
+  const long long hi = chunk4 * (slice + 1) / rings;
+  const long long half = left ? n * chunk4 : 0;
+  const float4* in = reinterpret_cast<const float4*>(p.in) + half;
+  float4* out = reinterpret_cast<float4*>(p.out) + half;
+  float4* to = reinterpret_cast<float4*>(left ? p.left_out : p.right_out) +
+               half;
+  if (n == 1) {
+    forward(out, nullptr, in, nullptr, lo, hi);
+    return;
+  }
+  Direct r = direct(p, left ? p.left_sig : p.right_sig, n, chunk4,
+                    timeout_ns);
+  if (!barrier(p, blockIdx.x, r.my, timeout_ns)) return;
+  for (long long s = lo; s < hi; s += piece4) {
+    const long long e = s + piece4 < hi ? s + piece4 : hi;
+    if (!(left ? all_reduce_piece<true>(r, in, out, to, wrap(-d, n), s, e)
+               : all_reduce_piece<false>(r, in, out, to, d, s, e)))
+      return;
   }
   r.last();
 }
@@ -547,6 +569,8 @@ const void* kernel_fn(int kernel) {
     return reinterpret_cast<const void*>(all_gather_kernel);
   if (kernel == kAllReduceKernel)
     return reinterpret_cast<const void*>(all_reduce_kernel);
+  if (kernel == kAllReduceBidirKernel)
+    return reinterpret_cast<const void*>(all_reduce_bidir_kernel);
   return reinterpret_cast<const void*>(ring_kernel);
 }
 
@@ -556,13 +580,6 @@ int launch(int kernel, void** args, int n, int blocks, void* stream) {
       static_cast<cudaStream_t>(stream));
   cudaError_t last = cudaGetLastError();  // clears a non-sticky error
   return static_cast<int>(err != cudaSuccess ? err : last);
-}
-
-int launch_ring(int mode, const void* ranks, int n, long long chunk4,
-                int blocks, long long timeout_ns, void* stream) {
-  const RankPtrs* table = static_cast<const RankPtrs*>(ranks);
-  void* args[] = {&table, &n, &chunk4, &mode, &timeout_ns};
-  return launch(kRingKernel, args, n, blocks, stream);
 }
 
 int launch_direct(int kernel, const void* ranks, int n, long long chunk4,
@@ -575,9 +592,9 @@ int launch_direct(int kernel, const void* ranks, int n, long long chunk4,
 
 }  // namespace
 
-// ranks: device array of n RankPtrs; chunk4: float4s per chunk; blocks:
-// gridDim.x (even for bidir); piece4: float4s per piece (K3, K5). Runs on
-// `stream`; returns the launch's error.
+// ranks: device array of n RankPtrs; chunk4: float4s per chunk (K6: of a
+// half); blocks: gridDim.x (even for bidir); piece4: float4s per piece (K3,
+// K5, K6). Runs on `stream`; returns the launch's error.
 extern "C" int ring_all_gather_f32(const void* ranks, int n, long long chunk4,
                                    int blocks, long long piece4,
                                    long long timeout_ns, void* stream) {
@@ -588,8 +605,9 @@ extern "C" int ring_all_gather_f32(const void* ranks, int n, long long chunk4,
 extern "C" int ring_reduce_scatter_f32(const void* ranks, int n,
                                        long long chunk4, int blocks,
                                        long long timeout_ns, void* stream) {
-  return launch_ring(kReduceScatter, ranks, n, chunk4, blocks, timeout_ns,
-                     stream);
+  const RankPtrs* table = static_cast<const RankPtrs*>(ranks);
+  void* args[] = {&table, &n, &chunk4, &timeout_ns};
+  return launch(kRingKernel, args, n, blocks, stream);
 }
 
 extern "C" int ring_all_reduce_f32(const void* ranks, int n, long long chunk4,
@@ -601,12 +619,14 @@ extern "C" int ring_all_reduce_f32(const void* ranks, int n, long long chunk4,
 
 extern "C" int ring_all_reduce_bidir_f32(const void* ranks, int n,
                                          long long chunk4, int blocks,
+                                         long long piece4,
                                          long long timeout_ns, void* stream) {
-  return launch_ring(kBidir, ranks, n, chunk4, blocks, timeout_ns, stream);
+  return launch_direct(kAllReduceBidirKernel, ranks, n, chunk4, blocks,
+                       piece4, timeout_ns, stream);
 }
 
 // Blocks of one ring kernel that can be resident at once on the current
-// device: kernel 0 is K3, 1 is K4/K6, 2 is K5.
+// device: kernel 0 is K3, 1 is K4, 2 is K5, 3 is K6.
 extern "C" int ring_resident_blocks(int kernel, int* out) {
   int device = 0, per_sm = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&device);

@@ -12,12 +12,13 @@ them all; the source says how a rank reaches its neighbours and what bounds
 it. f32 only. For CPU tensors the wrapper runs the plain version: a hop-by-hop
 simulation of the TPU kernels' schedule (the same slots, the same chunk
 arithmetic, the same ``received + local`` adds) that also keeps a ledger of
-the credits. K4 and K6 follow that schedule on the card too. K3 and K5 follow
-another on the card, in which the sender writes straight into its right
-neighbour's output, piece by piece; ``all_gather_direct_plain`` and
-``all_reduce_direct_plain`` run that schedule with one coroutine per (rank,
-block) under a seeded scheduler, blocking on the kernel's own counters. All
-of them give the same bits, and the same bits as the TPU kernels.
+the credits. K4 follows that schedule on the card too. K3, K5 and K6 follow
+another on the card, in which the sender writes straight into its
+neighbour's output, piece by piece; ``all_gather_direct_plain``,
+``all_reduce_direct_plain`` and ``all_reduce_bidir_direct_plain`` run that
+schedule with one coroutine per (rank, block) under a seeded scheduler,
+blocking on the kernel's own counters. All of them give the same bits, and
+the same bits as the TPU kernels.
 
 The ``*_sharded`` functions split a whole array over a mesh axis and
 assemble the result as the reference's ``shard_map`` in/out specs do, so the
@@ -41,9 +42,10 @@ SIG_WORDS = 16         # signal words per block (kSigWords)
 STATUS_WORD = 15       # a non-zero status means a wait timed out (kStatus)
 TIMEOUT_NS = 5_000_000_000
 _STALLS = {1: "entry barrier", 2: "credit", 3: "receive", 4: "arrival"}
-# K3 and K5 move each block's slice in pieces of this many bytes, chosen
-# by chip_smoke.py's sweep (PERF.md)
+# K3 and K5 move each block's slice in pieces of this many bytes, K6 in
+# pieces of BIDIR_PIECE_BYTES, each chosen by chip_smoke.py's sweep (PERF.md)
 PIECE_BYTES = 16 << 10
+BIDIR_PIECE_BYTES = 32 << 10
 
 
 class CreditError(RuntimeError):
@@ -222,11 +224,12 @@ def all_reduce_bidir_plain(xs, ledgers: tuple[_Ledger, _Ledger] | None = None):
     return outs
 
 
-# -- plain versions of K3's and K5's schedules on the card -------------------
+# -- plain versions of K3's, K5's and K6's schedules on the card ------------
 
 def pieces(chunk4: int, blocks: int, piece4: int, b: int):
-    """Block b's pieces as the K3/K5 kernels cut them: [s, e) in 16-byte
-    vectors of a chunk of ``chunk4`` vectors."""
+    """Block b's pieces as the K3/K5/K6 kernels cut them: [s, e) in 16-byte
+    vectors of a chunk of ``chunk4`` vectors, split over ``blocks`` blocks
+    (K6: the blocks of one direction)."""
     lo, hi = chunk4 * b // blocks, chunk4 * (b + 1) // blocks
     return [(s, min(s + piece4, hi)) for s in range(lo, hi, piece4)]
 
@@ -268,19 +271,26 @@ class _Scheduler:
 
 
 def _direct(xs, gather: bool, blocks: int, piece_bytes: int, seed: int,
-            trace: list | None):
-    """K3's (``gather``) or K5's schedule on the card, on flat views of the
-    ranks' tensors. ``trace``, if given, receives every access to an
-    output piece in the order it ran: ("write", rank, chunk, s, kind) with
-    kind "partial" or "final", and ("read", rank, chunk, s)."""
+            trace: list | None, directions: int = 1):
+    """K3's (``gather``), K5's or, with two ``directions``, K6's schedule
+    on the card, on flat views of the ranks' tensors. K6's blocks
+    [0, blocks/2) run K5's schedule rightward over the top half, the others
+    its mirror image leftward over the bottom half. ``trace``, if given,
+    receives every access to an output piece in the order it ran:
+    ("write", rank, chunk, s, kind) with kind "partial" or "final", and
+    ("read", rank, chunk, s); K6's bottom-half chunks are numbered n to
+    2n - 1."""
     n = len(xs)
     flat = [x.reshape(-1) for x in xs]
-    chunk = flat[0].numel() // (1 if gather else n)
+    chunk = flat[0].numel() // (1 if gather else n * directions)
     if chunk % 4 or piece_bytes <= 0 or piece_bytes % 16:
         raise ValueError("chunks and pieces are whole 16-byte vectors")
+    if blocks % directions:
+        raise ValueError(f"blocks {blocks} must be even: half per direction")
     chunk4, piece4 = chunk // 4, piece_bytes // 16
-    outs = [torch.full((n * chunk,), float("nan"), dtype=x.dtype,
-                       device=x.device) for x in flat]
+    rings = blocks // directions
+    outs = [torch.full((directions * n * chunk,), float("nan"),
+                       dtype=x.dtype, device=x.device) for x in flat]
     if n == 1:
         outs[0].copy_(flat[0])
         return outs
@@ -302,18 +312,23 @@ def _direct(xs, gather: bool, blocks: int, piece_bytes: int, seed: int,
         return flat[d][rows(c, s, e)]
 
     def block(d, b):
-        right, left = (d + 1) % n, (d - 1) % n
+        leftward, slice_ = divmod(b, rings)
+        to = (d - 1 if leftward else d + 1) % n
+        # the rank's position along the ring, and the chunk that the ring's
+        # chunk label c names (the leftward ring's labels are mirrored)
+        pos = -d % n if leftward else d
+        label = ((lambda c: n + -c % n) if leftward else (lambda c: c % n))
         arrived = ("arrived", d, b)
-        sched.signal(("barrier", right, b))
-        sched.signal(("barrier", left, b))
+        sched.signal(("barrier", (d + 1) % n, b))
+        sched.signal(("barrier", (d - 1) % n, b))
         yield ("barrier", d, b), 2
         awaited = 0
 
         def send(c, s, e, value, kind):
-            write(right, c, s, e, value, kind)
-            sched.signal(("arrived", right, b))
+            write(to, c, s, e, value, kind)
+            sched.signal(("arrived", to, b))
 
-        for s, e in pieces(chunk4, blocks, piece4, b):
+        for s, e in pieces(chunk4, rings, piece4, slice_):
             if gather:
                 yield None
                 mine = local(d, 0, s, e)
@@ -327,23 +342,24 @@ def _direct(xs, gather: bool, blocks: int, piece_bytes: int, seed: int,
                 awaited += 1
                 continue
             yield None
-            send(d, s, e, local(d, d, s, e), "partial")
+            c = label(pos)
+            send(c, s, e, local(d, c, s, e), "partial")
             for i in range(1, n - 1):
                 awaited += 1
                 yield arrived, awaited
-                c = (d - i) % n
+                c = label(pos - i)
                 send(c, s, e, read(d, c, s, e) + local(d, c, s, e),
                      "partial")
             awaited += 1
             yield arrived, awaited
-            f = (d + 1) % n
+            f = label(pos + 1)
             total = read(d, f, s, e) + local(d, f, s, e)
             write(d, f, s, e, total, "final")
             send(f, s, e, total, "final")
             for i in range(1, n - 1):
                 awaited += 1
                 yield arrived, awaited
-                c = (d + 1 - i) % n
+                c = label(pos + 1 - i)
                 send(c, s, e, read(d, c, s, e), "final")
             awaited += 1
         yield arrived, awaited
@@ -374,6 +390,20 @@ def all_reduce_direct_plain(xs, *, blocks: int = 1,
     if xs[0].shape[0] % len(xs):
         raise ValueError(f"rows {xs[0].shape[0]} not divisible by {len(xs)}")
     outs = _direct(xs, False, blocks, piece_bytes, seed, trace)
+    return [o.view(xs[0].shape) for o in outs]
+
+
+def all_reduce_bidir_direct_plain(xs, *, blocks: int = 2,
+                                  piece_bytes: int = BIDIR_PIECE_BYTES,
+                                  seed: int = 0, trace: list | None = None):
+    """K6's schedule on the card: K5's schedule on the card over the top
+    half of each tensor, rightward, on the first half of the (even)
+    ``blocks``, and its mirror image leftward over the bottom half on the
+    rest, each block writing into its neighbour's output."""
+    if xs[0].shape[0] % (2 * len(xs)):
+        raise ValueError(f"rows {xs[0].shape[0]} not divisible by "
+                         f"2*{len(xs)}")
+    outs = _direct(xs, False, blocks, piece_bytes, seed, trace, 2)
     return [o.view(xs[0].shape) for o in outs]
 
 
@@ -412,7 +442,7 @@ _resident: dict[tuple, int] = {}
 
 def resident_blocks(device: torch.device, kind: str) -> int:
     """Blocks of the ring kernel behind wrapper ``kind`` that fit on the
-    card at once (K4 and K6 share one kernel)."""
+    card at once."""
     index = device.index if device.index is not None \
         else torch.cuda.current_device()
     key = (index, RingLaunch._KERNELS[kind][3])
@@ -427,7 +457,7 @@ def resident_blocks(device: torch.device, kind: str) -> int:
 
 class RingLaunch:
     """One ring kernel over fixed ranks, set up once: the outputs, each
-    rank's slots (K4, K6) and signal words, and the pointer table on the
+    rank's slots (K4) and signal words, and the pointer table on the
     card.
 
     :meth:`launch` zeroes the signal words and launches the kernel, both on
@@ -435,16 +465,16 @@ class RingLaunch:
     synchronises and raises if a rank timed out. The wrappers do both for
     every call; a timing loop can repeat :meth:`launch` alone.
 
-    ``piece_bytes`` (K3 and K5 only, for the tests and ``chip_smoke.py``'s
-    sweep) overrides :data:`PIECE_BYTES`."""
+    ``piece_bytes`` (K3, K5 and K6, for the tests and ``chip_smoke.py``'s
+    sweep) overrides :data:`PIECE_BYTES` (K6: :data:`BIDIR_PIECE_BYTES`)."""
 
     # wrapper → (C entry point, comm slot chunks, directions, kernel id of
-    # ring_resident_blocks); K3 and K5 write into the neighbour's output
+    # ring_resident_blocks); all but K4 write into the neighbour's output
     _KERNELS = {
         "all_gather": ("ring_all_gather_f32", 0, 1, 0),
         "reduce_scatter": ("ring_reduce_scatter_f32", 2, 1, 1),
         "all_reduce": ("ring_all_reduce_f32", 0, 1, 2),
-        "all_reduce_bidir": ("ring_all_reduce_bidir_f32", 4, 2, 1),
+        "all_reduce_bidir": ("ring_all_reduce_bidir_f32", 0, 2, 3),
     }
 
     def __init__(self, kind: str, xs, blocks: int | None = None,
@@ -473,8 +503,10 @@ class RingLaunch:
                              "aligned tensors")
         self.chunk4 = chunk_elems // 4
         if not direct and piece_bytes is not None:
-            raise ValueError(f"{kind}: pieces are K3's and K5's")
-        piece_bytes = PIECE_BYTES if piece_bytes is None else piece_bytes
+            raise ValueError(f"{kind}: the slot kernel has no pieces")
+        if piece_bytes is None:
+            piece_bytes = (BIDIR_PIECE_BYTES if kind == "all_reduce_bidir"
+                           else PIECE_BYTES)
         if piece_bytes <= 0 or piece_bytes % 16:
             raise ValueError(f"a piece of {piece_bytes} bytes is not a whole "
                              "number of 16-byte vectors")
@@ -489,8 +521,8 @@ class RingLaunch:
             blocks = per_dir * directions
         self.n, self.blocks, self.device = n, blocks, dev
         # no piece is longer than a block's slice
-        self.piece4 = min(piece4, math.ceil(self.chunk4 / blocks)) \
-            if direct else 0
+        self.piece4 = min(piece4, math.ceil(
+            self.chunk4 * directions / blocks)) if direct else 0
         slots = [torch.empty(slot_chunks * chunk_elems, dtype=torch.float32,
                              device=dev) for _ in range(n)]
         # separate allocations, as the ranks' would be on separate cards
@@ -498,10 +530,12 @@ class RingLaunch:
                                  device=dev) for _ in range(n)]
         self.status = [s.view(blocks, SIG_WORDS)[:, STATUS_WORD]
                        for s in self.sigs]
+        # csrc/ring.cu's RankPtrs
         rows = [[xs[d].data_ptr(), self.outs[d].data_ptr(),
                  self.outs[(d + 1) % n].data_ptr(),
+                 self.outs[(d - 1) % n].data_ptr(),
                  slots[d].data_ptr(), slots[(d + 1) % n].data_ptr(),
-                 slots[(d - 1) % n].data_ptr(), self.sigs[d].data_ptr(),
+                 self.sigs[d].data_ptr(),
                  self.sigs[(d + 1) % n].data_ptr(),
                  self.sigs[(d - 1) % n].data_ptr()] for d in range(n)]
         # from pinned memory, so the copy does not wait for the card
