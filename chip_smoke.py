@@ -16,9 +16,15 @@ the 4-D form of the same inputs; the fastest is its library time. Then it
 holds the ring kernels (K3–K6) against their plain versions and the library
 sums for 2, 4 and 8 virtual ranks on the card, times them at 4 × 64 MiB
 (with the bytes their schedules move, a library call that fills all n
-outputs, and for K3, K5 and K6 a sweep of piece sizes) and at 4 × 64 KiB
-(the per-hop handshake), and runs the multi-device dry run
-``dryrun_multigpu(4)``, whose ring checks must go through those kernels.
+outputs, and a sweep of piece sizes) and at 4 × 64 KiB (the per-hop
+handshake), prints the collective bandwidth suite's reports on 4 virtual
+ranks, and runs the multi-device dry run ``dryrun_multigpu(4)``, whose ring
+checks must go through those kernels. Then ``WorkloadComponent(ranks=4)``
+runs the validator's multi-device leg on 4 virtual ranks, whose collective
+suite must launch K5 and K6 at its 64 MiB payload, and Ulysses attention
+runs at T = 4096 with 8 heads over 4 virtual ranks, causal and not, where
+K2 must launch once per rank with 2 heads and the result is held to K2's
+per-element limit against the single-device computation.
 
 Output: progress lines, then the ``nvidia-smi`` name and power limit, then
 one JSON line with every kernel's launches on the main path, error, times
@@ -379,8 +385,9 @@ RING_KERNELS = (
     ("ring_all_reduce_bidir", "ring_all_reduce_bidir",
      "all_reduce_bidir_plain", 311, 2),
 )
-# K3's, K5's and K6's schedule on the card, beside the TPU kernels' one
+# the kernels' own schedule on the card, beside the TPU kernels' one
 DIRECT_PLAIN = {"ring_all_gather": "all_gather_direct_plain",
+                "ring_reduce_scatter": "reduce_scatter_direct_plain",
                 "ring_all_reduce": "all_reduce_direct_plain",
                 "ring_all_reduce_bidir": "all_reduce_bidir_direct_plain"}
 PAYLOAD_MB, PAYLOAD_COLS = 64, 512   # the validator's collective payload
@@ -410,8 +417,8 @@ def ring_bytes(name: str, n: int, per_rank: int) -> tuple[int, float]:
 
 def design_bytes(name: str, n: int, per_rank: int) -> int:
     """Bytes the kernel's own schedule reads and writes in device memory,
-    all ranks together (``csrc/ring.cu``'s note): K3, K5 and K6 write into
-    the neighbour's output; K4 goes through slots."""
+    all ranks together (``csrc/ring.cu``'s note): the sender writes into
+    the neighbour's output or, K4's partial sums, its staging area."""
     c = per_rank // n    # a hop's chunk (K6: a chunk of each half); K3's
     # hop moves a whole rank's input
     return n * {"ring_all_gather": per_rank * (2 * n - 1),
@@ -461,15 +468,14 @@ def phase_ring(dev, kind) -> list[dict]:
                 check(all(torch.equal(o, w) for o, w in zip(outs, want)),
                       f"{name} n={n} {label}: kernel differs from its plain "
                       "version")
-                if name in DIRECT_PLAIN:
-                    # the card's own schedule, one piece a rank (its bits do
-                    # not depend on the blocks and pieces)
-                    direct = getattr(ring, DIRECT_PLAIN[name])(
-                        xs, piece_bytes=4 * xs[0].numel())
-                    check(all(torch.equal(o, w) for o, w in zip(outs, direct)),
-                          f"{name} n={n} {label}: kernel differs from the "
-                          "plain version of its own schedule")
-                    del direct
+                # the card's own schedule, one piece a rank (its bits do
+                # not depend on the blocks and pieces)
+                direct = getattr(ring, DIRECT_PLAIN[name])(
+                    xs, piece_bytes=4 * xs[0].numel())
+                check(all(torch.equal(o, w) for o, w in zip(outs, direct)),
+                      f"{name} n={n} {label}: kernel differs from the "
+                      "plain version of its own schedule")
+                del direct
                 lib = ring_library(name, xs)
                 errs = [(o - w).abs().max().item() for o, w in zip(outs, lib)]
                 if name == "ring_all_gather":
@@ -482,9 +488,8 @@ def phase_ring(dev, kind) -> list[dict]:
                               f"{max(errs):.3e} against the library sum, "
                               f"beyond reduction_tolerance {tol:.3e}")
                 print(f"[{name}] n={n} {label} per rank ({rows}, {cols}) "
-                      f"f32: == plain (exact"
-                      + (", both schedules" if name in DIRECT_PLAIN else "")
-                      + f"); max abs err {max(errs):.3e} "
+                      f"f32: == plain (exact, both schedules); max abs err "
+                      f"{max(errs):.3e} "
                       f"against the library (tolerance "
                       f"{0.0 if name == 'ring_all_gather' else tol:.3e})")
                 if n == 4 and label == "64 MiB":
@@ -492,11 +497,12 @@ def phase_ring(dev, kind) -> list[dict]:
                         name, fn, plain_fn, xs, want, kind, line, max(errs))
                 del xs, outs, want, lib
     ring_small(dev)
+    ring_suite(dev)
     return [entries[name] for name, *_ in RING_KERNELS]
 
 
 def ring_timing(name, fn, plain_fn, xs, want, kind, line, lib_err) -> dict:
-    """Times one kernel alone: its launch is set up once (slots, signal
+    """Times one kernel alone: its launch is set up once (staging, signal
     words, pointer table) and the timed loop holds only the launches, each
     with the zeroing of its signal words. ``want`` is the plain version's
     result on ``xs``."""
@@ -539,10 +545,6 @@ def ring_timing(name, fn, plain_fn, xs, want, kind, line, lib_err) -> dict:
           f"{moved / ms / 1e9:.1f} TB/s effective; busbw "
           f"{busbw:.1f} GB/s (loopback on one card: device-memory copies, "
           f"not NVLink)")
-    extra = {}
-    if launch.direct:
-        extra = {"piece_bytes": 16 * launch.piece4,
-                 "sweep": ring_sweep(name, xs, want)}
     return {"name": name, "route": "cuda",
             "source": "tpu_operator_torch/csrc/ring.cu",
             "replaces": f"tpu_operator/parallel/ring.py:{line}",
@@ -551,7 +553,9 @@ def ring_timing(name, fn, plain_fn, xs, want, kind, line, lib_err) -> dict:
             "bound_by": bound_by, "library_ms": library_ms,
             "library_n_ms": library_n_ms, "design_bytes": moved,
             "shape": f"f32 n=4 x ({xs[0].shape[0]}, {xs[0].shape[1]}) per rank",
-            "loopback_busbw_gbps": busbw, "blocks": launch.blocks, **extra}
+            "loopback_busbw_gbps": busbw, "blocks": launch.blocks,
+            "piece_bytes": 16 * launch.piece4,
+            "sweep": ring_sweep(name, xs, want)}
 
 
 # piece bytes; None: one piece per slice
@@ -559,7 +563,7 @@ SWEEP_PIECES = (8 << 10, 16 << 10, 32 << 10, 64 << 10, 128 << 10, None)
 
 
 def ring_sweep(name, xs, want) -> dict:
-    """K3's, K5's or K6's kernel-alone time by piece size, each checked
+    """A ring kernel's time alone by piece size, each checked
     against the plain version after its launches."""
     from tpu_operator_torch.parallel import ring
     kind = name.removeprefix("ring_")
@@ -606,6 +610,19 @@ def ring_small(dev) -> None:
               f"at n=2 ({hops[2]} hops), {times[8] * 1e3:.1f} us at n=8 "
               f"({hops[8]} hops, {launch.blocks} blocks/rank): "
               f"{per_hop * 1e3:.2f} us per hop")
+
+
+def ring_suite(dev) -> None:
+    """The validator's collective suite on 4 virtual ranks at its 64 MiB
+    payload, report by report. On one card every figure is a loopback
+    through device memory with the host's time per call in it."""
+    from tpu_operator_torch.parallel.collectives import run_collective_suite
+    from tpu_operator_torch.parallel.mesh import MeshPlan, make_mesh
+    mesh = make_mesh(4, MeshPlan(data=1, model=4), device=dev)
+    for r in run_collective_suite(mesh, "model", mbytes=PAYLOAD_MB, iters=3):
+        print(f"[suite] {r.op}: n={r.n_devices}, {r.payload_bytes} B, best "
+              f"of 3 {r.seconds * 1e3:.4f} ms on the host clock, loopback "
+              f"busbw {r.busbw_gbps:.1f} GB/s")
 
 
 def phase_dryrun() -> None:
@@ -667,6 +684,77 @@ def phase_validate() -> dict:
     return info
 
 
+SUITE_OPS = ("allreduce", "all_gather", "reduce_scatter", "all_to_all",
+             "ppermute_ring", "ring_allreduce", "ring_allreduce_bidir")
+
+
+def phase_validate_ranks() -> None:
+    """The validator with its multi-device leg, on 4 virtual ranks."""
+    from tpu_operator_torch.validator.components import WorkloadComponent
+    with tempfile.TemporaryDirectory() as vdir:
+        info = WorkloadComponent(device="cuda", ranks=4,
+                                 validations_dir=vdir).run()
+    check(tuple(info["collectives"]) == SUITE_OPS,
+          f"collective suite reported {list(info['collectives'])}")
+    check(all(math.isfinite(bw) and bw > 0
+              for bw in info["collectives"].values()),
+          f"collective suite rates {info['collectives']}")
+    ring_check = info["ring_attention"]
+    check(ring_check["ok"] is True and ring_check["seq_len"] == 512
+          and ring_check["max_abs_err"] <= ring_check["tolerance"],
+          f"ring attention check {ring_check}")
+    legs = info["leg_seconds"]
+    print(f"[validate ranks=4] collectives (loopback busbw, GB/s) "
+          f"{json.dumps(info['collectives'])}; ring attention "
+          f"{json.dumps(ring_check)}; leg_seconds {json.dumps(legs)}")
+
+
+def phase_ulysses() -> None:
+    """Ulysses attention at full width on 4 virtual ranks: T = 4096, 8
+    heads of 128, bf16. Each rank's [2, 4096, 128] goes through K2."""
+    from tpu_operator_torch.ops import flash_attention as flash
+    from tpu_operator_torch.parallel.mesh import MeshPlan, make_mesh
+    from tpu_operator_torch.parallel.numerics import attention_tolerance
+    from tpu_operator_torch.parallel.ring_attention import ulysses_attention
+    n, t, h, d = 4, 4096, 8, 128
+    dev = torch.device("cuda", 0)
+    mesh = make_mesh(n, MeshPlan(data=1, model=n), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    q, k, v = (torch.randn((t, h, d), generator=gen, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    tol = attention_tolerance(torch.bfloat16, d, "cuda")
+    for causal in (True, False):
+        shards = [list(x.chunk(n)) for x in (q, k, v)]
+        before = flash.flash_attention.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = torch.cat(ulysses_attention(*shards, mesh, "model",
+                                          causal=causal))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = flash.flash_attention.launches - before
+        check(launched == n, f"Ulysses causal={causal}: K2 launched "
+                             f"{launched} times for {n} ranks")
+        check(out.shape == (t, h, d) and out.dtype == torch.bfloat16,
+              f"Ulysses output {tuple(out.shape)} {out.dtype}")
+        # the single-device computation, heads first
+        ref32, limit = flash.kernel_error_limit(
+            *(x.permute(1, 0, 2) for x in (q, k, v)), causal=causal)
+        got = out.permute(1, 0, 2)
+        ratio = limit_ratio(got, ref32, limit)
+        err = (got.float() - ref32).abs().max().item()
+        check(ratio <= 1.0, f"Ulysses causal={causal}: error {ratio:.3f}x "
+                            "K2's per-element limit")
+        check(math.isfinite(err) and err <= tol,
+              f"Ulysses causal={causal}: max abs err {err:.3e} > {tol:.3e}")
+        del ref32, limit
+        print(f"[ulysses] n={n} T={t} H={h} Dh={d} bf16 causal={causal}: "
+              f"K2 launched {launched} times on [{h // n}, {t}, {d}]; "
+              f"per-element limit ratio {ratio:.3f}; max abs err {err:.3e} "
+              f"(tolerance {tol:.3e}); {wall * 1e3:.3f} ms on the host "
+              f"clock")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -690,8 +778,16 @@ def main() -> int:
         ("dry run", (phase_dryrun,),
          {name: getattr(ring_mod, wrapper)
           for name, wrapper, *_ in RING_KERNELS}),
+        ("4-rank validation", (phase_validate_ranks,),
+         {"hbm_read": hbm_mod.read_sum,
+          "flash_fwd": flash_mod.flash_attention,
+          "ring_all_reduce": ring_mod.ring_all_reduce,
+          "ring_all_reduce_bidir": ring_mod.ring_all_reduce_bidir}),
+        ("Ulysses", (phase_ulysses,),
+         {"flash_fwd": flash_mod.flash_attention}),
     )
-    launches = {}
+    # a kernel's launches: the sum over the paths that must reach it
+    launches = {entry_["name"]: 0 for entry_ in kernels}
     for path, phases, counters in paths:
         for fn in counters.values():
             fn.launches = 0
@@ -699,7 +795,9 @@ def main() -> int:
             phase()
         counts = {name: fn.launches for name, fn in counters.items()}
         print(f"[kernels] launches on the {path} path: {counts}")
-        launches.update(counts)
+        for name, count in counts.items():
+            check(count > 0, f"{name} never launched on the {path} path")
+            launches[name] += count
     for entry_ in kernels:
         entry_["launches"] = launches[entry_["name"]]
         check(entry_["launches"] > 0,

@@ -198,7 +198,16 @@ def test_all_reduce_bidir_stall_raises_instead_of_hanging(cuda, monkeypatch):
         ring.ring_all_reduce_bidir(xs)
 
 
+def test_reduce_scatter_stall_raises_instead_of_hanging(cuda, monkeypatch):
+    monkeypatch.setattr(ring, "TIMEOUT_NS", 0)
+    xs = _ranks(cuda, 8, 8 * 4096, 512)
+    with pytest.raises(ring.RingStall, match="timed out waiting for its "
+                                             "(arrival|entry barrier)"):
+        ring.ring_reduce_scatter(xs)
+
+
 DIRECT = {"all_gather": ring.all_gather_direct_plain,
+          "reduce_scatter": ring.reduce_scatter_direct_plain,
           "all_reduce": ring.all_reduce_direct_plain,
           "all_reduce_bidir": ring.all_reduce_bidir_direct_plain}
 
@@ -212,7 +221,7 @@ def _blocks(name, per_direction):
 @pytest.mark.parametrize("name", sorted(DIRECT))
 def test_direct_kernel_equals_its_schedule_and_the_slot_schedule(cuda, name,
                                                                   n):
-    """K3, K5 and K6 give the bits of their own schedule's plain version
+    """Each kernel gives the bits of its own schedule's plain version
     (run here with other blocks and pieces: the bits do not depend on them)
     and of the slot schedule's."""
     fn, slots = RING[name]
@@ -227,7 +236,7 @@ def test_direct_kernel_equals_its_schedule_and_the_slot_schedule(cuda, name,
 @pytest.mark.parametrize("name", sorted(DIRECT))
 def test_direct_kernel_pieces_need_not_divide_the_slice(cuda, name,
                                                         piece_bytes):
-    """Slices of 4096 (K3), 1024 (K5) and 512 (K6) vectors cut into pieces
+    """Slices of 4096 (K3), 1024 (K4, K5) and 512 (K6) vectors cut into pieces
     of 1, 257 (a prime) and 1536 vectors, or one piece a slice."""
     _, slots = RING[name]
     xs = _ranks(cuda, 4, 4 * 56, 512, seed=7)
@@ -243,7 +252,7 @@ def test_direct_kernel_pieces_need_not_divide_the_slice(cuda, name,
 @pytest.mark.parametrize("n", [2, 4, 8])
 @pytest.mark.parametrize("name", sorted(DIRECT))
 def test_direct_kernel_on_chunks_smaller_than_a_block(cuda, name, n, rows):
-    """The dry run's (2n², 128) shapes (a K5 chunk of 2n rows of 32
+    """The dry run's (2n², 128) shapes (a K4 or K5 chunk of 2n rows of 32
     vectors, K6's of n rows: fewer than a block's 256 threads at n = 2) and
     one row of 128 per rank and chunk (32 vectors)."""
     _, slots = RING[name]
@@ -272,4 +281,38 @@ def test_dryrun_on_the_card_goes_through_the_ring_kernels(cuda):
     counters = [fn for fn, _ in RING.values()]
     before = [fn.launches for fn in counters]
     assert math.isfinite(dryrun_multigpu(4))
+    assert all(fn.launches > b for fn, b in zip(counters, before))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_ulysses_on_the_card_goes_through_the_flash_kernel(cuda, causal):
+    """4 virtual ranks, 8 heads: each rank's [2, T, 128] takes K2 once; the
+    result is held to K2's per-element limit against the single-device
+    computation."""
+    from tpu_operator_torch.parallel.mesh import MeshPlan, make_mesh
+    from tpu_operator_torch.parallel.ring_attention import ulysses_attention
+    n, t, h, d = 4, 512, 8, 128
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    q, k, v = (torch.randn((t, h, d), generator=gen, device=cuda)
+               .to(torch.bfloat16) for _ in range(3))
+    mesh = make_mesh(n, MeshPlan(data=1, model=n), device=cuda)
+    before = flash_mod.flash_attention.launches
+    out = torch.cat(ulysses_attention(
+        *(list(x.chunk(n)) for x in (q, k, v)), mesh, "model", causal=causal))
+    assert flash_mod.flash_attention.launches == before + n
+    assert out.shape == (t, h, d) and out.dtype == torch.bfloat16
+    ref, limit = flash_mod.kernel_error_limit(
+        *(x.permute(1, 0, 2) for x in (q, k, v)), causal=causal)
+    assert bool(((out.permute(1, 0, 2).float() - ref).abs() <= limit).all())
+
+
+def test_validator_on_four_ranks_runs_the_hand_rings(cuda, tmp_path):
+    from tpu_operator_torch.validator.components import WorkloadComponent
+    counters = [ring.ring_all_reduce, ring.ring_all_reduce_bidir]
+    before = [fn.launches for fn in counters]
+    info = WorkloadComponent(device="cuda", ranks=4, collective_mb=8,
+                             validations_dir=str(tmp_path)).validate()
+    assert list(info["collectives"])[-2:] == ["ring_allreduce",
+                                              "ring_allreduce_bidir"]
+    assert len(info["collectives"]) == 7 and info["ring_attention"]["ok"]
     assert all(fn.launches > b for fn, b in zip(counters, before))

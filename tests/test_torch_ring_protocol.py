@@ -1,16 +1,19 @@
-"""The schedules of the card's K3, K5 and K6 kernels, on the CPU.
+"""The schedules of the card's ring kernels (K3–K6), on the CPU.
 
-``ring.all_gather_direct_plain``, ``ring.all_reduce_direct_plain`` and
-``ring.all_reduce_bidir_direct_plain`` run the kernels' schedule (the sender
-writes into its neighbour's output, piece by piece, and signals one
+``ring.all_gather_direct_plain``, ``ring.reduce_scatter_direct_plain``,
+``ring.all_reduce_direct_plain`` and ``ring.all_reduce_bidir_direct_plain``
+run the kernels' schedule (the sender writes into its neighbour's output
+or, K4's partial sums, its staging area, piece by piece, and signals one
 "arrived" counter per block; K6 runs K5's rightward over the top half and
 its mirror image leftward over the bottom half) with one
 coroutine per (rank, block), blocking on the same counters the kernels wait
 on; a seeded scheduler picks which runnable block steps next. Whatever the
 interleaving, the result must equal the slot schedule's plain version (which
 equals the reference's kernels, ``tests/test_torch_ring.py``) bit for bit,
-no partial sum may be overwritten before its owner read it, and the
-all-gather must write every output location exactly once. The kernels are
+no partial sum may be overwritten before its owner read it, the
+all-gather must write every output location exactly once, and the
+reduce-scatter every staging and output piece exactly once before its owner
+reads it. The kernels are
 held to these plain versions on the card (``tests/test_torch_cuda.py``).
 """
 
@@ -82,6 +85,10 @@ def test_direct_all_gather_follows_the_protocol():
     _for_150_schedules(_check_all_gather)
 
 
+def test_direct_reduce_scatter_follows_the_protocol():
+    _for_150_schedules(_check_reduce_scatter)
+
+
 def test_direct_all_reduce_follows_the_protocol():
     _for_150_schedules(_check_all_reduce)
 
@@ -107,6 +114,35 @@ def _check_all_gather(case):
         chunk4 = rows * cols // 4
         assert set(writes) == _locations(n, chunk4, blocks, piece4)
         assert set(writes.values()) == {1}
+
+
+def _check_reduce_scatter(case):
+    n, blocks, piece4 = case["n"], case["blocks"], case["piece4"]
+    rows, cols = case["rows_per_rank"] * n, 4 * case["cols4"]
+    xs = _ranks(n, rows, cols, case["seed"] % 1000)
+    trace = []
+    got = ring.reduce_scatter_direct_plain(xs, blocks=blocks,
+                                           piece_bytes=16 * piece4,
+                                           seed=case["seed"], trace=trace)
+    for g, w in zip(got, ring.reduce_scatter_plain(xs)):
+        assert g.shape == w.shape and torch.equal(g, w)
+    assert _violations(trace) == []
+    if n == 1:
+        return
+    # every staging piece (what hops 0 to n - 3 delivered) and every output
+    # piece is written once by the left neighbour, then read once by its
+    # owner; the owner alone rewrites its output, once, after that read
+    chunk4 = rows // n * cols // 4
+    places = {(r, where, s) for r in range(n)
+              for where in (*range(n - 2), "out") for b in range(blocks)
+              for s, _ in ring.pieces(chunk4, blocks, piece4, b)}
+    events = collections.defaultdict(list)
+    for e in trace:
+        events[e[1:4]].append(e[0] if e[0] == "read" else e[4])
+    assert set(events) == places
+    for place, seen in events.items():
+        assert seen == (["partial", "read", "final"] if place[1] == "out"
+                        else ["partial", "read"]), (place, seen)
 
 
 def _check_all_reduce(case):
@@ -152,6 +188,7 @@ def _check_reduce(case, bidir):
 
 
 @pytest.mark.parametrize("fn", [ring.all_gather_direct_plain,
+                                ring.reduce_scatter_direct_plain,
                                 ring.all_reduce_direct_plain,
                                 ring.all_reduce_bidir_direct_plain])
 def test_a_wait_one_arrival_short_is_caught(fn, monkeypatch):
@@ -166,6 +203,7 @@ def test_a_wait_one_arrival_short_is_caught(fn, monkeypatch):
     n = 4
     xs = _ranks(n, 2 * n, 8, 0)
     exact = {ring.all_gather_direct_plain: ring.all_gather_plain,
+             ring.reduce_scatter_direct_plain: ring.reduce_scatter_plain,
              ring.all_reduce_direct_plain: ring.all_reduce_plain,
              ring.all_reduce_bidir_direct_plain:
                  ring.all_reduce_bidir_plain}[fn](xs)
@@ -202,6 +240,8 @@ def test_cpu_wrappers_keep_the_slot_schedule():
     for wrapper, slots, direct, blocks in (
             (ring.ring_all_gather, ring.all_gather_plain,
              ring.all_gather_direct_plain, 3),
+            (ring.ring_reduce_scatter, ring.reduce_scatter_plain,
+             ring.reduce_scatter_direct_plain, 3),
             (ring.ring_all_reduce, ring.all_reduce_plain,
              ring.all_reduce_direct_plain, 3),
             (ring.ring_all_reduce_bidir, ring.all_reduce_bidir_plain,

@@ -41,6 +41,66 @@ def test_workload_on_cpu_writes_its_status_file(tmp_path, monkeypatch):
         == 0
 
 
+def test_multi_rank_workload_adds_the_collectives_and_ring_attention(
+        tmp_path, monkeypatch):
+    monkeypatch.delenv("REQUIRE_GPU_PLATFORM", raising=False)
+    wl = _workload(tmp_path, ranks=4, collective_mb=1)
+    info = wl.run()
+    with open(wl.status_path()) as f:
+        status = json.load(f)
+    assert status["info"] == json.loads(json.dumps(info))
+    # the five library collectives; the hand rings join only on the card
+    assert list(info["collectives"]) == [
+        "allreduce", "all_gather", "reduce_scatter", "all_to_all",
+        "ppermute_ring"]
+    assert all(0 < bw < float("inf") for bw in info["collectives"].values())
+    ring_check = info["ring_attention"]
+    assert ring_check["ok"] is True and ring_check["seq_len"] == 4 * 128
+    assert ring_check["max_abs_err"] <= ring_check["tolerance"]
+    assert list(info["leg_seconds"]) == ["matmul", "hbm", "flash",
+                                         "collectives", "ring_attention"]
+
+
+def test_single_rank_workload_has_no_multi_device_leg(tmp_path, monkeypatch):
+    monkeypatch.delenv("REQUIRE_GPU_PLATFORM", raising=False)
+    multi = _workload(tmp_path / "multi", ranks=2, collective_mb=1).validate()
+    for wl in (_workload(tmp_path), _workload(tmp_path, ranks=1)):
+        info = wl.validate()
+        assert "collectives" not in info and "ring_attention" not in info
+        assert list(info["leg_seconds"]) == ["matmul", "hbm", "flash"]
+        # the multi-rank status only adds keys to the single-rank one
+        assert set(multi) - set(info) == {"collectives", "ring_attention"}
+
+
+def test_collective_payload_comes_from_the_argument_or_the_environment(
+        monkeypatch):
+    monkeypatch.delenv("WORKLOAD_COLLECTIVE_MB", raising=False)
+    assert WorkloadComponent().collective_mb == 64
+    monkeypatch.setenv("WORKLOAD_COLLECTIVE_MB", "8")
+    assert WorkloadComponent().collective_mb == 8
+    assert WorkloadComponent(collective_mb=2).collective_mb == 2
+
+
+def test_ring_attention_divergence_fails_validation(tmp_path, monkeypatch):
+    """A ring that drops one hop's K/V block (the last rank, whose causal
+    queries see every block, receives zeros, as from a link that delivered
+    nothing) must not validate."""
+    from tpu_operator_torch.parallel import ring_attention as ra
+    real, calls = ra.ppermute, []
+
+    def lossy(xs, mesh, axis, perm):
+        calls.append(1)
+        out = real(xs, mesh, axis, perm)
+        if len(calls) in (3, 4):     # the second hop's K, then its V
+            out[-1] = torch.zeros_like(out[-1])
+        return out
+    monkeypatch.setattr(ra, "ppermute", lossy)
+    with pytest.raises(ValidationFailed, match="ring attention over the "
+                                               "slice fabric diverged"):
+        _workload(tmp_path, ranks=4, collective_mb=1).validate()
+    assert len(calls) == 2 * 3
+
+
 def test_status_file_schema_matches_reference(tmp_path):
     port = comp.Component(validations_dir=str(tmp_path / "port"))
     ref = JaxComponent(validations_dir=str(tmp_path / "ref"))

@@ -42,7 +42,7 @@ _SIGNATURES = {
     "flash_fwd_bf16": (_P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _F,
                        _I, _P),
     "ring_all_gather_f32": (_P, _I, _LL, _I, _LL, _LL, _P),
-    "ring_reduce_scatter_f32": (_P, _I, _LL, _I, _LL, _P),
+    "ring_reduce_scatter_f32": (_P, _I, _LL, _I, _LL, _LL, _P),
     "ring_all_reduce_f32": (_P, _I, _LL, _I, _LL, _LL, _P),
     "ring_all_reduce_bidir_f32": (_P, _I, _LL, _I, _LL, _LL, _P),
     "ring_resident_blocks": (_I, _P),

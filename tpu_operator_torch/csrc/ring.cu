@@ -11,8 +11,8 @@
 //
 // Ranks. blockIdx.y is the rank. A rank's code reads one RankPtrs entry and
 // reaches nothing but what it names: its own input, output and signal words,
-// its right neighbour's output (K3, K5, K6) and its left one's (K6), its own
-// and its right neighbour's comm slots (K4), and its neighbours' signal
+// its right neighbour's output (all four) and its left one's (K6), its own
+// and its right neighbour's staging area (K4), and its neighbours' signal
 // words. On one card these are separate allocations of virtual ranks; the
 // same code would run across cards with peer pointers in the table (and
 // epoch counters in place of the signal words that the wrapper zeroes
@@ -28,25 +28,40 @@
 // time counts each rank's input read once and its output written once, over
 // 3.35 TB/s). Across cards the bound would be the NVLink rate instead.
 //
-// K3, K5 and K6 (all_gather_kernel, all_reduce_kernel,
-// all_reduce_bidir_kernel): the sender writes into the neighbour's output.
-// Every location a rank writes there is one that nobody reads or writes
-// until the rank's signal says it is there, so there are no comm slots and
-// no credits; the only signal left is one monotone "arrived" counter per
-// block. Per rank, with c the chunk:
+// The design (all_gather_kernel, reduce_scatter_kernel, all_reduce_kernel,
+// all_reduce_bidir_kernel): the sender writes into memory of its neighbour,
+// the neighbour's output wherever the output has room for it. Every
+// location a rank writes there is one that nobody reads or writes until the
+// rank's signal says it is there, so there are no comm slots and no
+// credits (the TPU kernels' two receive slots per rank are reused hop after
+// hop, and credits guard that reuse); the only signal is one monotone
+// "arrived" counter per block. Per rank, with c the chunk:
 //   K3, hop 0:      out[d] and right.out[d] <- in          (read c, write 2c)
 //       hop t >= 1: right.out[d-t] <- out[d-t]             (read c, write c)
 //   K5 reduce-scatter hop 0:  right.out[d] <- in[d]
 //       hop i >= 1:           right.out[d-i] <- out[d-i] + in[d-i]
 //      all-gather hop 0:      v = out[d+1] + in[d+1]; out[d+1], right.out[d+1] <- v
 //       hop i >= 1:           right.out[d+1-i] <- out[d+1-i]
-// Per rank K3 moves c(2n - 1) bytes and K5 c(5n - 4), c the chunk of a hop;
-// the slot design, which K4 keeps, moved c(4n - 2) and c(11n - 9): an
-// initial copy into the output, then per hop a store into the slot, a read
-// of it and a write of the output. A partial sum lives in the receiver's
-// own output; the all-gather overwrites it only after a chain of signals
-// that passes through the rank that read it. Each piece is written exactly
-// once by K3, so K3 needs no ordering beyond "arrived".
+//   K4, hop 0:               right.stage[0] <- in[d-1]
+//       hop t, 1 <= t <= n-2: right.stage[t] <- stage[t-1] + in[d-t-1]
+//                            (the last of them, t = n-2, into right.out;
+//                            at n = 2 hop 0 goes there)
+//       last:                out <- out + in[d], in place
+// Per rank K3 moves c(2n - 1) bytes, K4 c(3n - 1) and K5 c(5n - 4), c the
+// chunk of a hop. In K5 a partial sum lives in the receiver's own output;
+// the all-gather overwrites it only after a chain of signals that passes
+// through the rank that read it. Each piece is written exactly once by K3,
+// so K3 needs no ordering beyond "arrived". K4's output is one chunk, so the
+// partial sums that pass through a rank have no place in it: each rank has a
+// staging area of n - 2 chunks, one per hop that forwards, so that every
+// staging piece, like every output piece, is written once per launch by the
+// left neighbour and read only by its owner after the arrival. (A staging
+// chunk reused by a later hop would need a signal back to the sender, which
+// is what the TPU kernel's credits are.) A staging piece is read once, a
+// few microseconds after it was written, and never again, so its owner
+// discards its lines from L2 (discard.global.L2) once it has forwarded
+// them: the partial sums need not reach device memory at all, and without
+// their write-back K4 is 6-7% faster (PERF.md).
 //
 // K6 is K5's schedule twice: the first half of a rank's blocks runs it
 // rightward over the top half of the tensor, the second half runs its
@@ -63,38 +78,27 @@
 // signalling per piece. A piece is forwarded moments after it arrived. The
 // intent is that with some hundred blocks in flight the bytes between a
 // write and its forwarding read fit in the 50 MB L2, so that the forwarded
-// read is served from there, where the slice-major order of K4 re-reads
-// every forwarded chunk from device memory (the hit rate is not measured).
-// The neighbour that sends to a block walks the same (piece, hop) order, so
-// the counter stays monotone: the k-th arrival is always the same piece and
-// hop. A piece moves through registers (16-byte ld/st.global.cg, kUnroll
-// loads in flight per thread). Hopper's bulk copies (cp.async.bulk through
-// shared memory on an mbarrier) were timed against this loop on an H100 and
-// were no faster (PERF.md), so they are not used.
-//
-// K4 (ring_kernel) keeps the slot protocol of the TPU kernel:
-//   - a hop: wait for a credit for the right neighbour's receive slot
-//     (t + 1) % 2, store the payload straight into that slot with 16-byte
-//     stores, then raise the neighbour's receive counter for the slot;
-//   - credits: a slot is granted back to the sender once its contents have
-//     been consumed and only if the sender will write it again, so every
-//     grant is used. Both slots start free, so the first two hops' slots are
-//     granted at entry.
+// read is served from there (the hit rate is not measured). The neighbour that sends to a block walks the same (piece, hop)
+// order, so the counter stays monotone: the k-th arrival is always the same
+// piece and hop. A piece moves through registers (16-byte ld/st.global.cg,
+// kUnroll loads in flight per thread). Hopper's bulk copies (cp.async.bulk
+// through shared memory on an mbarrier) were timed against this loop on an
+// H100 and were no faster (PERF.md), so they are not used.
 //
 // Common to all: an entry barrier (signal both neighbours' barrier word
 // once, wait for 2), which across cards keeps a rank from writing into an
-// output or slot that a previous collective still uses. Signalling is
-// __syncthreads, then a release add at system scope (red.release.sys) by
+// output or staging area that a previous collective still uses. Signalling
+// is __syncthreads, then a release add at system scope (red.release.sys) by
 // thread 0; waiting is thread 0 spinning on acquire loads at system scope,
-// then __syncthreads. K4 and the barrier also put a system fence before
-// the add and after the wait; K3/K5/K6 do not (release() and acquire() below):
-// the fences are not needed for the ordering, and they make every hop's
+// then __syncthreads. The barrier also puts a system fence before the add
+// and after the wait; the hops do not (release() and acquire() below): the
+// fences are not needed for the ordering, and they make every hop's
 // handshake slower (PERF.md). Data written by a neighbour is
 // read with ld.global.cg so that no stale L1 line is used. A wait that sees
 // no progress for timeout_ns (the GPU's global timer) writes a code into the
 // rank's status word and ends the block; the wrapper reads the status words
-// after the launch and raises. Each K3/K5/K6 block waits for its last
-// arrival before it ends, so a stalled neighbour is caught there too.
+// after the launch and raises. Each block waits for its last arrival before
+// it ends, so a stalled neighbour is caught there too.
 //
 // Residency. A rank spinning on a neighbour that never got an SM would hang,
 // so the launch is cooperative: cudaLaunchCooperativeKernel refuses a grid
@@ -109,21 +113,14 @@ constexpr int kThreads = 256;
 constexpr int kUnroll = 4;     // float4s each thread loads before it stores
 constexpr int kSigWords = 16;  // per block: 64 bytes of signal words
 constexpr int kBarrier = 0;
-constexpr int kRecv = 1;       // kRecv + slot: payloads received into the slot
-constexpr int kArrived = 1;    // K3/K5/K6: pieces that arrived in my output
-constexpr int kCap = 3;        // kCap + slot: credits to write the receiver's slot
+constexpr int kArrived = 1;    // pieces that arrived in my output or staging
 constexpr int kStatus = 15;    // non-zero: a wait timed out (code below)
 
-enum Stall {
-  kStallBarrier = 1,
-  kStallCredit = 2,
-  kStallRecv = 3,
-  kStallArrival = 4
-};
+enum Stall { kStallBarrier = 1, kStallArrival = 2 };
 // the kernels, as ring_resident_blocks names them
 enum Kernel {
   kAllGatherKernel = 0,
-  kRingKernel = 1,
+  kReduceScatterKernel = 1,
   kAllReduceKernel = 2,
   kAllReduceBidirKernel = 3
 };
@@ -131,10 +128,10 @@ enum Kernel {
 struct RankPtrs {
   const float* in;
   float* out;
-  float* right_out;    // the right neighbour's output (K3, K5, K6)
+  float* right_out;    // the right neighbour's output
   float* left_out;     // the left neighbour's output (K6)
-  float* slots;        // this rank's receive slots (K4): [2][chunk]
-  float* right_slots;  // the right neighbour's receive slots
+  float* stage;        // this rank's staging area (K4): [n - 2][chunk]
+  float* right_stage;  // the right neighbour's staging area
   unsigned* sig;       // this rank's signal words: [gridDim.x][kSigWords]
   unsigned* right_sig;
   unsigned* left_sig;
@@ -156,16 +153,6 @@ __device__ __forceinline__ unsigned long long now_ns() {
   unsigned long long t;
   asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
   return t;
-}
-
-// Raise `word` by one once every thread of the block is done with its loads
-// and stores before this point.
-__device__ __forceinline__ void signal(unsigned* word) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence_system();
-    add_release(word, 1u);
-  }
 }
 
 // Wait until `word` >= target. False (after writing `code` into the status
@@ -192,7 +179,7 @@ __device__ __forceinline__ bool wait_for(const unsigned* word,
   return ok != 0;
 }
 
-// K3/K5/K6's lighter pair. The release at system scope alone orders every
+// The hops' lighter pair. The release at system scope alone orders every
 // thread's earlier accesses before the add (__syncthreads orders the other
 // threads' before thread 0's), and the acquire every later one after the
 // wait, so neither needs a separate system fence.
@@ -232,124 +219,7 @@ __device__ __forceinline__ bool barrier(const RankPtrs& p, int b, unsigned* my,
   return wait_for(my + kBarrier, 2u, my + kStatus, kStallBarrier, timeout_ns);
 }
 
-// dst[i] = a[i], or a[i] + b[i] (received + local), for the float4s
-// i in [lo, hi).
-__device__ __forceinline__ void move(float4* dst, const float4* a,
-                                     const float4* b, long long lo,
-                                     long long hi) {
-  for (long long i = lo + threadIdx.x; i < hi; i += kThreads) {
-    float4 v = __ldcg(a + i);
-    if (b != nullptr) {
-      const float4 w = __ldcg(b + i);
-      v.x = v.x + w.x;
-      v.y = v.y + w.y;
-      v.z = v.z + w.z;
-      v.w = v.w + w.w;
-    }
-    __stcg(dst + i, v);
-  }
-}
-
 __device__ __forceinline__ int wrap(int i, int n) { return ((i % n) + n) % n; }
-
-// One K4 block's view of its ring: the slice it moves, where it sends, and the
-// counters its thread 0 waits on (every thread keeps the same counts). The
-// counts are scalars, not arrays indexed by slot, and every function that
-// takes a Ring is inlined, so the struct lives in registers.
-struct Ring {
-  int n;
-  long long chunk4, lo, hi, timeout_ns;
-  float4* my_slots;   // my receive slots
-  float4* to_slots;   // the receive slots of the rank I send to
-  unsigned* my;       // my signal words (this block)
-  unsigned* to;       // the signal words of the rank I send to (this block)
-  unsigned* from;     // the signal words of the rank I receive from
-  unsigned credits0, credits1;    // credits awaited for the receiver's slots
-  unsigned received0, received1;  // payloads awaited in my slots
-
-  __device__ float4* slot(int s) { return my_slots + s * chunk4; }
-  __device__ float4* remote_slot(int s) { return to_slots + s * chunk4; }
-
-  // my slot s is free: credit the rank that writes it
-  __device__ void grant(int s) { signal(from + kCap + s); }
-
-  // wait for a credit to write the receiver's slot s, store, signal
-  __device__ bool send(int s, const float4* a, const float4* b) {
-    const unsigned want = s ? ++credits1 : ++credits0;
-    if (!wait_for(my + kCap + s, want, my + kStatus, kStallCredit,
-                  timeout_ns))
-      return false;
-    move(remote_slot(s), a, b, lo, hi);
-    signal(to + kRecv + s);
-    return true;
-  }
-
-  __device__ bool receive(int s) {
-    const unsigned want = s ? ++received1 : ++received0;
-    return wait_for(my + kRecv + s, want, my + kStatus, kStallRecv,
-                    timeout_ns);
-  }
-
-  // both slots start free: credit the first two hops' targets
-  __device__ void open(int hops) {
-    if (hops >= 1) grant(1);
-    if (hops >= 2) grant(0);
-  }
-};
-
-// K4: out = chunk d of the sum. At hop t rank d sends the running sum of
-// chunk d - t - 1; the sum lives in the slots and the input is never written.
-__device__ __forceinline__ void reduce_scatter(Ring& r, const float4* in,
-                                               float4* out, int d) {
-  const int n = r.n;
-  const long long c4 = r.chunk4;
-  if (n == 1) {
-    move(out, in, nullptr, r.lo, r.hi);
-    return;
-  }
-  const int hops = n - 1;
-  r.open(hops);
-  for (int t = 0; t < hops; ++t) {
-    const int s = (t + 1) & 1;
-    const float4* local = in + wrap(d - t - 1, n) * c4;
-    // hop 0 sends my own copy; later hops send what arrived + my copy
-    if (!(t == 0 ? r.send(s, local, nullptr)
-                 : r.send(s, r.slot(t & 1), local)))
-      return;
-    // my slot t & 1 is consumed and is the target of hop t + 1
-    if (t >= 1 && t + 1 < hops) r.grant(t & 1);
-    if (!r.receive(s)) return;
-  }
-  move(out, r.slot(hops & 1), in + d * c4, r.lo, r.hi);
-}
-
-// K4.
-__global__ void __launch_bounds__(kThreads)
-ring_kernel(const RankPtrs* __restrict__ ranks, int n, long long chunk4,
-            long long timeout_ns) {
-  const int d = blockIdx.y;
-  const RankPtrs p = ranks[d];
-  const int b = blockIdx.x;
-  Ring r;
-  r.n = n;
-  r.chunk4 = chunk4;
-  r.lo = chunk4 * b / gridDim.x;
-  r.hi = chunk4 * (b + 1) / gridDim.x;
-  r.timeout_ns = timeout_ns;
-  r.my_slots = reinterpret_cast<float4*>(p.slots);
-  r.to_slots = reinterpret_cast<float4*>(p.right_slots);
-  r.my = p.sig + b * kSigWords;
-  r.to = p.right_sig + b * kSigWords;
-  r.from = p.left_sig + b * kSigWords;
-  r.credits0 = r.credits1 = 0;
-  r.received0 = r.received1 = 0;
-
-  if (n > 1 && !barrier(p, b, r.my, timeout_ns)) return;
-  reduce_scatter(r, reinterpret_cast<const float4*>(p.in),
-                 reinterpret_cast<float4*>(p.out), d);
-}
-
-// ---- K3, K5 and K6 ---------------------------------------------------------
 
 // received + local, in that order
 __device__ __forceinline__ float4 sum4(float4 a, float4 b) {
@@ -389,8 +259,8 @@ __device__ __forceinline__ void forward(float4* dst0, float4* dst1,
   }
 }
 
-// One block of a rank in K3, K5 or K6: where its signals go, and the
-// arrivals it has waited for (the same count in every thread).
+// One block of a rank: where its signals go, and the arrivals it has waited
+// for (the same count in every thread).
 struct Direct {
   int n;
   long long chunk4, timeout_ns;
@@ -404,7 +274,7 @@ struct Direct {
   __device__ long long at(int c) const {
     return static_cast<long long>(wrap(kMirror ? -c : c, n)) * chunk4;
   }
-  // wait for the next piece to arrive in my output
+  // wait for the next piece to arrive in my output or staging area
   __device__ bool arrival() {
     return acquire(my + kArrived, ++awaited, my + kStatus, kStallArrival,
                    timeout_ns);
@@ -415,7 +285,7 @@ struct Direct {
     return acquire(my + kArrived, awaited, my + kStatus, kStallArrival,
                    timeout_ns);
   }
-  // my piece is in the neighbour's output
+  // my piece is in the neighbour's memory
   __device__ void sent() { release(to + kArrived); }
   // one hop of one piece [s, e): wait for its arrival if `wait`, then
   // dst0 (and dst1) <- a (+ b), then signal the neighbour
@@ -472,6 +342,67 @@ all_gather_kernel(const RankPtrs* __restrict__ ranks, int n, long long chunk4,
     r.skip();  // chunk d + 1 arrives last and goes no further
   }
   r.last();
+}
+
+// Drop the whole 128-byte lines of the float4s [base + s, base + e) from L2
+// without writing them back to device memory. Only for data that nothing
+// reads again in this launch, after a block barrier that follows the
+// block's last load of it: the discard counts as a write of an unspecified
+// value.
+__device__ __forceinline__ void discard_lines(const float4* base, long long s,
+                                              long long e) {
+  unsigned long long lo = __cvta_generic_to_global(base + s);
+  unsigned long long hi = __cvta_generic_to_global(base + e);
+  lo = (lo + 127ull) & ~127ull;
+  hi &= ~127ull;
+  for (unsigned long long a = lo + threadIdx.x * 128ull; a < hi;
+       a += kThreads * 128ull)
+    asm volatile("discard.global.L2 [%0], 128;" :: "l"(a) : "memory");
+}
+
+// K4: out = chunk d of the sum, in n - 1 hops per piece. The running sum of
+// chunk c starts at rank c + 1 and ends at rank c; on its way it rests in
+// the staging areas, stage[t] holding what hop t delivered.
+__global__ void __launch_bounds__(kThreads)
+reduce_scatter_kernel(const RankPtrs* __restrict__ ranks, int n,
+                      long long chunk4, long long piece4,
+                      long long timeout_ns) {
+  const int d = blockIdx.y;
+  const RankPtrs p = ranks[d];
+  const long long lo = chunk4 * blockIdx.x / gridDim.x;
+  const long long hi = chunk4 * (blockIdx.x + 1) / gridDim.x;
+  const float4* in = reinterpret_cast<const float4*>(p.in);
+  float4* out = reinterpret_cast<float4*>(p.out);
+  const float4* stage = reinterpret_cast<const float4*>(p.stage);
+  float4* right_stage = reinterpret_cast<float4*>(p.right_stage);
+  float4* right_out = reinterpret_cast<float4*>(p.right_out);
+  if (n == 1) {
+    forward(out, nullptr, in, nullptr, lo, hi);
+    return;
+  }
+  Direct r = direct(p, p.right_sig, n, chunk4, timeout_ns);
+  if (!barrier(p, blockIdx.x, r.my, timeout_ns)) return;
+  for (long long s = lo; s < hi; s += piece4) {
+    const long long e = s + piece4 < hi ? s + piece4 : hi;
+    // hop 0: my addend of chunk d - 1 starts its way
+    if (!r.hop(false, n == 2 ? right_out : right_stage, nullptr,
+               in + r.at(d - 1), nullptr, s, e))
+      return;
+    // hop t: the partial of chunk d - t - 1 arrived at hop t - 1; add mine
+    // (received + local) and pass it on, at the last hop into the output
+    // of the rank that owns the chunk
+    for (int t = 1; t < n - 1; ++t) {
+      float4* to = t == n - 2 ? right_out : right_stage + t * chunk4;
+      if (!r.hop(true, to, nullptr, stage + (t - 1) * chunk4,
+                 in + r.at(d - t - 1), s, e))
+        return;
+      // what I forwarded is read: keep L2 from writing it back
+      discard_lines(stage + (t - 1) * chunk4, s, e);
+    }
+    // chunk d arrived in my output with every addend but mine
+    if (!r.arrival()) return;
+    forward(out, nullptr, out, in + r.at(d), s, e);
+  }
 }
 
 // One piece [s, e) of K5's schedule: reduce-scatter then all-gather,
@@ -571,7 +502,7 @@ const void* kernel_fn(int kernel) {
     return reinterpret_cast<const void*>(all_reduce_kernel);
   if (kernel == kAllReduceBidirKernel)
     return reinterpret_cast<const void*>(all_reduce_bidir_kernel);
-  return reinterpret_cast<const void*>(ring_kernel);
+  return reinterpret_cast<const void*>(reduce_scatter_kernel);
 }
 
 int launch(int kernel, void** args, int n, int blocks, void* stream) {
@@ -593,8 +524,8 @@ int launch_direct(int kernel, const void* ranks, int n, long long chunk4,
 }  // namespace
 
 // ranks: device array of n RankPtrs; chunk4: float4s per chunk (K6: of a
-// half); blocks: gridDim.x (even for bidir); piece4: float4s per piece (K3,
-// K5, K6). Runs on `stream`; returns the launch's error.
+// half); blocks: gridDim.x (even for bidir); piece4: float4s per piece. Runs
+// on `stream`; returns the launch's error.
 extern "C" int ring_all_gather_f32(const void* ranks, int n, long long chunk4,
                                    int blocks, long long piece4,
                                    long long timeout_ns, void* stream) {
@@ -604,10 +535,10 @@ extern "C" int ring_all_gather_f32(const void* ranks, int n, long long chunk4,
 
 extern "C" int ring_reduce_scatter_f32(const void* ranks, int n,
                                        long long chunk4, int blocks,
+                                       long long piece4,
                                        long long timeout_ns, void* stream) {
-  const RankPtrs* table = static_cast<const RankPtrs*>(ranks);
-  void* args[] = {&table, &n, &chunk4, &timeout_ns};
-  return launch(kRingKernel, args, n, blocks, stream);
+  return launch_direct(kReduceScatterKernel, ranks, n, chunk4, blocks, piece4,
+                       timeout_ns, stream);
 }
 
 extern "C" int ring_all_reduce_f32(const void* ranks, int n, long long chunk4,

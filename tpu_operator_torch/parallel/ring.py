@@ -12,9 +12,11 @@ them all; the source says how a rank reaches its neighbours and what bounds
 it. f32 only. For CPU tensors the wrapper runs the plain version: a hop-by-hop
 simulation of the TPU kernels' schedule (the same slots, the same chunk
 arithmetic, the same ``received + local`` adds) that also keeps a ledger of
-the credits. K4 follows that schedule on the card too. K3, K5 and K6 follow
-another on the card, in which the sender writes straight into its
-neighbour's output, piece by piece; ``all_gather_direct_plain``,
+the credits. On the card all four follow another schedule, in which the
+sender writes straight into its neighbour's memory, piece by piece: into the
+neighbour's output, and for K4's partial sums, which its one-chunk output
+has no room for, into a staging area that is written once per launch.
+``all_gather_direct_plain``, ``reduce_scatter_direct_plain``,
 ``all_reduce_direct_plain`` and ``all_reduce_bidir_direct_plain`` run that
 schedule with one coroutine per (rank, block) under a seeded scheduler,
 blocking on the kernel's own counters. All of them give the same bits, and
@@ -41,8 +43,8 @@ THREADS = 256          # threads per block of the kernel (kThreads)
 SIG_WORDS = 16         # signal words per block (kSigWords)
 STATUS_WORD = 15       # a non-zero status means a wait timed out (kStatus)
 TIMEOUT_NS = 5_000_000_000
-_STALLS = {1: "entry barrier", 2: "credit", 3: "receive", 4: "arrival"}
-# K3 and K5 move each block's slice in pieces of this many bytes, K6 in
+_STALLS = {1: "entry barrier", 2: "arrival"}
+# K3, K4 and K5 move each block's slice in pieces of this many bytes, K6 in
 # pieces of BIDIR_PIECE_BYTES, each chosen by chip_smoke.py's sweep (PERF.md)
 PIECE_BYTES = 16 << 10
 BIDIR_PIECE_BYTES = 32 << 10
@@ -224,10 +226,10 @@ def all_reduce_bidir_plain(xs, ledgers: tuple[_Ledger, _Ledger] | None = None):
     return outs
 
 
-# -- plain versions of K3's, K5's and K6's schedules on the card ------------
+# -- plain versions of the schedules on the card ---------------------------
 
 def pieces(chunk4: int, blocks: int, piece4: int, b: int):
-    """Block b's pieces as the K3/K5/K6 kernels cut them: [s, e) in 16-byte
+    """Block b's pieces as the kernels cut them: [s, e) in 16-byte
     vectors of a chunk of ``chunk4`` vectors, split over ``blocks`` blocks
     (K6: the blocks of one direction)."""
     lo, hi = chunk4 * b // blocks, chunk4 * (b + 1) // blocks
@@ -368,6 +370,81 @@ def _direct(xs, gather: bool, blocks: int, piece_bytes: int, seed: int,
     return outs
 
 
+def _reduce_scatter_direct(xs, blocks: int, piece_bytes: int, seed: int,
+                           trace: list | None):
+    """K4's schedule on the card, on flat views of the ranks' tensors: the
+    outputs (one chunk per rank). ``trace``, if given, receives every
+    access to a staging or output piece in the order it ran:
+    ("write", rank, where, s, kind) and ("read", rank, where, s), where
+    ``where`` is the staging chunk's index t (what hop t delivered) or
+    "out", and kind is "partial" for what the left neighbour wrote and
+    "final" for the owner's own write of its output."""
+    n = len(xs)
+    flat = [x.reshape(-1) for x in xs]
+    chunk = flat[0].numel() // n
+    if chunk % 4 or piece_bytes <= 0 or piece_bytes % 16:
+        raise ValueError("chunks and pieces are whole 16-byte vectors")
+    chunk4, piece4 = chunk // 4, piece_bytes // 16
+
+    def empty(chunks):
+        return [torch.full((chunks * chunk,), float("nan"), dtype=x.dtype,
+                           device=x.device) for x in flat]
+
+    outs, stages = empty(1), empty(max(n - 2, 0))
+    if n == 1:
+        outs[0].copy_(flat[0])
+        return outs
+    sched = _Scheduler(seed)
+    log = trace if trace is not None else []
+
+    def place(rank, where, s, e):
+        if where == "out":
+            return outs[rank][4 * s:4 * e]
+        return stages[rank][where * chunk + 4 * s:where * chunk + 4 * e]
+
+    def read(rank, where, s, e):
+        log.append(("read", rank, where, s))
+        return place(rank, where, s, e).clone()
+
+    def write(rank, where, s, e, value, kind):
+        log.append(("write", rank, where, s, kind))
+        place(rank, where, s, e).copy_(value)
+
+    def local(d, c, s, e):
+        c %= n
+        return flat[d][c * chunk + 4 * s:c * chunk + 4 * e]
+
+    def block(d, b):
+        to = (d + 1) % n
+        arrived = ("arrived", d, b)
+        sched.signal(("barrier", (d + 1) % n, b))
+        sched.signal(("barrier", (d - 1) % n, b))
+        yield ("barrier", d, b), 2
+        awaited = 0
+
+        def send(t, s, e, value):
+            # hop t delivers into staging chunk t; the last hop, n - 2,
+            # into the output of the rank that owns the chunk
+            write(to, "out" if t == n - 2 else t, s, e, value, "partial")
+            sched.signal(("arrived", to, b))
+
+        for s, e in pieces(chunk4, blocks, piece4, b):
+            yield None
+            send(0, s, e, local(d, d - 1, s, e))
+            for t in range(1, n - 1):
+                awaited += 1
+                yield arrived, awaited
+                send(t, s, e,
+                     read(d, t - 1, s, e) + local(d, d - t - 1, s, e))
+            awaited += 1
+            yield arrived, awaited
+            write(d, "out", s, e,
+                  read(d, "out", s, e) + local(d, d, s, e), "final")
+
+    sched.run([block(d, b) for d in range(n) for b in range(blocks)])
+    return outs
+
+
 def all_gather_direct_plain(xs, *, blocks: int = 1,
                             piece_bytes: int = PIECE_BYTES, seed: int = 0,
                             trace: list | None = None):
@@ -378,6 +455,23 @@ def all_gather_direct_plain(xs, *, blocks: int = 1,
     n, rows = len(xs), xs[0].shape[0]
     outs = _direct(xs, True, blocks, piece_bytes, seed, trace)
     return [o.view(n * rows, *xs[0].shape[1:]) for o in outs]
+
+
+def reduce_scatter_direct_plain(xs, *, blocks: int = 1,
+                                piece_bytes: int = PIECE_BYTES,
+                                seed: int = 0, trace: list | None = None):
+    """K4's schedule on the card: per block and piece, hop 0 writes my
+    addend of chunk d - 1 into my right neighbour's staging chunk 0; hop t
+    adds my addend to what hop t - 1 delivered (received + local) and
+    writes the sum into the neighbour's staging chunk t, the last hop into
+    its output; then my own addend of chunk d is added to my output in
+    place. Every staging and output piece is written once by the left
+    neighbour before its owner reads it."""
+    n = len(xs)
+    if xs[0].shape[0] % n:
+        raise ValueError(f"rows {xs[0].shape[0]} not divisible by {n}")
+    outs = _reduce_scatter_direct(xs, blocks, piece_bytes, seed, trace)
+    return [o.view(xs[0].shape[0] // n, *xs[0].shape[1:]) for o in outs]
 
 
 def all_reduce_direct_plain(xs, *, blocks: int = 1,
@@ -445,7 +539,7 @@ def resident_blocks(device: torch.device, kind: str) -> int:
     card at once."""
     index = device.index if device.index is not None \
         else torch.cuda.current_device()
-    key = (index, RingLaunch._KERNELS[kind][3])
+    key = (index, RingLaunch._KERNELS[kind][2])
     if key not in _resident:
         out = ctypes.c_int(0)
         with torch.cuda.device(index):
@@ -457,32 +551,32 @@ def resident_blocks(device: torch.device, kind: str) -> int:
 
 class RingLaunch:
     """One ring kernel over fixed ranks, set up once: the outputs, each
-    rank's slots (K4) and signal words, and the pointer table on the
-    card.
+    rank's staging area (K4: n - 2 chunks for the partial sums on their
+    way) and signal words, and the pointer table on the card.
 
     :meth:`launch` zeroes the signal words and launches the kernel, both on
     the current stream, and does not synchronise; :meth:`raise_on_stall`
     synchronises and raises if a rank timed out. The wrappers do both for
     every call; a timing loop can repeat :meth:`launch` alone.
 
-    ``piece_bytes`` (K3, K5 and K6, for the tests and ``chip_smoke.py``'s
-    sweep) overrides :data:`PIECE_BYTES` (K6: :data:`BIDIR_PIECE_BYTES`)."""
+    ``piece_bytes`` (for the tests and ``chip_smoke.py``'s sweep) overrides
+    :data:`PIECE_BYTES` (K6: :data:`BIDIR_PIECE_BYTES`)."""
 
-    # wrapper → (C entry point, comm slot chunks, directions, kernel id of
-    # ring_resident_blocks); all but K4 write into the neighbour's output
+    # wrapper → (C entry point, directions, kernel id of
+    # ring_resident_blocks)
     _KERNELS = {
-        "all_gather": ("ring_all_gather_f32", 0, 1, 0),
-        "reduce_scatter": ("ring_reduce_scatter_f32", 2, 1, 1),
-        "all_reduce": ("ring_all_reduce_f32", 0, 1, 2),
-        "all_reduce_bidir": ("ring_all_reduce_bidir_f32", 0, 2, 3),
+        "all_gather": ("ring_all_gather_f32", 1, 0),
+        "reduce_scatter": ("ring_reduce_scatter_f32", 1, 1),
+        "all_reduce": ("ring_all_reduce_f32", 1, 2),
+        "all_reduce_bidir": ("ring_all_reduce_bidir_f32", 2, 3),
     }
 
     def __init__(self, kind: str, xs, blocks: int | None = None,
                  piece_bytes: int | None = None):
-        self.name, slot_chunks, directions, _ = self._KERNELS[kind]
-        self.direct = direct = slot_chunks == 0
+        self.name, directions, _ = self._KERNELS[kind]
         n = len(xs)
         dev = xs[0].device
+        stage_chunks = 0
         if kind == "all_gather":
             self.outs = [x.new_empty((n * x.shape[0], *x.shape[1:]))
                          for x in xs]
@@ -491,6 +585,7 @@ class RingLaunch:
             self.outs = [x.new_empty((x.shape[0] // n, *x.shape[1:]))
                          for x in xs]
             chunk_elems = xs[0].numel() // n
+            stage_chunks = max(n - 2, 0)
         else:
             self.outs = [torch.empty_like(x) for x in xs]
             chunk_elems = xs[0].numel() // (n * directions)
@@ -502,8 +597,6 @@ class RingLaunch:
             raise ValueError("the ring kernels take contiguous 16-byte "
                              "aligned tensors")
         self.chunk4 = chunk_elems // 4
-        if not direct and piece_bytes is not None:
-            raise ValueError(f"{kind}: the slot kernel has no pieces")
         if piece_bytes is None:
             piece_bytes = (BIDIR_PIECE_BYTES if kind == "all_reduce_bidir"
                            else PIECE_BYTES)
@@ -522,9 +615,9 @@ class RingLaunch:
         self.n, self.blocks, self.device = n, blocks, dev
         # no piece is longer than a block's slice
         self.piece4 = min(piece4, math.ceil(
-            self.chunk4 * directions / blocks)) if direct else 0
-        slots = [torch.empty(slot_chunks * chunk_elems, dtype=torch.float32,
-                             device=dev) for _ in range(n)]
+            self.chunk4 * directions / blocks))
+        stages = [torch.empty(stage_chunks * chunk_elems, dtype=torch.float32,
+                              device=dev) for _ in range(n)]
         # separate allocations, as the ranks' would be on separate cards
         self.sigs = [torch.empty(blocks * SIG_WORDS, dtype=torch.int32,
                                  device=dev) for _ in range(n)]
@@ -534,22 +627,22 @@ class RingLaunch:
         rows = [[xs[d].data_ptr(), self.outs[d].data_ptr(),
                  self.outs[(d + 1) % n].data_ptr(),
                  self.outs[(d - 1) % n].data_ptr(),
-                 slots[d].data_ptr(), slots[(d + 1) % n].data_ptr(),
+                 stages[d].data_ptr(), stages[(d + 1) % n].data_ptr(),
                  self.sigs[d].data_ptr(),
                  self.sigs[(d + 1) % n].data_ptr(),
                  self.sigs[(d - 1) % n].data_ptr()] for d in range(n)]
         # from pinned memory, so the copy does not wait for the card
         self.table = torch.tensor(rows, dtype=torch.int64).pin_memory().to(
             dev, non_blocking=True)
-        self.held = (list(xs), slots)   # what the table points at
+        self.held = (list(xs), stages)   # what the table points at
 
     def launch(self) -> None:
         torch._foreach_zero_(self.sigs)
-        pieces = (self.piece4,) if self.direct else ()
         with torch.cuda.device(self.device):
             err = getattr(_native.library(), self.name)(
                 self.table.data_ptr(), self.n, self.chunk4, self.blocks,
-                *pieces, TIMEOUT_NS, torch.cuda.current_stream().cuda_stream)
+                self.piece4, TIMEOUT_NS,
+                torch.cuda.current_stream().cuda_stream)
         _native.check(err, f"{self.name} (n={self.n}, blocks={self.blocks})")
 
     def raise_on_stall(self) -> None:

@@ -1,10 +1,11 @@
-"""Ring attention over a mesh axis, and the pinned-precision oracle.
+"""Sequence-parallel attention over a mesh axis (ring and Ulysses), and the
+pinned-precision oracle.
 
-The port of ``tpu_operator/parallel/ring_attention.py``'s ring attention
-(``_online_block``, ``ring_attention_shard``, ``ring_attention``) and of
-``_softmax_attention`` and ``reference_attention``: the O(T²)-memory
-softmax(q·Kᵀ)·V that every attention cross-check compares against. The
-Ulysses scheme of that module is not ported yet.
+The port of ``tpu_operator/parallel/ring_attention.py``: ring attention
+(``_online_block``, ``ring_attention_shard``, ``ring_attention``), Ulysses
+attention (``ulysses_attention``), and ``_softmax_attention`` and
+``reference_attention``: the O(T²)-memory softmax(q·Kᵀ)·V that every
+attention cross-check compares against.
 
 Ring attention: each rank holds a contiguous block of the sequence. Queries
 stay put; the K/V blocks hop one rank per step (``collectives.ppermute``)
@@ -12,7 +13,13 @@ while an online softmax in f32 folds each block in, the rank's own block
 first. After n - 1 hops every query has seen the whole sequence, and no rank
 held more than its 1/n of K/V.
 
-Its precision is pinned: f32 operands, f32 accumulation, and no TF32. A
+Ulysses attention is the other long-context scheme, built on ``all_to_all``
+where the ring is built on ``ppermute``: one exchange each turns the
+sequence shards of q, k and v into head shards, every rank runs plain
+attention over the whole sequence for its own heads (on the flash kernel
+where its shapes allow), and a last exchange turns the result back.
+
+The oracle's precision is pinned: f32 operands, f32 accumulation, and no TF32. A
 float32 matmul on a CUDA card may run in TF32 when
 ``torch.backends.cuda.matmul.allow_tf32`` is set (or the float32 matmul
 precision is not ``"highest"``), and cuDNN allows TF32 by default
@@ -28,7 +35,7 @@ import math
 
 import torch
 
-from tpu_operator_torch.parallel.collectives import ppermute
+from tpu_operator_torch.parallel.collectives import all_to_all, ppermute
 from tpu_operator_torch.parallel.mesh import Mesh
 
 
@@ -155,3 +162,52 @@ def ring_attention(q, k, v, mesh: Mesh, axis_name: str = "model",
     outs = ring_attention_shard(shards(q), shards(k), shards(v), mesh,
                                 axis_name, sm_scale, causal)
     return torch.cat([outs[r] for r in mesh.groups(axis_name)[0]])
+
+
+def ulysses_attention(q, k, v, mesh: Mesh, axis_name: str = "model",
+                      causal: bool = False):
+    """Ulysses-style sequence parallelism. ``q``, ``k``, ``v`` hold one
+    [Tl, H, Dh] tensor per rank: the rank's contiguous block of the
+    sequence (in order of its position along ``axis_name``), all heads.
+    Returns the same: each rank's [Tl, H, Dh] block of the attention over
+    the whole sequence. H must divide by the axis size.
+
+    An all-to-all each for q, k and v reshards to head parallelism (each
+    rank holds H/n full-sequence heads), attention runs per head with no
+    further communication, and one all-to-all reshards the output back:
+    four exchanges of the activation size against ring attention's n - 1
+    K/V rotations. The per-head attention runs at platform precision, not the
+    oracle's pin: on the flash kernel ([H/n, T, Dh], made contiguous for
+    it) when Dh is the kernel's head dim and T divides by its tile, else
+    dense."""
+    # here, not at the top: ops.flash_attention imports this module
+    from tpu_operator_torch.ops.flash_attention import (BLOCK, HEAD_DIM,
+                                                        flash_attention)
+    n = mesh.shape[axis_name]
+    tl, h, dh = q[0].shape
+    if h % n:
+        raise ValueError(f"heads {h} not divisible by axis size {n}")
+
+    def seq_to_heads(xs):
+        # [Tl, H, Dh] → n blocks of H/n heads → exchange: every rank ends
+        # with [n*Tl, H/n, Dh] = full sequence, local heads
+        blocks = [x.reshape(tl, n, h // n, dh).permute(1, 0, 2, 3)
+                  for x in xs]
+        return [got.reshape(n * tl, h // n, dh)
+                for got in all_to_all(blocks, mesh, axis_name)]
+
+    def heads_to_seq(xs):
+        # inverse reshard: [T, H/n, Dh] → [Tl, H, Dh]
+        blocks = [x.reshape(n, tl, h // n, dh) for x in xs]
+        return [got.permute(1, 0, 2, 3).reshape(tl, h, dh)
+                for got in all_to_all(blocks, mesh, axis_name)]
+
+    flash = dh == HEAD_DIM and (n * tl) % BLOCK == 0
+    outs = []
+    for qh, kh, vh in zip(*(seq_to_heads(xs) for xs in (q, k, v))):
+        # heads first: [H/n, T, Dh], one attention per head
+        qh, kh, vh = (x.permute(1, 0, 2).contiguous() for x in (qh, kh, vh))
+        out = (flash_attention(qh, kh, vh, causal=causal) if flash
+               else _softmax_attention(qh, kh, vh, causal))
+        outs.append(out.permute(1, 0, 2))
+    return heads_to_seq(outs)

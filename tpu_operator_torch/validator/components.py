@@ -1,8 +1,7 @@
 """Node-side validation: the device workload component.
 
 The port of ``tpu_operator/validator/components.py``'s ``Component`` base
-(status files and the retry loop) and ``WorkloadComponent``, single-device
-leg. Each component writes a JSON status file into the barrier directory
+(status files and the retry loop) and ``WorkloadComponent``. Each component writes a JSON status file into the barrier directory
 when green; dependents test for its existence and the metrics exporter
 reads the measurements in it.
 
@@ -15,8 +14,15 @@ reads the measurements in it.
 3. one causal flash-attention pass on the CUDA attention kernel, checked
    against the pinned-precision oracle under a derived tolerance.
 
-The multi-device leg (collective suite, ring attention) and the
-runtime-version skew check are not ported yet.
+With more than one rank it goes on with the multi-device leg, on virtual
+ranks of its device (``parallel/mesh.py``):
+
+4. the collective bandwidth suite over a (1, ranks) mesh's model axis,
+   which on the card includes the hand-scheduled ring all-reduces;
+5. one causal ring-attention pass over the same mesh, checked against the
+   oracle on one device under the same derived tolerance.
+
+The runtime-version skew check is not ported yet.
 """
 
 from __future__ import annotations
@@ -161,22 +167,30 @@ def _significant(rate: float) -> float:
 
 class WorkloadComponent(Component):
     """The device workload on the local card: matmul probe, HBM probe and
-    flash-attention check."""
+    flash-attention check, plus the collective suite and a ring-attention
+    check when it runs over more than one rank. ``ranks`` defaults to the
+    number of cards (1 on the CPU); the ranks are virtual ranks of
+    ``device``."""
 
     name = "workload"
 
     def __init__(self, matmul_dim: int | None = None,
                  min_efficiency: float | None = None,
-                 require_gpu: bool | None = None, device=None, **kw):
+                 collective_mb: int | None = None,
+                 require_gpu: bool | None = None, device=None,
+                 ranks: int | None = None, **kw):
         super().__init__(**kw)
         self.matmul_dim = int(matmul_dim or os.environ.get(
             "WORKLOAD_MATMUL_DIM", 4096))
         self.min_efficiency = float(min_efficiency if min_efficiency
                                     is not None else os.environ.get(
                                         "MIN_EFFICIENCY", 0.5))
+        self.collective_mb = int(collective_mb or os.environ.get(
+            "WORKLOAD_COLLECTIVE_MB", 64))
         self.require_gpu = (require_gpu if require_gpu is not None
                             else _require_gpu_default())
         self.device = device or "cuda"
+        self.ranks = ranks
 
     def _check_flash(self, device: torch.device, on_gpu: bool) -> dict:
         """One causal flash-attention pass checked against the
@@ -201,6 +215,34 @@ class WorkloadComponent(Component):
                 f"flash attention diverged from the pinned-precision "
                 f"reference: max abs err {err:.3e} > tolerance {tol:.3e} "
                 f"(seq_len={t})")
+        return {"seq_len": t, "ok": True, "max_abs_err": err,
+                "tolerance": tol}
+
+    def _check_ring_attention(self, mesh, device: torch.device) -> dict:
+        """One causal ring-attention pass over the mesh the suite measured,
+        the ppermute consumer a sequence-parallel workload runs, checked
+        numerically against the pinned-precision reference on one device:
+        a bad reduction or a corrupted hop shows up as a real mismatch,
+        not just as a non-finite value."""
+        from tpu_operator_torch.parallel.numerics import attention_tolerance
+        from tpu_operator_torch.parallel.ring_attention import (
+            reference_attention, ring_attention)
+        n = mesh.shape["model"]
+        # cap the global sequence: the reference side materialises t×t f32
+        # scores on one device, so shrink the per-rank block on big meshes
+        t, d = n * min(128, max(8, 4096 // n)), 128
+        gen = torch.Generator(device=device).manual_seed(0)
+        q, k, v = (torch.randn((t, d), generator=gen, device=device)
+                   .to(torch.bfloat16) for _ in range(3))
+        out = ring_attention(q, k, v, mesh, "model", causal=True)
+        ref = reference_attention(q, k, v, causal=True)
+        tol = attention_tolerance(q.dtype, d, platform=device.type)
+        err = (out.float() - ref.float()).abs().max().item()
+        if not (math.isfinite(err) and err <= tol):
+            raise ValidationFailed(
+                f"ring attention over the slice fabric diverged from the "
+                f"pinned-precision reference: max abs err {err:.3e} > "
+                f"tolerance {tol:.3e} (seq_len={t})")
         return {"seq_len": t, "ok": True, "max_abs_err": err,
                 "tolerance": tol}
 
@@ -247,5 +289,21 @@ class WorkloadComponent(Component):
         t0 = time.perf_counter()
         info["flash_attention"] = self._check_flash(dev, on_gpu)
         legs["flash"] = time.perf_counter() - t0
+        ranks = self.ranks if self.ranks is not None else (
+            torch.cuda.device_count() if on_gpu else 1)
+        if ranks > 1:
+            from tpu_operator_torch.parallel.collectives import \
+                run_collective_suite
+            from tpu_operator_torch.parallel.mesh import MeshPlan, make_mesh
+            t0 = time.perf_counter()
+            mesh = make_mesh(ranks, MeshPlan(data=1, model=ranks), device=dev)
+            reports = run_collective_suite(mesh, "model",
+                                           mbytes=self.collective_mb, iters=3)
+            info["collectives"] = {r.op: _significant(r.busbw_gbps)
+                                   for r in reports}
+            legs["collectives"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            info["ring_attention"] = self._check_ring_attention(mesh, dev)
+            legs["ring_attention"] = time.perf_counter() - t0
         info["leg_seconds"] = {name: round(s, 4) for name, s in legs.items()}
         return info
