@@ -7,23 +7,30 @@ Run from the repository root on a machine with one NVIDIA Hopper card and
 the CUDA toolkit (nvcc). The script builds the port's CUDA kernels from
 ``tpu_operator_torch/csrc``, holds each against its plain PyTorch version
 on the card, runs the full-width burn-in forward pass (``entry()``), and
-runs ``WorkloadComponent.validate()``, the node-validation workload, whose
-HBM and flash-attention legs must go through the kernels. K2 (flash
-attention) is timed inside a CUDA graph, so that the host's time per call
-is not in it, with a sweep of the most kv tiles a unit of its work takes,
-and beside every SDPA backend (flash, cuDNN, memory-efficient, math) on
-the 4-D form of the same inputs; the fastest is its library time. Then it
-holds the ring kernels (K3–K6) against their plain versions and the library
-sums for 2, 4 and 8 virtual ranks on the card, times them at 4 × 64 MiB
-(with the bytes their schedules move, a library call that fills all n
-outputs, and a sweep of piece sizes) and at 4 × 64 KiB (the per-hop
-handshake), prints the collective bandwidth suite's reports on 4 virtual
-ranks, and runs the multi-device dry run ``dryrun_multigpu(4)``, whose ring
-checks must go through those kernels. Then ``WorkloadComponent(ranks=4)``
-runs the validator's multi-device leg on 4 virtual ranks, whose collective
-suite must launch K5 and K6 at its 64 MiB payload, and Ulysses attention
-runs at T = 4096 with 8 heads over 4 virtual ranks, causal and not, where
-K2 must launch once per rank with 2 heads and the result is held to K2's
+runs the node validator's CLI (``tpu_operator_torch.cli.validator``) as a
+node would: the ``driver``, ``fabric`` and ``workload`` components against
+the machine's own device nodes, driver library and kernel module, then the
+gate on their status files; the workload's HBM and flash-attention legs
+must go through the kernels. K2 (flash attention) is timed inside a CUDA
+graph, so that the host's time per call is not in it, with a sweep of the
+most kv tiles a unit of its work takes, and beside every SDPA backend
+(flash, cuDNN, memory-efficient, math) on the 4-D form of the same inputs;
+the fastest is its library time. K2g, the generic flash kernel, is held
+against the plain version over f32, f16 and bf16, head dims 64, 96, 128
+and 256, causal and full, and sequence lengths that 64 does not divide,
+through its own wrapper and through ``flash_attention``'s routing, and
+timed the same way. Then it holds the ring kernels (K3–K6) against their
+plain versions and the library sums for 2, 4 and 8 virtual ranks on the
+card, times them at 4 × 64 MiB (with the bytes their schedules move, a
+library call that fills all n outputs, and a sweep of piece sizes) and at
+4 × 64 KiB (the per-hop handshake), prints the collective bandwidth
+suite's reports on 4 virtual ranks, and runs the multi-device dry run
+``dryrun_multigpu(4)``, whose ring checks must go through those kernels.
+Then ``WorkloadComponent(ranks=4)`` runs the validator's multi-device leg
+on 4 virtual ranks, whose collective suite must launch K5 and K6 at its 64
+MiB payload, and Ulysses attention runs with 8 heads over 4 virtual ranks,
+causal and not, at Dh = 128 (T = 4096), where K2 must launch once per rank,
+and at Dh = 256 (T = 1024), where K2g must; the result is held to K2's
 per-element limit against the single-device computation.
 
 Output: progress lines, then the ``nvidia-smi`` name and power limit, then
@@ -39,6 +46,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -96,14 +104,20 @@ def graph_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(flops: float, nbytes: float, kind: str):
+# float32 outside the tensor cores, H100 SXM data sheet (TFLOP/s)
+F32_PEAK_TFLOPS = 67.0
+
+
+def bound(flops: float, nbytes: float, kind: str,
+          peak_tflops: float | None = None):
     """Least time in ms for the work on this card: the larger of the bytes
-    over the data-sheet memory rate and the operations over the bf16
-    tensor-core peak, and which of the two it is."""
+    over the data-sheet memory rate and the operations over the peak for
+    their type (the bf16 tensor-core peak unless ``peak_tflops`` is
+    given), and which of the two it is."""
     from tpu_operator_torch.ops.hbm import chip_peak_hbm_gbps
     from tpu_operator_torch.ops.matmul import chip_peak_tflops
     t_bytes = nbytes / (chip_peak_hbm_gbps(kind) * 1e9) * 1e3
-    t_ops = flops / (chip_peak_tflops(kind) * 1e12) * 1e3
+    t_ops = flops / ((peak_tflops or chip_peak_tflops(kind)) * 1e12) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -213,7 +227,7 @@ SDPA_BACKENDS = ("FLASH_ATTENTION", "CUDNN_ATTENTION", "EFFICIENT_ATTENTION",
                  "MATH")
 
 
-def sdpa_times(q, k, v, causal: bool, ref32) -> dict:
+def sdpa_times(q, k, v, causal: bool, ref32, tag: str = "K2") -> dict:
     """Each SDPA backend alone on the 4-D ([1, H, T, D]) form of the inputs:
     its time in ms, or None where it refused them, with its max abs error
     against the f32 plain output. Only a 4-D input reaches the fused
@@ -231,12 +245,12 @@ def sdpa_times(q, k, v, causal: bool, ref32) -> dict:
                 out = run()
             except RuntimeError as exc:
                 times[name] = None
-                print(f"[K2] sdpa {name}: refused "
+                print(f"[{tag}] sdpa {name}: refused "
                       f"({str(exc).splitlines()[0][:120]})")
                 continue
             err = (out.reshape(ref32.shape).float() - ref32).abs().max().item()
             times[name] = graph_ms(run, iters=20)
-            print(f"[K2] sdpa {name}: {times[name]:.4f} ms in a graph "
+            print(f"[{tag}] sdpa {name}: {times[name]:.4f} ms in a graph "
                   f"({cuda_ms(run, iters=20):.4f} ms a call from the host), "
                   f"max abs err {err:.3e}")
     return times
@@ -373,6 +387,121 @@ def phase_flash(dev, kind) -> dict:
                     "shape": f"bf16 [{t}, {d}] causal", "split_sweep": sweep,
                     "profiled_us": profiled}
     return main
+
+
+# K2g's grid: every head-dim bucket and one D off them, each dtype, causal
+# and full, at T = 1024 over 2 heads; then T that 64 does not divide, with
+# the blocks the reference would take for them
+GENERIC_DIMS = (64, 128, 256, 96)
+GENERIC_GRID_DTYPES = (torch.float32, torch.float16, torch.bfloat16)
+GENERIC_RAGGED = ((96, (32, 96)), (200, (40, 200)))
+# the shapes K2g is timed at: Ulysses' per-head width, and f32 at K2's
+GENERIC_TIMED = ((torch.bfloat16, 4096, 256), (torch.float32, 4096, 128))
+
+
+def phase_flash_generic(dev, kind) -> dict:
+    """K2g (``csrc/flash_fwd_generic.cu``) against the plain version over
+    its grid, through its own wrapper and through ``flash_attention``'s
+    routing, with no CUDA call reaching the plain version; the refused head
+    dim; and its times beside every SDPA backend at ``GENERIC_TIMED``."""
+    from tpu_operator_torch.ops import flash_attention as flash
+    from tpu_operator_torch.parallel.numerics import attention_tolerance
+    plain = flash.attention_plain
+    plain_calls = []
+
+    def counted_plain(*a, **kw):
+        plain_calls.append(1)
+        return plain(*a, **kw)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    cases = [(dtype, 1024, d, None, causal) for dtype in GENERIC_GRID_DTYPES
+             for d in GENERIC_DIMS for causal in (True, False)]
+    cases += [(dtype, t, 96, blocks, True) for dtype in GENERIC_GRID_DTYPES
+              for t, blocks in GENERIC_RAGGED]
+    worst = 0.0
+    for dtype, t, d, blocks, causal in cases:
+        q, k, v = (torch.randn((2, t, d), generator=gen, device=dev)
+                   .to(dtype) for _ in range(3))
+        bq, bk = blocks or (None, None)
+        before = (flash.flash_attention.launches, flash.flash_generic.launches)
+        flash.attention_plain = counted_plain
+        try:
+            direct = flash.flash_generic(q, k, v, causal=causal)
+            routed = flash.flash_attention(q, k, v, causal=causal,
+                                           block_q=bq, block_k=bk)
+        finally:
+            flash.attention_plain = plain
+        wgmma = flash.takes_wgmma(q)
+        check((flash.flash_attention.launches - before[0],
+               flash.flash_generic.launches - before[1])
+              == (int(wgmma), 2 - int(wgmma)),
+              f"K2g {dtype} [{t}, {d}]: routed to the wrong kernel")
+        ref = plain(q, k, v, causal=causal).float()
+        tol = attention_tolerance(dtype, d, "cuda")
+        for label, out in (("K2g", direct), ("routed", routed)):
+            check(out.shape == q.shape and out.dtype == dtype,
+                  f"{label} {dtype} [{t}, {d}]: output {tuple(out.shape)} "
+                  f"{out.dtype}")
+            err = (out.float() - ref).abs().max().item()
+            check(math.isfinite(err) and err <= tol,
+                  f"{label} {dtype} [2, {t}, {d}] causal={causal} blocks "
+                  f"{blocks}: max abs err {err:.3e} > {tol:.3e}")
+            worst = max(worst, err / tol)
+        print(f"[K2g] {str(dtype).removeprefix('torch.')} [2, {t}, {d}] "
+              f"causal={causal} blocks {blocks or 'default'}: max abs err "
+              f"{(direct.float() - ref).abs().max().item():.3e} (tolerance "
+              f"{tol:.3e}); flash_attention took "
+              f"{'K2' if wgmma else 'K2g'}")
+    check(not plain_calls, f"{len(plain_calls)} CUDA calls reached the "
+                           "plain version")
+    wide = torch.zeros((64, 320), device=dev)
+    for fn in (flash.flash_attention, flash.flash_generic):
+        try:
+            fn(wide, wide, wide)
+        except ValueError as exc:
+            check("at most 256" in str(exc), f"D=320: {exc}")
+        else:
+            raise SmokeFailure(f"{fn.__name__} took D=320")
+    print(f"[K2g] {len(cases)} cases x 2 wrappers within attention_tolerance "
+          f"(worst {worst:.3f} of it); no CUDA call reached the plain "
+          "version; D=320 raises")
+
+    timed = []
+    for dtype, t, d in GENERIC_TIMED:
+        q, k, v = (torch.randn((t, d), generator=gen, device=dev).to(dtype)
+                   for _ in range(3))
+        ref32 = plain(q.float(), k.float(), v.float(), causal=True)
+        out = flash.flash_generic(q, k, v, causal=True)
+        err = (out.float() - ref32).abs().max().item()
+        tol = attention_tolerance(dtype, d, "cuda")
+        check(err <= tol, f"K2g timed shape {dtype} [{t}, {d}]: max abs err "
+                          f"{err:.3e} > {tol:.3e}")
+        ms = graph_ms(lambda: flash.flash_generic(q, k, v, causal=True),
+                      iters=10)
+        plain_ms = cuda_ms(lambda: plain(q, k, v, causal=True), iters=5)
+        sdpa = sdpa_times(q, k, v, True, ref32, tag="K2g")
+        ran = {name: ms_ for name, ms_ in sdpa.items() if ms_ is not None}
+        check(bool(ran), "no SDPA backend took K2g's inputs")
+        backend = min(ran, key=ran.get)
+        flops = 4.0 * d * t * (t + 1) / 2
+        nbytes = 4 * t * d * q.element_size()
+        bound_ms, bound_by = bound(
+            flops, nbytes, kind,
+            F32_PEAK_TFLOPS if dtype == torch.float32 else None)
+        shape = f"{str(dtype).removeprefix('torch.')} [{t}, {d}] causal"
+        print(f"[K2g] {shape}: kernel {ms:.4f} ms in a graph "
+              f"({flops / ms / 1e9:.1f} TFLOP/s); plain {plain_ms:.4f} ms; "
+              f"fastest sdpa {backend} {ran[backend]:.4f} ms; bound "
+              f"{bound_ms:.4f} ms ({bound_by}); max abs err {err:.3e}")
+        timed.append({"shape": shape, "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by,
+                      "library_ms": ran[backend], "library_backend": backend,
+                      "max_abs_err": err})
+        del q, k, v, ref32, out
+    main, f32 = timed
+    return {"name": "flash_fwd_generic", "route": "cuda",
+            "source": "tpu_operator_torch/csrc/flash_fwd_generic.cu",
+            "replaces": "tpu_operator/ops/flash_attention.py:48",
+            **main, "grid_worst_tolerance_share": worst, "f32": f32}
 
 
 # (name, wrapper, plain version, TPU kernel it replaces, rows per rank
@@ -669,18 +798,46 @@ def phase_entry() -> None:
           f"{fault:.2f})")
 
 
+VALIDATE_COMPONENTS = ("driver", "fabric", "workload")
+
+
 def phase_validate() -> dict:
-    from tpu_operator_torch.validator.components import WorkloadComponent
+    """The node validator's CLI, as the DaemonSet calls it, on this
+    machine's own ``/dev``, ``libcuda.so.1`` and
+    ``/proc/driver/nvidia/version``: ``driver``, ``fabric`` and
+    ``workload`` in turn, then the gate on their status files."""
+    import contextlib
+    import io
+    from tpu_operator_torch.cli.validator import main as validator
     with tempfile.TemporaryDirectory() as vdir:
-        comp = WorkloadComponent(device="cuda", validations_dir=vdir)
-        info = comp.run()
-        with open(comp.status_path()) as f:
+        lines = {}
+        for name in VALIDATE_COMPONENTS + ("gate",):
+            argv = ["--component", name, "--validations-dir", vdir]
+            if name == "gate":
+                argv += ["--gates", ",".join(VALIDATE_COMPONENTS)]
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                rc = validator(argv)
+            print(f"[validate] {name}: {out.getvalue().strip()}")
+            line = json.loads(out.getvalue())
+            check(rc == 0 and line["ok"] is True,
+                  f"validator --component {name}: rc {rc}, {line}")
+            lines[name] = line["info"]
+        with open(os.path.join(vdir, "workload-ready")) as f:
             status = json.load(f)
-    check(status["ok"] is True and status["info"] == json.loads(
-        json.dumps(info)), "status file does not hold the info")
+        runtime_build = os.path.exists(os.path.join(vdir, "runtime-build"))
+    info = lines["workload"]
+    check(status["ok"] is True and status["info"] == info,
+          "status file does not hold the info")
     check(info["hbm_backend"] == "cuda" and info["platform"] == "cuda",
           f"validator ran off the card: {info}")
-    print(f"[validate] {json.dumps(info)}")
+    check(lines["fabric"]["nvlink"] == "skipped (single device)",
+          f"fabric on one card: {lines['fabric']}")
+    check(lines["driver"]["devices"] and not lines["driver"]["skew"],
+          f"driver: {lines['driver']}")
+    print(f"[validate] driver {lines['driver']['build']} (library "
+          f"{lines['driver']['library']}); kernel module recorded by the "
+          f"workload: {runtime_build}")
     return info
 
 
@@ -709,50 +866,64 @@ def phase_validate_ranks() -> None:
           f"{json.dumps(ring_check)}; leg_seconds {json.dumps(legs)}")
 
 
+# (Dh, T): K2's head width at the full sequence, and a width only K2g
+# takes, at a shorter one (K2g runs on CUDA cores)
+ULYSSES_SHAPES = ((128, 4096), (256, 1024))
+
+
 def phase_ulysses() -> None:
-    """Ulysses attention at full width on 4 virtual ranks: T = 4096, 8
-    heads of 128, bf16. Each rank's [2, 4096, 128] goes through K2."""
+    """Ulysses attention on 4 virtual ranks, 8 heads, bf16, causal and not:
+    at Dh = 128 each rank's [2, T, 128] goes through K2, at Dh = 256 through
+    K2g, once per rank; the result is held to K2's per-element limit
+    against the single-device computation."""
     from tpu_operator_torch.ops import flash_attention as flash
     from tpu_operator_torch.parallel.mesh import MeshPlan, make_mesh
     from tpu_operator_torch.parallel.numerics import attention_tolerance
     from tpu_operator_torch.parallel.ring_attention import ulysses_attention
-    n, t, h, d = 4, 4096, 8, 128
+    n, h = 4, 8
     dev = torch.device("cuda", 0)
     mesh = make_mesh(n, MeshPlan(data=1, model=n), device=dev)
     gen = torch.Generator(device=dev).manual_seed(11)
-    q, k, v = (torch.randn((t, h, d), generator=gen, device=dev)
-               .to(torch.bfloat16) for _ in range(3))
-    tol = attention_tolerance(torch.bfloat16, d, "cuda")
-    for causal in (True, False):
-        shards = [list(x.chunk(n)) for x in (q, k, v)]
-        before = flash.flash_attention.launches
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = torch.cat(ulysses_attention(*shards, mesh, "model",
-                                          causal=causal))
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launched = flash.flash_attention.launches - before
-        check(launched == n, f"Ulysses causal={causal}: K2 launched "
-                             f"{launched} times for {n} ranks")
-        check(out.shape == (t, h, d) and out.dtype == torch.bfloat16,
-              f"Ulysses output {tuple(out.shape)} {out.dtype}")
-        # the single-device computation, heads first
-        ref32, limit = flash.kernel_error_limit(
-            *(x.permute(1, 0, 2) for x in (q, k, v)), causal=causal)
-        got = out.permute(1, 0, 2)
-        ratio = limit_ratio(got, ref32, limit)
-        err = (got.float() - ref32).abs().max().item()
-        check(ratio <= 1.0, f"Ulysses causal={causal}: error {ratio:.3f}x "
-                            "K2's per-element limit")
-        check(math.isfinite(err) and err <= tol,
-              f"Ulysses causal={causal}: max abs err {err:.3e} > {tol:.3e}")
-        del ref32, limit
-        print(f"[ulysses] n={n} T={t} H={h} Dh={d} bf16 causal={causal}: "
-              f"K2 launched {launched} times on [{h // n}, {t}, {d}]; "
-              f"per-element limit ratio {ratio:.3f}; max abs err {err:.3e} "
-              f"(tolerance {tol:.3e}); {wall * 1e3:.3f} ms on the host "
-              f"clock")
+    for d, t in ULYSSES_SHAPES:
+        q, k, v = (torch.randn((t, h, d), generator=gen, device=dev)
+                   .to(torch.bfloat16) for _ in range(3))
+        tol = attention_tolerance(torch.bfloat16, d, "cuda")
+        kernel = "K2" if d == 128 else "K2g"
+        for causal in (True, False):
+            shards = [list(x.chunk(n)) for x in (q, k, v)]
+            before = (flash.flash_attention.launches,
+                      flash.flash_generic.launches)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = torch.cat(ulysses_attention(*shards, mesh, "model",
+                                              causal=causal))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launched = (flash.flash_attention.launches - before[0],
+                        flash.flash_generic.launches - before[1])
+            check(launched == ((n, 0) if kernel == "K2" else (0, n)),
+                  f"Ulysses Dh={d} causal={causal}: (K2, K2g) launched "
+                  f"{launched} times for {n} ranks")
+            check(out.shape == (t, h, d) and out.dtype == torch.bfloat16,
+                  f"Ulysses output {tuple(out.shape)} {out.dtype}")
+            # the single-device computation, heads first
+            ref32, limit = flash.kernel_error_limit(
+                *(x.permute(1, 0, 2) for x in (q, k, v)), causal=causal)
+            got = out.permute(1, 0, 2)
+            ratio = limit_ratio(got, ref32, limit)
+            err = (got.float() - ref32).abs().max().item()
+            check(ratio <= 1.0, f"Ulysses Dh={d} causal={causal}: error "
+                                f"{ratio:.3f}x K2's per-element limit")
+            check(math.isfinite(err) and err <= tol,
+                  f"Ulysses Dh={d} causal={causal}: max abs err {err:.3e} "
+                  f"> {tol:.3e}")
+            del ref32, limit
+            print(f"[ulysses] n={n} T={t} H={h} Dh={d} bf16 causal={causal}: "
+                  f"{kernel} launched {n} times on [{h // n}, {t}, {d}]; "
+                  f"per-element limit ratio {ratio:.3f}; max abs err "
+                  f"{err:.3e} (tolerance {tol:.3e}); {wall * 1e3:.3f} ms on "
+                  f"the host clock")
+        del q, k, v
 
 
 def main() -> int:
@@ -767,7 +938,7 @@ def main() -> int:
     kind, smi_line = phase_card()
     phase_build()
     kernels = [phase_hbm(dev, kind), phase_flash(dev, kind),
-               *phase_ring(dev, kind)]
+               phase_flash_generic(dev, kind), *phase_ring(dev, kind)]
 
     # each path runs with its kernels' counts set to 0 just before it and
     # read just after
@@ -784,7 +955,8 @@ def main() -> int:
           "ring_all_reduce": ring_mod.ring_all_reduce,
           "ring_all_reduce_bidir": ring_mod.ring_all_reduce_bidir}),
         ("Ulysses", (phase_ulysses,),
-         {"flash_fwd": flash_mod.flash_attention}),
+         {"flash_fwd": flash_mod.flash_attention,
+          "flash_fwd_generic": flash_mod.flash_generic}),
     )
     # a kernel's launches: the sum over the paths that must reach it
     launches = {entry_["name"]: 0 for entry_ in kernels}

@@ -131,3 +131,28 @@ def test_hand_ring_report_rounds_its_rows_as_the_reference(bidir):
     assert r.op == ("ring_allreduce_bidir" if bidir else "ring_allreduce")
     assert r.payload_bytes == (2 * n if bidir else n) * 512 * 4
     assert r.busbw_gbps > 0 and r.seconds > 0
+
+
+def test_barrier_fetches_one_element_of_each_output(monkeypatch):
+    """The suite's completion barrier reads one element of each output, not
+    the outputs themselves: on virtual ranks a full read would add as many
+    bytes as the collective moves. A reduction over an output fails here,
+    and each output is indexed once, at its first element."""
+    def no_reduction(*a, **kw):
+        raise AssertionError("the barrier reduced an output")
+    monkeypatch.setattr(torch.Tensor, "sum", no_reduction)
+    outs = [torch.arange(6.0).reshape(2, 3) + r for r in range(4)]
+    fetched = []
+    real_getitem = torch.Tensor.__getitem__
+
+    def spy(self, index):
+        fetched.append((len(fetched), index))
+        return real_getitem(self, index)
+    monkeypatch.setattr(torch.Tensor, "__getitem__", spy)
+    seconds = collectives._timed(lambda: outs, iters=2)
+    assert seconds >= 0
+    # 2 warm-up and 2 timed calls, one fetch of element (0, 0) an output
+    assert [index for _, index in fetched] == [(0, 0)] * (4 * 4)
+    monkeypatch.setattr(torch.Tensor, "__getitem__", real_getitem)
+    # a single tensor is one output
+    assert collectives._timed(lambda: torch.ones(3), iters=1) >= 0

@@ -101,16 +101,85 @@ def test_flash_kernel_gives_the_same_bits_twice(cuda):
                                                             causal=causal))
 
 
-def test_flash_kernel_rejects_what_it_cannot_take(cuda):
+def test_flash_kernel_rejects_what_it_cannot_take(cuda, monkeypatch):
+    """Only a dtype outside f32, f16 and bf16, or a head dim above 256, is
+    refused; every other CUDA input goes to K2 or K2g, never to the plain
+    version. bf16 with D = 128 and T a multiple of 64 keeps K2, whatever
+    blocks were asked for."""
+    def refuse(*a, **kw):
+        raise AssertionError("a CUDA input reached the plain version")
+    monkeypatch.setattr(flash_mod, "attention_plain", refuse)
     x = torch.zeros((256, 128), device=cuda)
-    with pytest.raises(ValueError, match="bfloat16"):
-        flash_mod.flash_attention(x, x, x)
+    xd = x.double()
+    with pytest.raises(ValueError, match="float32, float16 and bfloat16"):
+        flash_mod.flash_attention(xd, xd, xd)
+    wide = torch.zeros((256, 320), device=cuda)
+    with pytest.raises(ValueError, match="head dim at most 256"):
+        flash_mod.flash_attention(wide, wide, wide)
+    with pytest.raises(ValueError, match="head dim at most 256"):
+        flash_mod.flash_generic(wide, wide, wide)
     xb = x.to(torch.bfloat16)
-    with pytest.raises(ValueError, match="tiles"):
-        flash_mod.flash_attention(xb, xb, xb, block_q=128, block_k=128)
+    counts = (flash_mod.flash_attention.launches,
+              flash_mod.flash_generic.launches)
+    flash_mod.flash_attention(xb, xb, xb, block_q=128, block_k=128)
+    flash_mod.flash_attention(x, x, x)
     odd = torch.zeros((256, 96), device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head dim"):
-        flash_mod.flash_attention(odd, odd, odd)
+    flash_mod.flash_attention(odd, odd, odd)
+    torch.cuda.synchronize()
+    assert (flash_mod.flash_attention.launches,
+            flash_mod.flash_generic.launches) == (counts[0] + 1,
+                                                   counts[1] + 2)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 96, 128, 256, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
+def test_generic_kernel_matches_plain(cuda, dtype, d, causal):
+    """K2g over its head-dim buckets and a D off them, at a T its 32-row
+    tiles divide and one they do not, with two heads."""
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    for t in (256, 200):
+        q, k, v = (torch.randn((2, t, d), generator=gen, device=cuda)
+                   .to(dtype) for _ in range(3))
+        before = flash_mod.flash_generic.launches
+        out = flash_mod.flash_generic(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        assert flash_mod.flash_generic.launches == before + 1
+        assert out.dtype == dtype and out.shape == q.shape
+        want = flash_mod.attention_plain(q, k, v, causal=causal)
+        err = (out.float() - want.float()).abs().max().item()
+        assert err <= attention_tolerance(dtype, d, "cuda"), (t, err)
+
+
+def test_generic_kernel_takes_views_and_a_scale(cuda):
+    """A transposed view and a tensor at an odd offset are copied for the
+    kernel; the scale passes through."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    flat = torch.randn(256 * 64 + 1, generator=gen, device=cuda)
+    q = flat[1:].view(256, 64)              # 4-byte offset: not aligned
+    k = torch.randn((64, 256), generator=gen, device=cuda).t()  # strided
+    v = torch.randn((256, 64), generator=gen, device=cuda)
+    assert q.data_ptr() % 16 and not k.is_contiguous()
+    out = flash_mod.flash_attention(q, k, v, sm_scale=0.3, causal=True)
+    want = flash_mod.attention_plain(q, k, v, 0.3, causal=True)
+    assert (out - want).abs().max().item() <= attention_tolerance(
+        torch.float32, 64, "cuda")
+
+
+def test_wgmma_kernel_keeps_bf16_head_dim_128(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    q, k, v = (torch.randn((4, 512, 128), generator=gen, device=cuda)
+               .to(torch.bfloat16) for _ in range(3))
+    counts = (flash_mod.flash_attention.launches,
+              flash_mod.flash_generic.launches)
+    out = flash_mod.flash_attention(q, k, v, causal=True, block_q=32,
+                                    block_k=256)
+    torch.cuda.synchronize()
+    assert (flash_mod.flash_attention.launches,
+            flash_mod.flash_generic.launches) == (counts[0] + 1, counts[1])
+    ref, limit = flash_mod.kernel_error_limit(q, k, v, causal=True)
+    assert bool(((out.float() - ref).abs() <= limit).all())
 
 
 RING = {"all_gather": (ring.ring_all_gather, ring.all_gather_plain),
@@ -316,3 +385,52 @@ def test_validator_on_four_ranks_runs_the_hand_rings(cuda, tmp_path):
                                               "ring_allreduce_bidir"]
     assert len(info["collectives"]) == 7 and info["ring_attention"]["ok"]
     assert all(fn.launches > b for fn, b in zip(counters, before))
+
+
+def test_ulysses_head_dim_256_goes_through_the_generic_kernel(cuda):
+    from tpu_operator_torch.parallel.mesh import MeshPlan, make_mesh
+    from tpu_operator_torch.parallel.ring_attention import ulysses_attention
+    n, t, h, d = 4, 256, 8, 256
+    gen = torch.Generator(device=cuda).manual_seed(14)
+    q, k, v = (torch.randn((t, h, d), generator=gen, device=cuda)
+               .to(torch.bfloat16) for _ in range(3))
+    mesh = make_mesh(n, MeshPlan(data=1, model=n), device=cuda)
+    counts = (flash_mod.flash_attention.launches,
+              flash_mod.flash_generic.launches)
+    out = torch.cat(ulysses_attention(
+        *(list(x.chunk(n)) for x in (q, k, v)), mesh, "model", causal=True))
+    assert (flash_mod.flash_attention.launches,
+            flash_mod.flash_generic.launches) == (counts[0], counts[1] + n)
+    ref, limit = flash_mod.kernel_error_limit(
+        *(x.permute(1, 0, 2) for x in (q, k, v)), causal=True)
+    assert bool(((out.permute(1, 0, 2).float() - ref).abs() <= limit).all())
+
+
+def test_driver_component_passes_on_the_machine(cuda, tmp_path):
+    """The machine's own ``libcuda.so.1``, device nodes and kernel module:
+    the library loads, and its version, where both are known, is the
+    module's."""
+    from tpu_operator_torch.validator import driver_build
+    from tpu_operator_torch.validator.components import DriverComponent
+    info = DriverComponent(validations_dir=str(tmp_path)).validate()
+    assert info["devices"] and info["skew"] is False
+    module = driver_build.kernel_module_version("/")
+    if info["build"] is not None and module is not None:
+        assert driver_build.build_epoch(info["build"]) == \
+            driver_build.build_epoch(module)
+
+
+@pytest.mark.parametrize("component", ["driver", "fabric"])
+def test_cli_components_pass_on_the_machine(cuda, tmp_path, capsys,
+                                            component):
+    import json
+    from tpu_operator_torch.cli.validator import main
+    assert main(["--component", component, "--validations-dir",
+                 str(tmp_path)]) == 0
+    line = json.loads(capsys.readouterr().out)
+    assert line["ok"] is True and line["component"] == component
+    if component == "fabric":
+        n = torch.cuda.device_count()
+        assert line["info"]["nvlink"] == (
+            "skipped (single device)" if n == 1
+            else f"ring round-trip ok over {n} devices")

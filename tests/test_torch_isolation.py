@@ -41,7 +41,13 @@ def _forbidden(module):
 def test_scan_covers_the_package():
     rel = {os.path.relpath(p, ROOT) for p in _port_files()}
     assert {"chip_smoke.py", "tpu_operator_torch/_native.py",
-            "tpu_operator_torch/validator/components.py"} <= rel
+            "tpu_operator_torch/validator/components.py",
+            "tpu_operator_torch/validator/driver_build.py",
+            "tpu_operator_torch/validator/metrics.py",
+            "tpu_operator_torch/cli/validator.py",
+            "tpu_operator_torch/kube/fake.py",
+            "tpu_operator_torch/kube/incluster.py",
+            "tpu_operator_torch/utils/prom.py"} <= rel
 
 
 @pytest.mark.parametrize("path", _port_files(),

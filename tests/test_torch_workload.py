@@ -59,6 +59,9 @@ def test_multi_rank_workload_adds_the_collectives_and_ring_attention(
     assert ring_check["max_abs_err"] <= ring_check["tolerance"]
     assert list(info["leg_seconds"]) == ["matmul", "hbm", "flash",
                                          "collectives", "ring_attention"]
+    # every rank lies on the one device: the figures are loopback, and
+    # the status says so
+    assert info["fabric"] == "loopback" and info["ranks_device"] == "cpu"
 
 
 def test_single_rank_workload_has_no_multi_device_leg(tmp_path, monkeypatch):
@@ -67,9 +70,11 @@ def test_single_rank_workload_has_no_multi_device_leg(tmp_path, monkeypatch):
     for wl in (_workload(tmp_path), _workload(tmp_path, ranks=1)):
         info = wl.validate()
         assert "collectives" not in info and "ring_attention" not in info
+        assert "fabric" not in info and "ranks_device" not in info
         assert list(info["leg_seconds"]) == ["matmul", "hbm", "flash"]
         # the multi-rank status only adds keys to the single-rank one
-        assert set(multi) - set(info) == {"collectives", "ring_attention"}
+        assert set(multi) - set(info) == {"collectives", "ring_attention",
+                                          "fabric", "ranks_device"}
 
 
 def test_collective_payload_comes_from_the_argument_or_the_environment(

@@ -41,6 +41,7 @@ _SIGNATURES = {
     "hbm_read_sum": (_P, _LL, _I, _P, _I, _P, _P),
     "flash_fwd_bf16": (_P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _F,
                        _I, _P),
+    "flash_fwd_generic": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
     "ring_all_gather_f32": (_P, _I, _LL, _I, _LL, _LL, _P),
     "ring_reduce_scatter_f32": (_P, _I, _LL, _I, _LL, _LL, _P),
     "ring_all_reduce_f32": (_P, _I, _LL, _I, _LL, _LL, _P),

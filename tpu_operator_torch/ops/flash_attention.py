@@ -21,9 +21,11 @@ sum l, unnormalised f32 acc) to a workspace, and a second kernel merges
 them by the log-sum-exp rule in a fixed order (no atomics: the same bits on
 every run). :func:`flash_split_plain` is that schedule in plain PyTorch.
 
-:func:`flash_attention` launches the kernels for CUDA tensors (bf16 only)
-and runs the plain PyTorch version, :func:`attention_plain`, only for CPU
-tensors.
+Every other input on the card goes to a second kernel, K2g
+(``csrc/flash_fwd_generic.cu``, :func:`flash_generic`): f32, f16 and bf16,
+any D up to :data:`MAX_HEAD_DIM`, any T, on CUDA cores. :func:`flash_attention`
+routes a CUDA input to one of the two kernels and runs the plain PyTorch
+version, :func:`attention_plain`, only for CPU tensors.
 """
 
 from __future__ import annotations
@@ -42,6 +44,9 @@ BLOCK = 64          # the kernel's q and kv tile rows (kBlockQ, kBlockK)
 HEAD_DIM = 128      # the head dimension the kernel is built for
 SPLIT = 8           # kv tiles per unit at most, from chip_smoke.py's sweep
 MASK_FILL = -1e30   # the causal mask's fill, as in the reference
+MAX_HEAD_DIM = 256  # the largest D the generic kernel K2g takes
+# the generic kernel's element types, by the code its C entry point takes
+GENERIC_DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
 
 def attention_plain(q, k, v, sm_scale: float | None = None,
@@ -227,19 +232,92 @@ def flash_launch(q, k, v, scale: float, causal: bool, split: int = SPLIT):
     return out
 
 
+def flash_generic(q, k, v, sm_scale: float | None = None,
+                  causal: bool = False):
+    """K2g's wrapper: softmax(q·Kᵀ·scale)·V for q, k, v of shape [T, D] or
+    [H, T, D], f32, f16 or bf16, D ≤ :data:`MAX_HEAD_DIM`, any T. Launches
+    ``csrc/flash_fwd_generic.cu`` for CUDA tensors and runs
+    :func:`attention_plain` for CPU tensors; the output has the input
+    dtype."""
+    _check_shapes(q, k, v)
+    d = q.shape[-1]
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v, scale, causal)
+    return _generic_launch(*_cuda_inputs(q, k, v), scale, causal)
+
+
+flash_generic.launches = 0
+
+
+def _generic_launch(q, k, v, scale: float, causal: bool):
+    """Launch K2g on inputs :func:`_cuda_inputs` checked; the output, not
+    yet synchronised."""
+    heads = 1 if q.dim() == 2 else q.shape[0]
+    out = torch.empty_like(q)
+    lib = _native.library()
+    with torch.cuda.device(q.device):
+        err = lib.flash_fwd_generic(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                    out.data_ptr(), GENERIC_DTYPES[q.dtype],
+                                    heads, q.shape[-2], q.shape[-1], scale,
+                                    int(causal),
+                                    torch.cuda.current_stream().cuda_stream)
+    _native.check(err, "flash_fwd_generic")
+    flash_generic.launches += 1
+    return out
+
+
+def _check_shapes(q, k, v):
+    if q.dim() not in (2, 3) or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"q, k, v must share a [T, D] or [H, T, D] shape, "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+
+
+def _cuda_inputs(q, k, v):
+    """q, k, v checked for the kernels and made contiguous: one dtype of
+    :data:`GENERIC_DTYPES`, D ≤ :data:`MAX_HEAD_DIM`, one CUDA device."""
+    if q.dtype not in GENERIC_DTYPES:
+        raise ValueError(f"the CUDA kernels take float32, float16 and "
+                         f"bfloat16, got {q.dtype}")
+    if q.shape[-1] > MAX_HEAD_DIM:
+        raise ValueError(f"the CUDA kernels take head dim at most "
+                         f"{MAX_HEAD_DIM}, got {q.shape[-1]}")
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    for name, x in (("k", k), ("v", v)):
+        if x.device != q.device or x.dtype != q.dtype:
+            raise ValueError(f"{name} is {x.dtype} on {x.device}, q is "
+                             f"{q.dtype} on {q.device}")
+    return tuple(_contiguous_aligned(x) for x in (q, k, v))
+
+
+def _contiguous_aligned(x):
+    x = x.contiguous()
+    # a fresh copy is 16-byte aligned, as K2's TMA loads need
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+def takes_wgmma(q) -> bool:
+    """Whether a CUDA input goes to K2 (bf16, D = ``HEAD_DIM``, T a multiple
+    of ``BLOCK``); every other one goes to K2g."""
+    return (q.dtype == torch.bfloat16 and q.shape[-1] == HEAD_DIM
+            and q.shape[-2] % BLOCK == 0)
+
+
 def flash_attention(q, k, v, sm_scale: float | None = None,
                     causal: bool = False, block_q: int | None = None,
                     block_k: int | None = None):
     """softmax(q·Kᵀ·scale)·V for q, k, v of shape [T, D] or [H, T, D].
 
-    T must divide by the blocks (pad upstream); ``sm_scale`` defaults to
-    1/√D; the output has the input dtype. On a CUDA tensor the blocks must
-    be the kernel's own (``BLOCK``), the dtype bf16 and D ``HEAD_DIM``.
+    T must divide by the blocks (pad upstream), checked as the reference
+    checks it; ``sm_scale`` defaults to 1/√D; the output has the input
+    dtype. On the card the blocks are a tiling hint only: each kernel tiles
+    by its own rows. A CUDA input that :func:`takes_wgmma` launches K2;
+    every other f32, f16 or bf16 input with D ≤ :data:`MAX_HEAD_DIM` goes
+    to K2g (:func:`flash_generic`); other dtypes and wider heads raise.
     """
-    if q.dim() not in (2, 3) or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"q, k, v must share a [T, D] or [H, T, D] shape, "
-                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
+    _check_shapes(q, k, v)
     t, d = q.shape[-2:]
     block_q = min(block_q or BLOCK, t)
     block_k = min(block_k or BLOCK, t)
@@ -249,20 +327,9 @@ def flash_attention(q, k, v, sm_scale: float | None = None,
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
     if q.device.type == "cpu":
         return attention_plain(q, k, v, scale, causal)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
-    if (block_q, block_k) != (BLOCK, BLOCK):
-        raise ValueError(f"the CUDA kernel's tiles are {BLOCK}x{BLOCK} rows, "
-                         f"got blocks ({block_q}, {block_k})")
-    if d != HEAD_DIM:
-        raise ValueError(f"the CUDA kernel takes head dim {HEAD_DIM}, "
-                         f"got {d}")
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        if x.device != q.device or x.dtype != torch.bfloat16 \
-                or not x.is_contiguous() or x.data_ptr() % 16:
-            raise ValueError(f"{name} must be a contiguous, 16-byte aligned "
-                             f"bfloat16 tensor on {q.device}, got {x.dtype} "
-                             f"on {x.device}")
+    q, k, v = _cuda_inputs(q, k, v)
+    if not takes_wgmma(q):
+        return _generic_launch(q, k, v, scale, causal)
     out = flash_launch(q, k, v, scale, causal)
     flash_attention.launches += 1
     return out

@@ -192,13 +192,16 @@ class CollectiveReport:
 
 def _timed(fn, iters: int) -> float:
     """Best wall time of ``fn()``, which returns one tensor or a list of
-    them. Their sum is reduced to a scalar and fetched to the host: that is
-    the completion barrier (the extra read is small beside the collective
-    itself)."""
+    them. The completion barrier is a synchronise of the device's stream,
+    then a fetch of one element of each output: on virtual ranks, where the
+    collective itself only moves device memory, a barrier that read every
+    output would add as many bytes as it times."""
     def run():
         ys = fn()
         ys = [ys] if isinstance(ys, torch.Tensor) else ys
-        return sum(y.sum().to(ys[0].device) for y in ys).item()
+        if ys[0].device.type == "cuda":
+            torch.cuda.current_stream(ys[0].device).synchronize()
+        return [y[(0,) * y.dim()].item() for y in ys]
     return measure_best(run, iters=iters)
 
 

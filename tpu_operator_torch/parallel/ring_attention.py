@@ -177,11 +177,12 @@ def ulysses_attention(q, k, v, mesh: Mesh, axis_name: str = "model",
     further communication, and one all-to-all reshards the output back:
     four exchanges of the activation size against ring attention's n - 1
     K/V rotations. The per-head attention runs at platform precision, not the
-    oracle's pin: on the flash kernel ([H/n, T, Dh], made contiguous for
-    it) when Dh is the kernel's head dim and T divides by its tile, else
-    dense."""
+    oracle's pin: on flash attention ([H/n, T, Dh], made contiguous for it)
+    by the reference's rule, a Dh that is a multiple of 128 and a full T
+    that the blocks divide, as far as the CUDA kernels' widest head
+    (``MAX_HEAD_DIM``) reaches; else dense."""
     # here, not at the top: ops.flash_attention imports this module
-    from tpu_operator_torch.ops.flash_attention import (BLOCK, HEAD_DIM,
+    from tpu_operator_torch.ops.flash_attention import (BLOCK, MAX_HEAD_DIM,
                                                         flash_attention)
     n = mesh.shape[axis_name]
     tl, h, dh = q[0].shape
@@ -202,7 +203,9 @@ def ulysses_attention(q, k, v, mesh: Mesh, axis_name: str = "model",
         return [got.permute(1, 0, 2, 3).reshape(tl, h, dh)
                 for got in all_to_all(blocks, mesh, axis_name)]
 
-    flash = dh == HEAD_DIM and (n * tl) % BLOCK == 0
+    t_full = n * tl
+    flash = (dh % 128 == 0 and dh <= MAX_HEAD_DIM
+             and t_full % min(BLOCK, t_full) == 0)
     outs = []
     for qh, kh, vh in zip(*(seq_to_heads(xs) for xs in (q, k, v))):
         # heads first: [H/n, T, Dh], one attention per head
