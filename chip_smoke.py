@@ -15,11 +15,14 @@ must go through the kernels. K2 (flash attention) is timed inside a CUDA
 graph, so that the host's time per call is not in it, with a sweep of the
 most kv tiles a unit of its work takes, and beside every SDPA backend
 (flash, cuDNN, memory-efficient, math) on the 4-D form of the same inputs;
-the fastest is its library time. K2g, the generic flash kernel, is held
-against the plain version over f32, f16 and bf16, head dims 64, 96, 128
-and 256, causal and full, and sequence lengths that 64 does not divide,
-through its own wrapper and through ``flash_attention``'s routing, and
-timed the same way. Then it holds the ring kernels (K3–K6) against their
+the fastest is its library time. K2w (K2's kernel template at every other
+f16 or bf16 input with D ≤ 256, D % 8 = 0) and K2s (the register-tiled
+CUDA-core kernel: f32, and 16-bit inputs K2w does not take, D ≤ 512) are
+held against the plain version over f32, f16 and bf16, head dims 64, 96,
+128, 256, 384 and 512, causal and full, and sequence lengths that 64 does
+not divide, through their own wrappers and through ``flash_attention``'s
+routing, and timed the same way (K2w also by the keys a kv step takes at
+D = 256). Then it holds the ring kernels (K3–K6) against their
 plain versions and the library sums for 2, 4 and 8 virtual ranks on the
 card, times them at 4 × 64 MiB (with the bytes their schedules move, a
 library call that fills all n outputs, and a sweep of piece sizes) and at
@@ -29,9 +32,11 @@ suite's reports on 4 virtual ranks, and runs the multi-device dry run
 Then ``WorkloadComponent(ranks=4)`` runs the validator's multi-device leg
 on 4 virtual ranks, whose collective suite must launch K5 and K6 at its 64
 MiB payload, and Ulysses attention runs with 8 heads over 4 virtual ranks,
-causal and not, at Dh = 128 (T = 4096), where K2 must launch once per rank,
-and at Dh = 256 (T = 1024), where K2g must; the result is held to K2's
-per-element limit against the single-device computation.
+causal and not, at T = 4096 with Dh = 128, where K2 must launch once per
+rank, Dh = 256, where K2w must, and Dh = 384, where K2s must; the result is
+held to the per-element limit against the single-device computation; at
+Dh = 384 it is also timed beside the same call with each rank's attention
+dense (``attention_plain``), outside the counted run. The build phase prints ptxas's registers and spills for every flash kernel.
 
 Output: progress lines, then the ``nvidia-smi`` name and power limit, then
 one JSON line with every kernel's launches on the main path, error, times
@@ -135,13 +140,33 @@ def phase_card() -> tuple[str, str]:
     return kind, smi_line
 
 
+def demangle(names: list[str]) -> list[str]:
+    """C++ names of mangled symbols, by c++filt where the machine has it."""
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(names),
+                             capture_output=True, text=True, timeout=60)
+        got = out.stdout.splitlines()
+        return got if len(got) == len(names) else names
+    except OSError:
+        return names
+
+
 def phase_build() -> None:
+    """Builds the kernels, and prints ptxas's registers and spills for each
+    flash-attention kernel; a flash kernel that spills fails."""
     from tpu_operator_torch import _native
     t0 = time.perf_counter()
     _native.library()
     print(f"[build] {len(_native.sources())} sources -> "
           f"{_native.library_path().name} in "
           f"{time.perf_counter() - t0:.1f} s")
+    res = {name: r for name, r in _native.kernel_resources().items()
+           if "flash" in name}
+    for pretty, (regs, spill) in zip(demangle(list(res)), res.values()):
+        print(f"[build] {pretty.replace('(anonymous namespace)::', '')}: "
+              f"{regs} registers, {spill} bytes spilled")
+    spilled = [name for name, (_, spill) in res.items() if spill]
+    check(bool(res) and not spilled, f"flash kernels spill: {spilled}")
 
 
 def phase_hbm(dev, kind) -> dict:
@@ -389,119 +414,185 @@ def phase_flash(dev, kind) -> dict:
     return main
 
 
-# K2g's grid: every head-dim bucket and one D off them, each dtype, causal
-# and full, at T = 1024 over 2 heads; then T that 64 does not divide, with
-# the blocks the reference would take for them
-GENERIC_DIMS = (64, 128, 256, 96)
-GENERIC_GRID_DTYPES = (torch.float32, torch.float16, torch.bfloat16)
-GENERIC_RAGGED = ((96, (32, 96)), (200, (40, 200)))
-# the shapes K2g is timed at: Ulysses' per-head width, and f32 at K2's
-GENERIC_TIMED = ((torch.bfloat16, 4096, 256), (torch.float32, 4096, 128))
+# K2w's and K2s's grid: each dtype, the head-dim buckets both kernels take
+# and one D off them (96), the buckets only K2s takes, causal and full, at T
+# = 1024 and at T that 64 does not divide (with the blocks the reference
+# would take for them), over 2 heads
+GRID_DTYPES = (torch.float32, torch.float16, torch.bfloat16)
+GRID_DIMS = (64, 96, 128, 256, 384, 512)
+GRID_T = ((1024, (None, None)), (96, (32, 96)), (200, (40, 200)))
+# the shapes timed: the main path's first on each kernel (Ulysses' head
+# widths, 256 on K2w and 384 on K2s), then two others on K2w and f32 at K2's
+# shape on K2s
+TIMED = ((torch.bfloat16, 4096, 256), (torch.float16, 4096, 128),
+         (torch.bfloat16, 4096, 64), (torch.bfloat16, 4096, 384),
+         (torch.float32, 4096, 128))
+# K2w's keys a kv step at DP = 256
+SWEEP_BLOCK_K = (32, 64)
+# the wrapper that counts each kernel's launches
+WRAPPERS = {"K2": "flash_attention", "K2w": "flash_wgmma",
+            "K2s": "flash_generic"}
 
 
-def phase_flash_generic(dev, kind) -> dict:
-    """K2g (``csrc/flash_fwd_generic.cu``) against the plain version over
-    its grid, through its own wrapper and through ``flash_attention``'s
-    routing, with no CUDA call reaching the plain version; the refused head
-    dim; and its times beside every SDPA backend at ``GENERIC_TIMED``."""
+def flash_within(out, q, k, v, causal) -> tuple[float, str]:
+    """The error of a flash output as a share of what it may be: 16-bit
+    against ``kernel_error_limit`` per element, f32 against
+    ``attention_tolerance`` (max abs)."""
     from tpu_operator_torch.ops import flash_attention as flash
     from tpu_operator_torch.parallel.numerics import attention_tolerance
+    if q.dtype == torch.float32:
+        ref = flash.attention_plain(q, k, v, causal=causal).float()
+        err = (out.float() - ref).abs().max().item()
+        return err / attention_tolerance(q.dtype, q.shape[-1], "cuda"), \
+            "of attention_tolerance"
+    ref32, limit = flash.kernel_error_limit(q, k, v, causal=causal)
+    return limit_ratio(out, ref32, limit), "of the per-element limit"
+
+
+def time_flash(label, run, q, k, v, kind) -> dict:
+    """One timed shape (causal): the kernel in a CUDA graph beside the
+    plain version, every SDPA backend and the bound."""
+    from tpu_operator_torch.ops import flash_attention as flash
+    t, d = q.shape[-2:]
+    ref32 = flash.attention_plain(q.float(), k.float(), v.float(),
+                                  causal=True)
+    out = run()
+    ratio, of = flash_within(out, q, k, v, True)
+    check(ratio <= 1.0, f"{label} timed shape: error {ratio:.3f} {of}")
+    err = (out.float() - ref32).abs().max().item()
+    ms = graph_ms(run, iters=20)
+    plain_ms = cuda_ms(lambda: flash.attention_plain(q, k, v, causal=True),
+                       iters=5)
+    sdpa = sdpa_times(q, k, v, True, ref32, tag=label)
+    ran = {name: ms_ for name, ms_ in sdpa.items() if ms_ is not None}
+    check(bool(ran), f"no SDPA backend took {label}'s inputs")
+    backend = min(ran, key=ran.get)
+    flops = 4.0 * d * t * (t + 1) / 2
+    nbytes = 4 * t * d * q.element_size()
+    bound_ms, bound_by = bound(
+        flops, nbytes, kind,
+        F32_PEAK_TFLOPS if q.dtype == torch.float32 else None)
+    shape = f"{str(q.dtype).removeprefix('torch.')} [{t}, {d}] causal"
+    print(f"[{label}] {shape}: kernel {ms:.4f} ms in a graph "
+          f"({flops / ms / 1e9:.1f} TFLOP/s); plain {plain_ms:.4f} ms; "
+          f"fastest sdpa {backend} {ran[backend]:.4f} ms; bound "
+          f"{bound_ms:.4f} ms ({bound_by}); error {ratio:.3f} {of}; max abs "
+          f"err {err:.3e}")
+    return {"shape": shape, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": ran[backend], "library_backend": backend,
+            "max_abs_err": err, "error_share": ratio}
+
+
+def phase_flash_generic(dev, kind) -> list[dict]:
+    """K2w (``csrc/flash_fwd.cu``'s template at any 16-bit input with D ≤
+    256, D % 8 = 0) and K2s (``csrc/flash_fwd_generic.cu``) against the
+    plain version over the grid, through their own wrappers and through
+    ``flash_attention``'s routing, with no CUDA call reaching the plain
+    version; the refused head dim; their times beside every SDPA backend at
+    ``TIMED``, and K2w's sweep of kv-step keys at DP = 256."""
+    from tpu_operator_torch.ops import flash_attention as flash
     plain = flash.attention_plain
     plain_calls = []
 
     def counted_plain(*a, **kw):
         plain_calls.append(1)
         return plain(*a, **kw)
+    counters = {name: getattr(flash, fn) for name, fn in WRAPPERS.items()}
     gen = torch.Generator(device=dev).manual_seed(13)
-    cases = [(dtype, 1024, d, None, causal) for dtype in GENERIC_GRID_DTYPES
-             for d in GENERIC_DIMS for causal in (True, False)]
-    cases += [(dtype, t, 96, blocks, True) for dtype in GENERIC_GRID_DTYPES
-              for t, blocks in GENERIC_RAGGED]
-    worst = 0.0
-    for dtype, t, d, blocks, causal in cases:
-        q, k, v = (torch.randn((2, t, d), generator=gen, device=dev)
-                   .to(dtype) for _ in range(3))
-        bq, bk = blocks or (None, None)
-        before = (flash.flash_attention.launches, flash.flash_generic.launches)
-        flash.attention_plain = counted_plain
-        try:
-            direct = flash.flash_generic(q, k, v, causal=causal)
-            routed = flash.flash_attention(q, k, v, causal=causal,
-                                           block_q=bq, block_k=bk)
-        finally:
-            flash.attention_plain = plain
-        wgmma = flash.takes_wgmma(q)
-        check((flash.flash_attention.launches - before[0],
-               flash.flash_generic.launches - before[1])
-              == (int(wgmma), 2 - int(wgmma)),
-              f"K2g {dtype} [{t}, {d}]: routed to the wrong kernel")
-        ref = plain(q, k, v, causal=causal).float()
-        tol = attention_tolerance(dtype, d, "cuda")
-        for label, out in (("K2g", direct), ("routed", routed)):
-            check(out.shape == q.shape and out.dtype == dtype,
-                  f"{label} {dtype} [{t}, {d}]: output {tuple(out.shape)} "
-                  f"{out.dtype}")
-            err = (out.float() - ref).abs().max().item()
-            check(math.isfinite(err) and err <= tol,
-                  f"{label} {dtype} [2, {t}, {d}] causal={causal} blocks "
-                  f"{blocks}: max abs err {err:.3e} > {tol:.3e}")
-            worst = max(worst, err / tol)
-        print(f"[K2g] {str(dtype).removeprefix('torch.')} [2, {t}, {d}] "
-              f"causal={causal} blocks {blocks or 'default'}: max abs err "
-              f"{(direct.float() - ref).abs().max().item():.3e} (tolerance "
-              f"{tol:.3e}); flash_attention took "
-              f"{'K2' if wgmma else 'K2g'}")
+    worst = {"K2w": 0.0, "K2s": 0.0}
+    n_cases = 0
+    for dtype in GRID_DTYPES:
+        for d in GRID_DIMS:
+            for t, (bq, bk) in GRID_T:
+                for causal in (True, False):
+                    q, k, v = (torch.randn((2, t, d), generator=gen,
+                                           device=dev).to(dtype)
+                               for _ in range(3))
+                    route = flash.kernel_for(dtype, d, t)
+                    # each kernel that takes the input, by its own wrapper
+                    own = [("K2s", flash.flash_generic)]
+                    if route in ("K2", "K2w"):
+                        own.append(("K2w", flash.flash_wgmma))
+                    before = {n: fn.launches for n, fn in counters.items()}
+                    flash.attention_plain = counted_plain
+                    try:
+                        outs = [(name, fn(q, k, v, causal=causal))
+                                for name, fn in own]
+                        routed = flash.flash_attention(
+                            q, k, v, causal=causal, block_q=bq, block_k=bk)
+                    finally:
+                        flash.attention_plain = plain
+                    want = {n: sum(1 for name, _ in own if name == n)
+                            + int(n == route) for n in counters}
+                    got = {n: fn.launches - before[n]
+                           for n, fn in counters.items()}
+                    label = (f"{str(dtype).removeprefix('torch.')} "
+                             f"[2, {t}, {d}] causal={causal}")
+                    check(got == want, f"{label}: launches {got}, routing "
+                                       f"names {route}, expected {want}")
+                    shares = []
+                    for name, out in outs + [(route, routed)]:
+                        check(out.shape == q.shape and out.dtype == dtype,
+                              f"{name} {label}: output {tuple(out.shape)} "
+                              f"{out.dtype}")
+                        ratio, of = flash_within(out, q, k, v, causal)
+                        check(math.isfinite(ratio) and ratio <= 1.0,
+                              f"{name} {label}: error {ratio:.3f} {of}")
+                        if name in worst:
+                            worst[name] = max(worst[name], ratio)
+                        shares.append(f"{name} {ratio:.3f}")
+                    n_cases += 1
+                    print(f"[K2w/K2s] {label} blocks {bq or 'default'}: "
+                          f"routed to {route}; error "
+                          + ", ".join(shares) + f" {of}")
     check(not plain_calls, f"{len(plain_calls)} CUDA calls reached the "
                            "plain version")
-    wide = torch.zeros((64, 320), device=dev)
+    wide = torch.zeros((64, 640), device=dev)
     for fn in (flash.flash_attention, flash.flash_generic):
         try:
             fn(wide, wide, wide)
         except ValueError as exc:
-            check("at most 256" in str(exc), f"D=320: {exc}")
+            check("at most 512" in str(exc), f"D=640: {exc}")
         else:
-            raise SmokeFailure(f"{fn.__name__} took D=320")
-    print(f"[K2g] {len(cases)} cases x 2 wrappers within attention_tolerance "
-          f"(worst {worst:.3f} of it); no CUDA call reached the plain "
-          "version; D=320 raises")
+            raise SmokeFailure(f"{fn.__name__} took D=640")
+    print(f"[K2w/K2s] {n_cases} cases: within their limits (worst share "
+          f"K2w {worst['K2w']:.3f}, K2s {worst['K2s']:.3f}); no CUDA call "
+          "reached the plain version; D=640 raises")
 
-    timed = []
-    for dtype, t, d in GENERIC_TIMED:
+    timed = {"K2w": [], "K2s": []}
+    sweep = {}
+    for dtype, t, d in TIMED:
         q, k, v = (torch.randn((t, d), generator=gen, device=dev).to(dtype)
                    for _ in range(3))
-        ref32 = plain(q.float(), k.float(), v.float(), causal=True)
-        out = flash.flash_generic(q, k, v, causal=True)
-        err = (out.float() - ref32).abs().max().item()
-        tol = attention_tolerance(dtype, d, "cuda")
-        check(err <= tol, f"K2g timed shape {dtype} [{t}, {d}]: max abs err "
-                          f"{err:.3e} > {tol:.3e}")
-        ms = graph_ms(lambda: flash.flash_generic(q, k, v, causal=True),
-                      iters=10)
-        plain_ms = cuda_ms(lambda: plain(q, k, v, causal=True), iters=5)
-        sdpa = sdpa_times(q, k, v, True, ref32, tag="K2g")
-        ran = {name: ms_ for name, ms_ in sdpa.items() if ms_ is not None}
-        check(bool(ran), "no SDPA backend took K2g's inputs")
-        backend = min(ran, key=ran.get)
-        flops = 4.0 * d * t * (t + 1) / 2
-        nbytes = 4 * t * d * q.element_size()
-        bound_ms, bound_by = bound(
-            flops, nbytes, kind,
-            F32_PEAK_TFLOPS if dtype == torch.float32 else None)
-        shape = f"{str(dtype).removeprefix('torch.')} [{t}, {d}] causal"
-        print(f"[K2g] {shape}: kernel {ms:.4f} ms in a graph "
-              f"({flops / ms / 1e9:.1f} TFLOP/s); plain {plain_ms:.4f} ms; "
-              f"fastest sdpa {backend} {ran[backend]:.4f} ms; bound "
-              f"{bound_ms:.4f} ms ({bound_by}); max abs err {err:.3e}")
-        timed.append({"shape": shape, "ms": ms, "plain_ms": plain_ms,
-                      "bound_ms": bound_ms, "bound_by": bound_by,
-                      "library_ms": ran[backend], "library_backend": backend,
-                      "max_abs_err": err})
-        del q, k, v, ref32, out
-    main, f32 = timed
-    return {"name": "flash_fwd_generic", "route": "cuda",
-            "source": "tpu_operator_torch/csrc/flash_fwd_generic.cu",
-            "replaces": "tpu_operator/ops/flash_attention.py:48",
-            **main, "grid_worst_tolerance_share": worst, "f32": f32}
+        route = flash.kernel_for(dtype, d, t)
+        run = getattr(flash, WRAPPERS[route])
+        timed[route].append(time_flash(
+            route, lambda: run(q, k, v, causal=True), q, k, v, kind))
+        if route == "K2w" and d == 256:
+            for block_k in SWEEP_BLOCK_K:
+                def launch():
+                    return flash._wgmma_launch(q, k, v, d ** -0.5, True,
+                                               block_k=block_k)
+                ratio, of = flash_within(launch(), q, k, v, True)
+                check(ratio <= 1.0, f"K2w block_k {block_k}: error "
+                                    f"{ratio:.3f} {of}")
+                sweep[block_k] = graph_ms(launch, iters=20)
+                print(f"[K2w] kv-step sweep at bf16 [{t}, {d}] causal: "
+                      f"{block_k} keys a step: {sweep[block_k]:.4f} ms "
+                      f"(error {ratio:.3f} {of})")
+        del q, k, v
+    kw, ks = timed["K2w"], timed["K2s"]
+    return [{"name": "flash_fwd_wgmma", "route": "cuda",
+             "source": "tpu_operator_torch/csrc/flash_fwd.cu",
+             "replaces": "tpu_operator/ops/flash_attention.py:48",
+             **kw[0], "other_shapes": kw[1:], "block_k_sweep": sweep,
+             "grid_worst_share": worst["K2w"]},
+            {"name": "flash_fwd_generic", "route": "cuda",
+             "source": "tpu_operator_torch/csrc/flash_fwd_generic.cu",
+             "replaces": "tpu_operator/ops/flash_attention.py:48",
+             **ks[0], "other_shapes": ks[1:],
+             "grid_worst_share": worst["K2s"]}]
 
 
 # (name, wrapper, plain version, TPU kernel it replaces, rows per rank
@@ -866,15 +957,15 @@ def phase_validate_ranks() -> None:
           f"{json.dumps(ring_check)}; leg_seconds {json.dumps(legs)}")
 
 
-# (Dh, T): K2's head width at the full sequence, and a width only K2g
-# takes, at a shorter one (K2g runs on CUDA cores)
-ULYSSES_SHAPES = ((128, 4096), (256, 1024))
+# (Dh, T, kernel): K2's head width, K2w's widest bucket and a width only
+# K2s takes, each at the full sequence
+ULYSSES_SHAPES = ((128, 4096, "K2"), (256, 4096, "K2w"), (384, 4096, "K2s"))
 
 
 def phase_ulysses() -> None:
     """Ulysses attention on 4 virtual ranks, 8 heads, bf16, causal and not:
-    at Dh = 128 each rank's [2, T, 128] goes through K2, at Dh = 256 through
-    K2g, once per rank; the result is held to K2's per-element limit
+    each rank's [2, T, Dh] goes through K2 at Dh = 128, K2w at 256 and K2s
+    at 384, once per rank; the result is held to the per-element limit
     against the single-device computation."""
     from tpu_operator_torch.ops import flash_attention as flash
     from tpu_operator_torch.parallel.mesh import MeshPlan, make_mesh
@@ -884,26 +975,26 @@ def phase_ulysses() -> None:
     dev = torch.device("cuda", 0)
     mesh = make_mesh(n, MeshPlan(data=1, model=n), device=dev)
     gen = torch.Generator(device=dev).manual_seed(11)
-    for d, t in ULYSSES_SHAPES:
+    counters = {name: getattr(flash, fn) for name, fn in WRAPPERS.items()}
+    for d, t, kernel in ULYSSES_SHAPES:
         q, k, v = (torch.randn((t, h, d), generator=gen, device=dev)
                    .to(torch.bfloat16) for _ in range(3))
         tol = attention_tolerance(torch.bfloat16, d, "cuda")
-        kernel = "K2" if d == 128 else "K2g"
         for causal in (True, False):
             shards = [list(x.chunk(n)) for x in (q, k, v)]
-            before = (flash.flash_attention.launches,
-                      flash.flash_generic.launches)
+            before = {name: fn.launches for name, fn in counters.items()}
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = torch.cat(ulysses_attention(*shards, mesh, "model",
                                               causal=causal))
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            launched = (flash.flash_attention.launches - before[0],
-                        flash.flash_generic.launches - before[1])
-            check(launched == ((n, 0) if kernel == "K2" else (0, n)),
-                  f"Ulysses Dh={d} causal={causal}: (K2, K2g) launched "
-                  f"{launched} times for {n} ranks")
+            launched = {name: fn.launches - before[name]
+                        for name, fn in counters.items()}
+            check(launched == {name: n if name == kernel else 0
+                               for name in counters},
+                  f"Ulysses Dh={d} causal={causal}: launched {launched} "
+                  f"for {n} ranks, expected {kernel} only")
             check(out.shape == (t, h, d) and out.dtype == torch.bfloat16,
                   f"Ulysses output {tuple(out.shape)} {out.dtype}")
             # the single-device computation, heads first
@@ -913,7 +1004,7 @@ def phase_ulysses() -> None:
             ratio = limit_ratio(got, ref32, limit)
             err = (got.float() - ref32).abs().max().item()
             check(ratio <= 1.0, f"Ulysses Dh={d} causal={causal}: error "
-                                f"{ratio:.3f}x K2's per-element limit")
+                                f"{ratio:.3f}x the per-element limit")
             check(math.isfinite(err) and err <= tol,
                   f"Ulysses Dh={d} causal={causal}: max abs err {err:.3e} "
                   f"> {tol:.3e}")
@@ -924,6 +1015,38 @@ def phase_ulysses() -> None:
                   f"{err:.3e} (tolerance {tol:.3e}); {wall * 1e3:.3f} ms on "
                   f"the host clock")
         del q, k, v
+
+
+def phase_ulysses_dense() -> None:
+    """Ulysses at Dh = 384 (K2s's width on the main path) beside the same
+    call with each rank's attention dense (``attention_plain``, the port's
+    path at that width before K2s took it): mean ms a call by CUDA events
+    over 5 back-to-back calls after one warm-up, host time included."""
+    from tpu_operator_torch.ops import flash_attention as flash
+    from tpu_operator_torch.parallel.mesh import MeshPlan, make_mesh
+    from tpu_operator_torch.parallel.ring_attention import ulysses_attention
+    n, h, t, d = 4, 8, 4096, 384
+    dev = torch.device("cuda", 0)
+    mesh = make_mesh(n, MeshPlan(data=1, model=n), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    shards = [list(torch.randn((t, h, d), generator=gen, device=dev)
+                   .to(torch.bfloat16).chunk(n)) for _ in range(3)]
+    routed = flash.flash_attention
+
+    def dense(q, k, v, causal=False):
+        return flash.attention_plain(q, k, v, causal=causal)
+    for causal in (True, False):
+        times = {}
+        for name, fn in (("K2s", routed), ("dense", dense)):
+            flash.flash_attention = fn
+            try:
+                times[name] = cuda_ms(lambda: ulysses_attention(
+                    *shards, mesh, "model", causal=causal), iters=5)
+            finally:
+                flash.flash_attention = routed
+        print(f"[ulysses] n={n} T={t} H={h} Dh={d} bf16 causal={causal}: "
+              f"on K2s {times['K2s']:.3f} ms a call, dense (attention_plain "
+              f"a rank) {times['dense']:.3f} ms a call")
 
 
 def main() -> int:
@@ -938,7 +1061,7 @@ def main() -> int:
     kind, smi_line = phase_card()
     phase_build()
     kernels = [phase_hbm(dev, kind), phase_flash(dev, kind),
-               phase_flash_generic(dev, kind), *phase_ring(dev, kind)]
+               *phase_flash_generic(dev, kind), *phase_ring(dev, kind)]
 
     # each path runs with its kernels' counts set to 0 just before it and
     # read just after
@@ -956,6 +1079,7 @@ def main() -> int:
           "ring_all_reduce_bidir": ring_mod.ring_all_reduce_bidir}),
         ("Ulysses", (phase_ulysses,),
          {"flash_fwd": flash_mod.flash_attention,
+          "flash_fwd_wgmma": flash_mod.flash_wgmma,
           "flash_fwd_generic": flash_mod.flash_generic}),
     )
     # a kernel's launches: the sum over the paths that must reach it
@@ -974,6 +1098,7 @@ def main() -> int:
         entry_["launches"] = launches[entry_["name"]]
         check(entry_["launches"] > 0,
               f"{entry_['name']} never launched on the main path")
+    phase_ulysses_dense()
 
     print(smi_line)
     print(json.dumps({"kernels": kernels}))

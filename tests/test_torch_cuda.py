@@ -102,10 +102,10 @@ def test_flash_kernel_gives_the_same_bits_twice(cuda):
 
 
 def test_flash_kernel_rejects_what_it_cannot_take(cuda, monkeypatch):
-    """Only a dtype outside f32, f16 and bf16, or a head dim above 256, is
-    refused; every other CUDA input goes to K2 or K2g, never to the plain
-    version. bf16 with D = 128 and T a multiple of 64 keeps K2, whatever
-    blocks were asked for."""
+    """Only a dtype outside f32, f16 and bf16, or a head dim above 512, is
+    refused; every other CUDA input goes to K2, K2w or K2s, never to the
+    plain version. bf16 with D = 128 and T a multiple of 64 keeps K2,
+    whatever blocks were asked for."""
     def refuse(*a, **kw):
         raise AssertionError("a CUDA input reached the plain version")
     monkeypatch.setattr(flash_mod, "attention_plain", refuse)
@@ -113,33 +113,48 @@ def test_flash_kernel_rejects_what_it_cannot_take(cuda, monkeypatch):
     xd = x.double()
     with pytest.raises(ValueError, match="float32, float16 and bfloat16"):
         flash_mod.flash_attention(xd, xd, xd)
-    wide = torch.zeros((256, 320), device=cuda)
-    with pytest.raises(ValueError, match="head dim at most 256"):
+    wide = torch.zeros((256, 640), device=cuda)
+    with pytest.raises(ValueError, match="head dim at most 512"):
         flash_mod.flash_attention(wide, wide, wide)
-    with pytest.raises(ValueError, match="head dim at most 256"):
+    with pytest.raises(ValueError, match="head dim at most 512"):
         flash_mod.flash_generic(wide, wide, wide)
+    wide16 = wide.to(torch.bfloat16)
+    with pytest.raises(ValueError, match="at most 256, got 640"):
+        flash_mod.flash_wgmma(wide16, wide16, wide16)
     xb = x.to(torch.bfloat16)
-    counts = (flash_mod.flash_attention.launches,
-              flash_mod.flash_generic.launches)
+    counters = (flash_mod.flash_attention, flash_mod.flash_wgmma,
+                flash_mod.flash_generic)
+    counts = [fn.launches for fn in counters]
     flash_mod.flash_attention(xb, xb, xb, block_q=128, block_k=128)
     flash_mod.flash_attention(x, x, x)
     odd = torch.zeros((256, 96), device=cuda, dtype=torch.bfloat16)
     flash_mod.flash_attention(odd, odd, odd)
     torch.cuda.synchronize()
-    assert (flash_mod.flash_attention.launches,
-            flash_mod.flash_generic.launches) == (counts[0] + 1,
-                                                   counts[1] + 2)
+    assert [fn.launches for fn in counters] == [counts[0] + 1,
+                                                counts[1] + 1,
+                                                counts[2] + 1]
+
+
+def _within(out, q, k, v, causal):
+    """16-bit outputs within the per-element limit, f32 within the
+    attention tolerance, against the plain version."""
+    if q.dtype == torch.float32:
+        want = flash_mod.attention_plain(q, k, v, causal=causal)
+        err = (out - want).abs().max().item()
+        return err <= attention_tolerance(q.dtype, q.shape[-1], "cuda")
+    ref, limit = flash_mod.kernel_error_limit(q, k, v, causal=causal)
+    return bool(((out.float() - ref).abs() <= limit).all())
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("d", [64, 96, 128, 256, 3])
+@pytest.mark.parametrize("d", [64, 96, 128, 256, 384, 512, 3, 100, 320])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
                                    torch.bfloat16])
 def test_generic_kernel_matches_plain(cuda, dtype, d, causal):
-    """K2g over its head-dim buckets and a D off them, at a T its 32-row
-    tiles divide and one they do not, with two heads."""
+    """K2s over its head-dim buckets and D off them, at a T its 64-row
+    tiles divide and ones they do not, with two heads."""
     gen = torch.Generator(device=cuda).manual_seed(d)
-    for t in (256, 200):
+    for t in (1024, 200, 96, 1):
         q, k, v = (torch.randn((2, t, d), generator=gen, device=cuda)
                    .to(dtype) for _ in range(3))
         before = flash_mod.flash_generic.launches
@@ -147,9 +162,60 @@ def test_generic_kernel_matches_plain(cuda, dtype, d, causal):
         torch.cuda.synchronize()
         assert flash_mod.flash_generic.launches == before + 1
         assert out.dtype == dtype and out.shape == q.shape
-        want = flash_mod.attention_plain(q, k, v, causal=causal)
-        err = (out.float() - want.float()).abs().max().item()
-        assert err <= attention_tolerance(dtype, d, "cuda"), (t, err)
+        assert _within(out, q, k, v, causal), t
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 96, 128, 256, 8, 40])
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
+def test_wgmma_kernel_matches_plain(cuda, dtype, d, causal):
+    """K2w over its head-dim buckets and D off them (TMA fills the bucket's
+    columns past D with zeros), at T 1024, 200, 96 and 1 (rows past T
+    inside each head), two heads, with kv steps of 64 keys and, at DP =
+    256, of 32 (at T = 1024 the causal rows past 8 kv tiles are split into
+    units and merged)."""
+    gen = torch.Generator(device=cuda).manual_seed(d + 1)
+    for t in (1024, 200, 96, 1):
+        q, k, v = (torch.randn((2, t, d), generator=gen, device=cuda)
+                   .to(dtype) for _ in range(3))
+        before = flash_mod.flash_wgmma.launches
+        out = flash_mod.flash_wgmma(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        assert flash_mod.flash_wgmma.launches == before + 1
+        assert out.dtype == dtype and out.shape == q.shape
+        assert _within(out, q, k, v, causal), t
+        for block_k in sorted({64, 32 if d > 128 else 64}):
+            out = flash_mod._wgmma_launch(q, k, v, d ** -0.5, causal,
+                                          block_k)
+            assert _within(out, q, k, v, causal), (t, block_k)
+
+
+@pytest.mark.parametrize("dtype,d,t,kernel", [
+    (torch.bfloat16, 128, 512, "K2"), (torch.bfloat16, 128, 200, "K2w"),
+    (torch.float16, 128, 512, "K2w"), (torch.bfloat16, 256, 512, "K2w"),
+    (torch.float16, 100, 512, "K2s"), (torch.bfloat16, 384, 256, "K2s"),
+    (torch.float32, 128, 512, "K2s"), (torch.float32, 512, 96, "K2s")])
+def test_flash_attention_launches_the_kernel_the_routing_names(
+        cuda, monkeypatch, dtype, d, t, kernel):
+    def refuse(*a, **kw):
+        raise AssertionError("a CUDA input reached the plain version")
+    plain = flash_mod.attention_plain
+    monkeypatch.setattr(flash_mod, "attention_plain", refuse)
+    gen = torch.Generator(device=cuda).manual_seed(t + d)
+    q, k, v = (torch.randn((2, t, d), generator=gen, device=cuda).to(dtype)
+               for _ in range(3))
+    counters = {"K2": flash_mod.flash_attention,
+                "K2w": flash_mod.flash_wgmma,
+                "K2s": flash_mod.flash_generic}
+    before = {name: fn.launches for name, fn in counters.items()}
+    out = flash_mod.flash_attention(q, k, v, causal=True, block_q=t,
+                                    block_k=t)
+    torch.cuda.synchronize()
+    assert {name: fn.launches - before[name]
+            for name, fn in counters.items()} == {
+        name: int(name == kernel) for name in counters}
+    monkeypatch.setattr(flash_mod, "attention_plain", plain)
+    assert _within(out, q, k, v, True)
 
 
 def test_generic_kernel_takes_views_and_a_scale(cuda):
@@ -171,13 +237,14 @@ def test_wgmma_kernel_keeps_bf16_head_dim_128(cuda):
     gen = torch.Generator(device=cuda).manual_seed(9)
     q, k, v = (torch.randn((4, 512, 128), generator=gen, device=cuda)
                .to(torch.bfloat16) for _ in range(3))
-    counts = (flash_mod.flash_attention.launches,
-              flash_mod.flash_generic.launches)
+    counters = (flash_mod.flash_attention, flash_mod.flash_wgmma,
+                flash_mod.flash_generic)
+    counts = [fn.launches for fn in counters]
     out = flash_mod.flash_attention(q, k, v, causal=True, block_q=32,
                                     block_k=256)
     torch.cuda.synchronize()
-    assert (flash_mod.flash_attention.launches,
-            flash_mod.flash_generic.launches) == (counts[0] + 1, counts[1])
+    assert [fn.launches for fn in counters] == [counts[0] + 1, counts[1],
+                                                counts[2]]
     ref, limit = flash_mod.kernel_error_limit(q, k, v, causal=True)
     assert bool(((out.float() - ref).abs() <= limit).all())
 
@@ -387,20 +454,27 @@ def test_validator_on_four_ranks_runs_the_hand_rings(cuda, tmp_path):
     assert all(fn.launches > b for fn, b in zip(counters, before))
 
 
-def test_ulysses_head_dim_256_goes_through_the_generic_kernel(cuda):
+@pytest.mark.parametrize("d,kernel", [(256, "flash_wgmma"),
+                                      (384, "flash_generic")])
+def test_ulysses_head_dim_256_goes_through_the_generic_kernel(cuda, d,
+                                                              kernel):
+    """Dh = 256 goes through K2w (the tensor-core kernel that replaced the
+    generic one there), Dh = 384 through K2s, once per rank."""
     from tpu_operator_torch.parallel.mesh import MeshPlan, make_mesh
     from tpu_operator_torch.parallel.ring_attention import ulysses_attention
-    n, t, h, d = 4, 256, 8, 256
+    n, t, h = 4, 256, 8
     gen = torch.Generator(device=cuda).manual_seed(14)
     q, k, v = (torch.randn((t, h, d), generator=gen, device=cuda)
                .to(torch.bfloat16) for _ in range(3))
     mesh = make_mesh(n, MeshPlan(data=1, model=n), device=cuda)
-    counts = (flash_mod.flash_attention.launches,
-              flash_mod.flash_generic.launches)
+    counters = {name: getattr(flash_mod, name) for name in
+                ("flash_attention", "flash_wgmma", "flash_generic")}
+    before = {name: fn.launches for name, fn in counters.items()}
     out = torch.cat(ulysses_attention(
         *(list(x.chunk(n)) for x in (q, k, v)), mesh, "model", causal=True))
-    assert (flash_mod.flash_attention.launches,
-            flash_mod.flash_generic.launches) == (counts[0], counts[1] + n)
+    assert {name: fn.launches - before[name]
+            for name, fn in counters.items()} == {
+        name: n if name == kernel else 0 for name in counters}
     ref, limit = flash_mod.kernel_error_limit(
         *(x.permute(1, 0, 2) for x in (q, k, v)), causal=True)
     assert bool(((out.permute(1, 0, 2).float() - ref).abs() <= limit).all())

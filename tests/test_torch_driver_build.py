@@ -5,10 +5,7 @@ and the components that use it, on fixture trees: a root with a stamped fake
 build-skew tests (``tests/test_validator.py``) with the libtpu stamp read as
 the driver version."""
 
-import ctypes
-import ctypes.util
 import os
-import shutil
 
 import pytest
 
@@ -18,6 +15,7 @@ from tpu_operator_torch.validator.components import (DriverComponent,
                                                      ValidationFailed,
                                                      WorkloadComponent)
 from tpu_operator_torch.validator.metrics import NodeMetrics
+from torch_fake_libcuda import libcuda_copies  # noqa: F401 (a fixture)
 
 OLD, NEW = "550.54.15", "560.35.03"
 NVRM = ("NVRM version: NVIDIA UNIX x86_64 Kernel Module  {}  Tue Mar  5 "
@@ -25,27 +23,22 @@ NVRM = ("NVRM version: NVIDIA UNIX x86_64 Kernel Module  {}  Tue Mar  5 "
 LIB_DIR = "usr/lib/x86_64-linux-gnu"
 
 
-def _libc() -> str:
-    src = ctypes.CDLL(ctypes.util.find_library("c"))._name
-    return src if os.path.isabs(src) else "/lib/x86_64-linux-gnu/libc.so.6"
-
-
-def _root(tmp_path, lib: str | None = None, module: str | None = None,
+def _root(libs, tmp_path, lib: str | None = None, module: str | None = None,
           named: bool = False, devices: int = 1):
     """A fixture driver root: ``libcuda.so.1`` stamped with ``lib`` (in its
     bytes, or ``named``: as a link to ``libcuda.so.<lib>``), the kernel
-    module's version file for ``module``, and ``devices`` device nodes."""
+    module's version file for ``module``, and ``devices`` device nodes. The
+    library is a hard link to the test run's one copy for that stamp
+    (``libs``, the ``libcuda_copies`` fixture), so that dlopen maps it
+    once."""
     root = tmp_path / "root"
     libdir = root / LIB_DIR
     libdir.mkdir(parents=True, exist_ok=True)
     if lib is not None:
         target = libdir / (f"libcuda.so.{lib}" if named else "libcuda.so.1")
-        shutil.copy(_libc(), target)
+        libs.link(target, None if named else lib)
         if named:
             os.symlink(target.name, libdir / "libcuda.so.1")
-        else:
-            with open(target, "ab") as f:
-                f.write(b"\0" + lib.encode() + b"\0")
     if module is not None:
         proc = root / "proc/driver/nvidia"
         proc.mkdir(parents=True, exist_ok=True)
@@ -72,8 +65,9 @@ def vdir(tmp_path):
 
 
 @pytest.mark.parametrize("named", [False, True])
-def test_version_read_from_the_name_or_the_bytes(tmp_path, named):
-    root = _root(tmp_path, NEW, named=named)
+def test_version_read_from_the_name_or_the_bytes(libcuda_copies,
+                                                 tmp_path, named):
+    root = _root(libcuda_copies, tmp_path, NEW, named=named)
     lib = str(root / LIB_DIR / "libcuda.so.1")
     assert lb.extract_build(lib) == NEW
     assert lb.build_epoch(lb.extract_build(lib)) == 560035003
@@ -94,10 +88,10 @@ def test_epochs_order_versions_and_parse_the_module_line():
     assert lb.build_epoch(None) is None
 
 
-def test_missing_and_unstamped_libraries_have_no_version(tmp_path):
+def test_missing_and_unstamped_libraries_have_no_version(libcuda_copies,
+                                                         tmp_path):
     assert lb.extract_build(str(tmp_path / "missing")) is None
-    plain = tmp_path / "libcuda.so.1"
-    shutil.copy(_libc(), plain)
+    plain = libcuda_copies.link(tmp_path / "libcuda.so.1")
     assert lb.extract_build(str(plain)) is None
 
 
@@ -108,8 +102,8 @@ def test_stamp_found_across_chunk_boundary(tmp_path, monkeypatch):
     assert lb.extract_build(str(p)) == NEW
 
 
-def test_kernel_module_line_from_an_injectable_root(tmp_path):
-    root = _root(tmp_path, module=OLD)
+def test_kernel_module_line_from_an_injectable_root(libcuda_copies, tmp_path):
+    root = _root(libcuda_copies, tmp_path, module=OLD)
     line = lb.kernel_module_version(str(root))
     assert line.startswith("NVRM version:") and OLD in line
     assert "GCC" not in line
@@ -134,8 +128,9 @@ def test_runtime_build_record_roundtrip_matches_the_reference(tmp_path):
         sorted(os.listdir(tmp_path / "ref")) == []
 
 
-def test_driver_skew_fails_validation_and_consumes_record(tmp_path, vdir):
-    root = _root(tmp_path, NEW)
+def test_driver_skew_fails_validation_and_consumes_record(libcuda_copies,
+                                                          tmp_path, vdir):
+    root = _root(libcuda_copies, tmp_path, NEW)
     lb.record_runtime_build(vdir, NVRM.format(OLD))
     comp = _driver(tmp_path, root, vdir)
     with pytest.raises(ValidationFailed, match="driver version skew"):
@@ -147,12 +142,12 @@ def test_driver_skew_fails_validation_and_consumes_record(tmp_path, vdir):
     assert comp.run()["skew"] is False
 
 
-def test_stale_record_cannot_wedge_recovery(tmp_path, vdir):
+def test_stale_record_cannot_wedge_recovery(libcuda_copies, tmp_path, vdir):
     """Staged NEW library, module ALREADY reloaded onto NEW, record still
     OLD: the driver component fails once (consuming the stale record), then
     passes; workload validation re-records the truth; every later pass stays
     green."""
-    root = _root(tmp_path, NEW, module=NEW)
+    root = _root(libcuda_copies, tmp_path, NEW, module=NEW)
     lb.record_runtime_build(vdir, NVRM.format(OLD))
     comp = _driver(tmp_path, root, vdir)
     with pytest.raises(ValidationFailed, match="version skew"):
@@ -167,8 +162,8 @@ def test_stale_record_cannot_wedge_recovery(tmp_path, vdir):
     assert info["runtime_build_epoch"] == info["client_build_epoch"]
 
 
-def test_no_skew_when_versions_match(tmp_path, vdir):
-    root = _root(tmp_path, OLD, named=True)
+def test_no_skew_when_versions_match(libcuda_copies, tmp_path, vdir):
+    root = _root(libcuda_copies, tmp_path, OLD, named=True)
     lb.record_runtime_build(vdir, NVRM.format(OLD))
     info = _driver(tmp_path, root, vdir).run()
     assert info["skew"] is False and info["build"] == OLD
@@ -176,41 +171,44 @@ def test_no_skew_when_versions_match(tmp_path, vdir):
         == 550054015
 
 
-def test_unknown_runtime_build_passes(tmp_path, vdir):
-    info = _driver(tmp_path, _root(tmp_path, NEW), vdir).run()
+def test_unknown_runtime_build_passes(libcuda_copies, tmp_path, vdir):
+    info = _driver(tmp_path, _root(libcuda_copies, tmp_path, NEW), vdir).run()
     assert info["skew"] is False
     assert info["runtime_build_epoch"] is None
     assert info["client_build_epoch"] == 560035003
 
 
-def test_workload_records_runtime_build_and_detects_skew(tmp_path, vdir):
+def test_workload_records_runtime_build_and_detects_skew(libcuda_copies,
+                                                         tmp_path, vdir):
     """After the probes, the workload component records the loaded module's
     version for the other consumers and fails on skew against the staged
     library; the record stays, for the metrics agent's gauge."""
-    root = _root(tmp_path, NEW, module=OLD)
+    root = _root(libcuda_copies, tmp_path, NEW, module=OLD)
     wl = WorkloadComponent(device="cpu", driver_root=str(root),
                            validations_dir=vdir)
     with pytest.raises(ValidationFailed, match="driver version skew"):
         wl._record_runtime_build()
     assert lb.build_epoch(lb.read_runtime_build(vdir)) == 550054015
-    _root(tmp_path, module=NEW)          # the module reloaded onto NEW
+    _root(libcuda_copies, tmp_path, module=NEW)   # the module reloaded
     wl._record_runtime_build()
     assert lb.build_epoch(lb.read_runtime_build(vdir)) == 560035003
 
 
-def test_workload_without_a_kernel_module_records_nothing(tmp_path, vdir):
-    root = _root(tmp_path, NEW)
+def test_workload_without_a_kernel_module_records_nothing(libcuda_copies,
+                                                          tmp_path, vdir):
+    root = _root(libcuda_copies, tmp_path, NEW)
     WorkloadComponent(device="cpu", driver_root=str(root),
                       validations_dir=vdir)._record_runtime_build()
     assert lb.read_runtime_build(vdir) is None
 
 
-def test_revalidation_skew_gauge_persists_until_recovery(tmp_path, vdir,
+def test_revalidation_skew_gauge_persists_until_recovery(libcuda_copies,
+                                                         tmp_path, vdir,
                                                          monkeypatch):
     """The metrics agent is an OBSERVER: the skew gauge reads 1 poll after
     poll while the record survives, and 0 once workload validation
     re-records the reloaded module."""
-    root = _root(tmp_path, NEW)
+    root = _root(libcuda_copies, tmp_path, NEW)
     monkeypatch.setenv("NVIDIA_DRIVER_ROOT", str(root))
     monkeypatch.setenv("GPU_DEVICE_GLOB", str(tmp_path / "dev/nvidia[0-9]*"))
     lb.record_runtime_build(vdir, NVRM.format(OLD))
@@ -239,3 +237,21 @@ def test_revalidation_failure_retracts_status_file(tmp_path, vdir,
     assert nm.revalidation.get() == 0
     assert nm.driver_skew.get() == -1
     assert not os.path.exists(os.path.join(vdir, "driver-ready"))
+
+
+def test_forty_fixture_roots_validate_in_one_process(libcuda_copies,
+                                                     tmp_path, vdir):
+    """Forty driver roots, each validated in turn in this process (which
+    has imported torch and jax): the fake libraries are links to one copy
+    per stamp, so dlopen maps each stamp once. A fresh libc copy per root
+    ran out of static TLS at about the eleventh."""
+    import jax  # noqa: F401 (the interpreter the suite runs in)
+    import torch  # noqa: F401
+    for i in range(40):
+        lib = (OLD, NEW)[i % 2]
+        base = tmp_path / f"node{i}"
+        base.mkdir()
+        root = _root(libcuda_copies, base, lib, named=i % 4 == 3)
+        info = _driver(base, root, vdir).validate()
+        assert info["build"] == lib and info["skew"] is False, i
+

@@ -24,7 +24,8 @@ QKV = [_rng.standard_normal((T, D), dtype=np.float32) for _ in range(3)]
 QKV_HEADS = [_rng.standard_normal((H, T, D), dtype=np.float32)
              for _ in range(3)]
 DTYPES = {"float32": (jnp.float32, torch.float32),
-          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+          "bfloat16": (jnp.bfloat16, torch.bfloat16),
+          "float16": (jnp.float16, torch.float16)}
 
 
 def _both(arrays, dtype):
@@ -96,6 +97,38 @@ def test_kernel_error_limit_rejects_planted_faults(causal):
                        limit) <= 1.0
     for name, bad in k2_faults(q, k, v, ref, causal).items():
         assert limit_ratio(bad, ref, limit) > 1.0, name
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_kernel_error_limit_holds_for_the_reference_kernel_in_f16(causal):
+    """As in bf16, at f16's unit roundoff: the reference's kernel rounds P
+    to f16 before P·V and its output once."""
+    (jq, jk, jv), (q, k, v) = _both(QKV, "float16")
+    got = jax_flash(jq, jk, jv, causal=causal, block_q=port.BLOCK,
+                    block_k=port.BLOCK, interpret=True)
+    ref, limit = port.kernel_error_limit(q, k, v, causal=causal)
+    got = torch.from_numpy(np.asarray(got, np.float32))
+    assert limit_ratio(got, ref, limit) <= 1.0
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_kernel_error_limit_rejects_planted_faults_in_f16(causal):
+    _, (q, k, v) = _both(QKV, "float16")
+    ref, limit = port.kernel_error_limit(q, k, v, causal=causal)
+    assert limit_ratio(port.attention_plain(q, k, v, causal=causal), ref,
+                       limit) <= 1.0
+    for name, bad in k2_faults(q, k, v, ref, causal).items():
+        assert limit_ratio(bad, ref, limit) > 1.0, name
+
+
+def test_kernel_error_limit_is_for_16_bit_inputs():
+    """f16's limit is eight times tighter than bf16's; f32 has none (its
+    kernels are held to the attention tolerance)."""
+    assert port.unit_roundoff(torch.bfloat16) == 2.0 ** -8
+    assert port.unit_roundoff(torch.float16) == 2.0 ** -11
+    _, (q, k, v) = _both(QKV, "float32")
+    with pytest.raises(ValueError, match="16-bit"):
+        port.kernel_error_limit(q, k, v)
 
 
 def test_heads_are_a_grid_axis():

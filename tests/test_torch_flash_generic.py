@@ -1,9 +1,9 @@
-"""Flash attention's inputs beyond the wgmma kernel's: f32, f16 and head
-dims up to 256 through the port's ``flash_attention`` (on the CPU, its plain
-version) against the reference's Pallas kernel in interpret mode on the same
-numpy inputs; which CUDA inputs go to K2 and which to K2g; what still
-raises; and Ulysses at Dh = 256, which now takes the flash route as the
-reference does."""
+"""Flash attention's inputs beyond K2's: f32, f16 and head dims up to 512
+through the port's ``flash_attention`` (on the CPU, its plain version)
+against the reference's Pallas kernel in interpret mode on the same numpy
+inputs; which CUDA inputs go to K2, which to K2w and which to K2s; what
+still raises; and Ulysses at Dh = 256, 384 and 512, which take the flash
+route as the reference does."""
 
 import jax
 import jax.numpy as jnp
@@ -42,6 +42,9 @@ def _inputs(shape, dtype, seed):
     ("float32", 128, 256, (64, 64)),
     ("bfloat16", 128, 256, (32, 128)),
     ("float16", 96, 96, (32, 96)),
+    ("float32", 128, 384, (64, 64)),
+    ("bfloat16", 64, 512, (64, 32)),
+    ("float16", 64, 40, (32, 64)),
 ])
 def test_port_matches_the_pallas_kernel(dtype, t, d, blocks, causal):
     (jq, jk, jv), (q, k, v) = _inputs((t, d), dtype, seed=t + d)
@@ -54,9 +57,13 @@ def test_port_matches_the_pallas_kernel(dtype, t, d, blocks, causal):
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want, np.float32), rtol=tol,
                                atol=tol)
-    # K2g's wrapper computes the same on the CPU
+    # K2s's wrapper, and K2w's where it takes the input, compute the same
+    # on the CPU
     torch.testing.assert_close(port.flash_generic(q, k, v, causal=causal),
                                got, rtol=0, atol=0)
+    if port.kernel_for(q.dtype, d, t) == "K2w":
+        torch.testing.assert_close(port.flash_wgmma(q, k, v, causal=causal),
+                                   got, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("dtype,t,d,wgmma", [
@@ -69,25 +76,72 @@ def test_port_matches_the_pallas_kernel(dtype, t, d, blocks, causal):
     (torch.float32, 128, 128, False),
 ])
 def test_routing_between_the_two_kernels(dtype, t, d, wgmma):
-    q = torch.empty((2, t, d), dtype=dtype, device="meta")
-    assert port.takes_wgmma(q) is wgmma
+    assert (port.kernel_for(dtype, d, t) == "K2") is wgmma
+
+
+@pytest.mark.parametrize("dtype,d,t,kernel", [
+    (torch.bfloat16, 128, 4096, "K2"),
+    (torch.bfloat16, 128, 64, "K2"),
+    (torch.bfloat16, 128, 200, "K2w"),      # T not a multiple of 64
+    (torch.float16, 128, 4096, "K2w"),
+    (torch.bfloat16, 256, 4096, "K2w"),
+    (torch.bfloat16, 64, 4096, "K2w"),
+    (torch.float16, 96, 96, "K2w"),
+    (torch.bfloat16, 8, 1, "K2w"),
+    (torch.float16, 100, 256, "K2s"),       # D % 8 != 0: no TMA row stride
+    (torch.bfloat16, 3, 256, "K2s"),
+    (torch.bfloat16, 384, 4096, "K2s"),     # past wgmma's widest bucket
+    (torch.float16, 512, 1024, "K2s"),
+    (torch.float32, 128, 4096, "K2s"),
+    (torch.float32, 512, 96, "K2s"),
+    (torch.float32, 5, 7, "K2s"),
+])
+def test_kernel_for_routes_each_input(dtype, d, t, kernel):
+    assert port.kernel_for(dtype, d, t) == kernel
+
+
+@pytest.mark.parametrize("d,bucket", [(1, 64), (64, 64), (96, 128),
+                                      (128, 128), (200, 256), (256, 256),
+                                      (264, 384), (384, 384), (385, 512),
+                                      (512, 512)])
+def test_head_dim_buckets(d, bucket):
+    assert port.head_bucket(d) == bucket
+    if d <= port.WGMMA_MAX_HEAD_DIM:
+        assert port.head_bucket(d, port.WGMMA_MAX_HEAD_DIM) == bucket
+    else:
+        with pytest.raises(ValueError, match="above 256"):
+            port.head_bucket(d, port.WGMMA_MAX_HEAD_DIM)
 
 
 @pytest.mark.parametrize("dtype,d,match", [
-    (torch.float32, 320, "head dim at most 256, got 320"),
-    (torch.bfloat16, 512, "head dim at most 256"),
+    (torch.float32, 640, "head dim at most 512, got 640"),
+    (torch.bfloat16, 520, "head dim at most 512"),
     (torch.float64, 64, "take float32, float16 and bfloat16"),
     (torch.int8, 64, "take float32, float16 and bfloat16"),
     (torch.float32, 256, "unsupported device"),
 ])
 def test_what_the_kernels_refuse_raises(dtype, d, match):
-    """Off the CPU, only a dtype outside f32/f16/bf16 or D > 256 is refused
+    """Off the CPU, only a dtype outside f32/f16/bf16 or D > 512 is refused
     for what it is; a meta tensor, which no kernel takes, is refused for its
     device."""
     x = torch.empty((64, d), dtype=dtype, device="meta")
     for fn in (port.flash_attention, port.flash_generic):
         with pytest.raises(ValueError, match=match):
             fn(x, x, x)
+
+
+@pytest.mark.parametrize("dtype,d,match", [
+    (torch.float32, 128, "K2w takes float16 and bfloat16"),
+    (torch.float16, 100, "multiple of 8 and at most 256, got 100"),
+    (torch.bfloat16, 384, "multiple of 8 and at most 256, got 384"),
+])
+def test_what_k2w_refuses_raises(dtype, d, match):
+    """K2w's own wrapper refuses, on any device, what its tensor maps and
+    wgmma shapes cannot take; ``flash_attention`` sends those to K2s."""
+    for device in ("cpu", "meta"):
+        x = torch.zeros((64, d), dtype=dtype, device=device)
+        with pytest.raises(ValueError, match=match):
+            port.flash_wgmma(x, x, x)
 
 
 def test_mixed_inputs_are_refused():
@@ -107,12 +161,13 @@ def test_blocks_are_checked_as_the_reference_checks_them():
 
 
 def test_cpu_calls_launch_no_kernel():
-    before = (port.flash_attention.launches, port.flash_generic.launches)
+    counters = (port.flash_attention, port.flash_wgmma, port.flash_generic)
+    before = [fn.launches for fn in counters]
     x = torch.ones((2, 96, 256), dtype=torch.float16)
     port.flash_generic(x, x, x, causal=True)
+    port.flash_wgmma(x, x, x, causal=True)
     port.flash_attention(x, x, x, block_q=32, block_k=32)
-    assert (port.flash_attention.launches,
-            port.flash_generic.launches) == before
+    assert [fn.launches for fn in counters] == before
 
 
 def _line_mesh(n):
@@ -125,10 +180,8 @@ def _ulysses_port(q, k, v, n, causal):
                                        causal=causal))
 
 
-@pytest.mark.parametrize("causal", [False, True])
-def test_ulysses_head_dim_256_takes_flash_as_the_reference(causal,
-                                                           monkeypatch):
-    n, t, h, dh = 2, 64, 4, 256
+def _ulysses_takes_flash(dh, causal, monkeypatch):
+    n, t, h = 2, 64, 4
     q, k, v = np.random.default_rng(23 + causal).standard_normal(
         (3, t, h, dh), dtype=np.float32)
     jmesh = JaxMesh(np.array(jax.devices()[:n]), ("model",))
@@ -149,10 +202,25 @@ def test_ulysses_head_dim_256_takes_flash_as_the_reference(causal,
     np.testing.assert_allclose(got.numpy(), want, rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("causal", [False, True])
+def test_ulysses_head_dim_256_takes_flash_as_the_reference(causal,
+                                                           monkeypatch):
+    _ulysses_takes_flash(256, causal, monkeypatch)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dh", [384, 512])
+def test_ulysses_wide_heads_take_flash_as_the_reference(dh, causal,
+                                                        monkeypatch):
+    """Dh = 384 and 512: multiples of 128 that only K2s takes on the card;
+    the reference takes its flash kernel for them too."""
+    _ulysses_takes_flash(dh, causal, monkeypatch)
+
+
 def test_ulysses_past_the_widest_kernel_head_runs_dense(monkeypatch):
     def refuse(*a, **kw):
         raise AssertionError("flash path taken")
     monkeypatch.setattr(port, "flash_attention", refuse)
-    q, k, v = np.random.default_rng(4).standard_normal((3, 16, 2, 384),
+    q, k, v = np.random.default_rng(4).standard_normal((3, 16, 2, 640),
                                                        dtype=np.float32)
-    assert _ulysses_port(q, k, v, 2, True).shape == (16, 2, 384)
+    assert _ulysses_port(q, k, v, 2, True).shape == (16, 2, 640)

@@ -138,3 +138,101 @@ def test_one_unit_per_q_tile_is_the_unsplit_online_softmax():
     torch.testing.assert_close(
         port.flash_split_plain(q, k, v, True, T // port.BLOCK),
         _merged(whole, port.combine_partials).reshape(q.shape))
+
+
+# -- the schedule at any T, any D and both 16-bit types (K2w, K2s) ----------
+
+GRID_DTYPES = {"bfloat16": (jnp.bfloat16, torch.bfloat16),
+               "float16": (jnp.float16, torch.float16)}
+
+
+@functools.lru_cache(maxsize=None)
+def _grid_case(dtype, d, t, causal):
+    """Three heads of numpy inputs, and the reference's Pallas kernel on
+    them in interpret mode, in ``dtype``, with blocks that divide T."""
+    rng = np.random.default_rng(d * 7 + t)
+    arrays = [rng.standard_normal((3, t, d), dtype=np.float32)
+              for _ in range(3)]
+    jdt, _ = GRID_DTYPES[dtype]
+    block = min(t, 256)
+
+    def one(a, b, c):
+        return jax_flash(a, b, c, causal=causal, block_q=block,
+                         block_k=block, interpret=True)
+    want = jax.vmap(one)(*(jnp.asarray(a, jdt) for a in arrays))
+    return arrays, np.asarray(want, np.float32)
+
+
+@pytest.mark.parametrize("heads", [1, 3])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("t", [96, 200, 1024])
+@pytest.mark.parametrize("d", [64, 96, 256])
+@pytest.mark.parametrize("dtype", sorted(GRID_DTYPES))
+def test_split_plain_at_any_shape_matches_the_reference(dtype, d, t, causal,
+                                                        heads):
+    """The schedule's plain twin at T that 64 does not divide (96, 200), D
+    off the buckets (96) and both 16-bit types, in units of 3 kv tiles:
+    within the per-element limit of the f32 oracle and the attention
+    tolerance of the reference's kernel."""
+    arrays, want = _grid_case(dtype, d, t, causal)
+    q, k, v = (torch.from_numpy(a[:heads]).to(GRID_DTYPES[dtype][1])
+               for a in arrays)
+    want = want[:heads]
+    if heads == 1:
+        q, k, v, want = q[0], k[0], v[0], want[0]
+    got = port.flash_split_plain(q, k, v, causal, split=3)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    ref, limit = port.kernel_error_limit(q, k, v, causal=causal)
+    assert limit_ratio(got, ref, limit) <= 1.0
+    tol = attention_tolerance(q.dtype, d)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("t", [200, 1024])
+def test_split_plain_in_steps_of_32_keys(t, causal):
+    """K2w's schedule at DP = 256 with kv steps of 32 keys (two a 64-key
+    tile): the same limit and tolerance."""
+    arrays, want = _grid_case("bfloat16", 256, t, causal)
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in arrays)
+    got = port.flash_split_plain(q, k, v, causal, split=3, block_k=32)
+    ref, limit = port.kernel_error_limit(q, k, v, causal=causal)
+    assert limit_ratio(got, ref, limit) <= 1.0
+    tol = attention_tolerance(q.dtype, 256)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=tol, atol=tol)
+    with pytest.raises(ValueError, match="block_k"):
+        port.split_partials(q, k, v, causal, 3, block_k=48)
+
+
+@pytest.mark.parametrize("split", [1, 3, 8])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("heads,t", [(1, 1), (1, 96), (2, 200), (3, 1000)])
+def test_work_list_at_ragged_t_covers_each_tile_pair_once(heads, t, causal,
+                                                          split):
+    """At T that 64 does not divide the last q and kv tiles are short:
+    ⌈T/64⌉ of each, every (q tile, kv tile) pair once, longest first."""
+    units, merges = port.work_list(heads, t, causal, split)
+    nq = -(-t // port.BLOCK)
+    covered = collections.Counter(
+        (row, j) for row, j0, j1, _ in units for j in range(j0, j1))
+    assert set(covered.values()) == {1}
+    assert set(covered) == {(row, j) for row in range(heads * nq)
+                            for j in range(row % nq + 1 if causal else nq)}
+    lengths = [j1 - j0 for _, j0, j1, _ in units]
+    assert lengths == sorted(lengths, reverse=True)
+    assert max(lengths) == min(split, nq)
+    assert sum(count for *_, count in merges) == \
+        sum(1 for *_, slot in units if slot >= 0)
+
+
+@pytest.mark.parametrize("merge", [_drop_a_unit, _skip_the_rescale])
+def test_a_wrong_merge_is_rejected_at_a_ragged_f16_shape(merge):
+    """The limit at f16's unit roundoff still rejects a merge that drops a
+    unit or skips the rescale, at T = 200, D = 96."""
+    arrays, _ = _grid_case("float16", 96, 200, True)
+    q, k, v = (torch.from_numpy(a[0]).to(torch.float16) for a in arrays)
+    ref, limit = port.kernel_error_limit(q, k, v, causal=True)
+    parts = port.split_partials(q, k, v, True, 1)
+    merged = torch.cat([merge(parts[row]) for row in range(len(parts))],
+                       dim=-2).to(torch.float16)
+    assert limit_ratio(merged, ref, limit) > 1.0

@@ -171,9 +171,34 @@ def test_build_compiles_each_source_and_links_one_library(monkeypatch,
     monkeypatch.setattr(_native, "nvcc", lambda: _fake_nvcc(tmp_path))
     target = _native.build()
     assert target == _native.library_path() and target.exists()
-    # the objects' directory is gone; only the library stays
-    assert list((tmp_path / "build").iterdir()) == [target]
+    # the objects' directory is gone; only the library and its build log
+    # (the compilers' output) stay
+    assert sorted((tmp_path / "build").iterdir()) == sorted(
+        [target, _native.log_path()])
     assert _native.build() == target      # reused, not rebuilt
+
+
+def test_build_log_gives_each_kernels_registers_and_spills(monkeypatch,
+                                                           tmp_path):
+    """ptxas's report (``-Xptxas -v`` on each compile) lands in the build
+    log; ``kernel_resources`` reads each kernel's registers and spills."""
+    from tpu_operator_torch import _native
+    monkeypatch.setattr(_native, "BUILD_DIR", tmp_path / "build")
+    script = _fake_nvcc(tmp_path)
+    report = (
+        "ptxas info    : Compiling entry function '_Z4fooPf' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _Z4fooPf\n"
+        "    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill "
+        "loads\n"
+        "ptxas info    : Used 255 registers, used 1 barriers\n")
+    text = script.read_text().replace(
+        "#!/bin/sh\n", "#!/bin/sh\n"
+        + f'case "$*" in *-Xptxas*) printf "{report}";; esac\n')
+    script.write_text(text)
+    monkeypatch.setattr(_native, "nvcc", lambda: script)
+    _native.build()
+    assert "Compiling entry function" in _native.log_path().read_text()
+    assert _native.kernel_resources() == {"_Z4fooPf": (255, 12)}
 
 
 def test_build_names_the_source_nvcc_refused(monkeypatch, tmp_path):

@@ -7,7 +7,6 @@ devices passed in, the workload on an explicit CPU."""
 
 import json
 import os
-import shutil
 import socket
 import subprocess
 import sys
@@ -28,6 +27,7 @@ from tpu_operator_torch.validator.components import (
     GateComponent, PluginComponent, ValidationFailed, WorkloadComponent,
     build_component)
 from tpu_operator_torch.validator.metrics import NodeMetrics
+from torch_fake_libcuda import libcuda_copies  # noqa: F401 (a fixture)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPUS = ["cpu"] * 8
@@ -46,20 +46,14 @@ def _clean_env(monkeypatch):
         monkeypatch.delenv(name, raising=False)
 
 
-def _libc() -> str:
-    import ctypes
-    import ctypes.util
-    src = ctypes.CDLL(ctypes.util.find_library("c"))._name
-    return src if os.path.isabs(src) else "/lib/x86_64-linux-gnu/libc.so.6"
-
-
-def _driver_tree(tmp_path, loadable=True):
-    """A driver root with a ``libcuda.so.1`` (libc when ``loadable``, else
-    not an ELF file) and one device node."""
+def _driver_tree(libs, tmp_path, loadable=True):
+    """A driver root with a ``libcuda.so.1`` (when ``loadable``, a hard link
+    to the test run's one plain libc copy, ``libs``: the ``libcuda_copies``
+    fixture; else not an ELF file) and one device node."""
     libdir = tmp_path / "root/usr/lib64"
     libdir.mkdir(parents=True)
     if loadable:
-        shutil.copy(_libc(), libdir / "libcuda.so.1")
+        libs.link(libdir / "libcuda.so.1")
     else:
         (libdir / "libcuda.so.1").write_text("not an elf")
     (tmp_path / "nvidia0").touch()
@@ -78,8 +72,10 @@ def test_driver_missing_library(vdir, tmp_path):
     assert not os.path.exists(comp.status_path())
 
 
-def test_driver_happy_path_with_real_shared_object(vdir, tmp_path):
-    comp = DriverComponent(validations_dir=vdir, **_driver_tree(tmp_path))
+def test_driver_happy_path_with_real_shared_object(vdir, tmp_path,
+                                                   libcuda_copies):
+    comp = DriverComponent(validations_dir=vdir,
+                           **_driver_tree(libcuda_copies, tmp_path))
     info = comp.run()
     assert info["devices"] == [str(tmp_path / "nvidia0")]
     assert info["library"].endswith("usr/lib64/libcuda.so.1")
@@ -87,15 +83,16 @@ def test_driver_happy_path_with_real_shared_object(vdir, tmp_path):
     assert st["ok"] and st["component"] == "driver"
 
 
-def test_driver_unloadable_library(vdir, tmp_path):
+def test_driver_unloadable_library(vdir, tmp_path, libcuda_copies):
     comp = DriverComponent(validations_dir=vdir,
-                           **_driver_tree(tmp_path, loadable=False))
+                           **_driver_tree(libcuda_copies, tmp_path,
+                                          loadable=False))
     with pytest.raises(ValidationFailed, match="dlopen failed"):
         comp.run()
 
 
-def test_driver_without_device_nodes(vdir, tmp_path):
-    tree = _driver_tree(tmp_path)
+def test_driver_without_device_nodes(vdir, tmp_path, libcuda_copies):
+    tree = _driver_tree(libcuda_copies, tmp_path)
     os.unlink(tmp_path / "nvidia0")
     with pytest.raises(ValidationFailed, match="no GPU device nodes"):
         DriverComponent(validations_dir=vdir, **tree).run()
@@ -592,12 +589,13 @@ def test_cli_defaults_to_the_card(vdir, capsys, monkeypatch):
 
 
 def test_cli_all_on_the_cpu_against_fixture_trees(vdir, tmp_path, capsys,
-                                                  monkeypatch):
+                                                  monkeypatch,
+                                                  libcuda_copies):
     """``--component all`` runs every component but the gate, in order,
     against a fixture driver tree and CDI directory and a fake cluster
     standing in for the in-cluster client; then the gate passes on their
     status files."""
-    tree = _driver_tree(tmp_path)
+    tree = _driver_tree(libcuda_copies, tmp_path)
     monkeypatch.setenv("NVIDIA_DRIVER_ROOT", tree["driver_root"])
     monkeypatch.setenv("GPU_DEVICE_GLOB", tree["device_glob"])
     (tmp_path / "cdi").mkdir()

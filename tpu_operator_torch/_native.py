@@ -22,6 +22,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import subprocess
 import tempfile
 import threading
@@ -32,6 +33,9 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
+# compiling only: ptxas reports each kernel's registers and spills, kept in
+# the build log beside the library
+COMPILE_FLAGS = ("-Xptxas", "-v")
 
 _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_float)
@@ -41,7 +45,10 @@ _SIGNATURES = {
     "hbm_read_sum": (_P, _LL, _I, _P, _I, _P, _P),
     "flash_fwd_bf16": (_P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _F,
                        _I, _P),
-    "flash_fwd_generic": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
+    "flash_fwd_wgmma": (_P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I,
+                        _I, _I, _F, _I, _P),
+    "flash_fwd_generic": (_P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I,
+                          _I, _F, _I, _P),
     "ring_all_gather_f32": (_P, _I, _LL, _I, _LL, _LL, _P),
     "ring_reduce_scatter_f32": (_P, _I, _LL, _I, _LL, _LL, _P),
     "ring_all_reduce_f32": (_P, _I, _LL, _I, _LL, _LL, _P),
@@ -62,7 +69,7 @@ def sources() -> list[Path]:
 
 
 def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + COMPILE_FLAGS).encode())
     for path in sorted(CSRC_DIR.iterdir()):
         h.update(path.name.encode())
         h.update(path.read_bytes())
@@ -86,9 +93,14 @@ def library_path() -> Path:
     return BUILD_DIR / f"libtpu_operator_torch_{_digest()}.so"
 
 
+def log_path() -> Path:
+    return library_path().with_suffix(".log")
+
+
 def build() -> Path:
     """Compile every source into the shared library unless it exists: one
-    nvcc per source, all started together, then one link."""
+    nvcc per source, all started together, then one link. The compilers'
+    output (ptxas's report on every kernel) goes to :func:`log_path`."""
     target = library_path()
     if target.exists():
         return target
@@ -99,7 +111,8 @@ def build() -> Path:
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
         objects = [os.path.join(work, f"{src.stem}.o") for src in srcs]
         procs = [subprocess.Popen(
-            [compiler, *NVCC_FLAGS, "-c", str(src), "-o", obj],
+            [compiler, *NVCC_FLAGS, *COMPILE_FLAGS, "-c", str(src), "-o",
+             obj],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             for src, obj in zip(srcs, objects)]
         logs = [proc.communicate()[0] for proc in procs]
@@ -107,14 +120,37 @@ def build() -> Path:
                   in zip(srcs, procs, logs) if proc.returncode]
         if failed:
             raise BuildError("nvcc failed on " + "\n".join(failed))
+        log = os.path.join(work, log_path().name)
+        with open(log, "w") as f:
+            f.write("".join(f"== {src.name}\n{text}"
+                            for src, text in zip(srcs, logs)))
         linked = os.path.join(work, target.name)
         link = subprocess.run(
             [compiler, *NVCC_FLAGS, "-shared", "-o", linked, *objects],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         if link.returncode:
             raise BuildError(f"nvcc failed to link:\n{link.stdout}")
+        os.replace(log, log_path())
         os.replace(linked, target)
     return target
+
+
+def kernel_resources() -> dict[str, tuple[int, int]]:
+    """Each kernel's registers a thread and spilled bytes (stores plus
+    loads), by mangled name, from ptxas's report in the build log."""
+    out, name = {}, None
+    for line in log_path().read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            out.setdefault(name, [0, 0])[1] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.setdefault(name, [0, 0])[0] = int(m.group(1))
+    return {k: tuple(v) for k, v in out.items()}
 
 
 def library() -> ctypes.CDLL:
