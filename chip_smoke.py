@@ -37,6 +37,12 @@ rank, Dh = 256, where K2w must, and Dh = 384, where K2s must; the result is
 held to the per-element limit against the single-device computation; at
 Dh = 384 it is also timed beside the same call with each rank's attention
 dense (``attention_plain``), outside the counted run. The build phase prints ptxas's registers and spills for every flash kernel.
+Last, the node health monitor's CLI runs once as its DaemonSet would, on
+the machine's ``/dev`` and NVML with the HBM sweep on K1 at 256 MiB, and
+must publish the node healthy; then each probe is called directly
+(presence, NVLink and error counters through NVML, the HBM sweep at 8 and
+256 MiB), each card NVML sees must have its device node, and the device
+scan and feature discovery's labels are printed.
 
 Output: progress lines, then the ``nvidia-smi`` name and power limit, then
 one JSON line with every kernel's launches on the main path, error, times
@@ -1049,6 +1055,123 @@ def phase_ulysses_dense() -> None:
               f"a rank) {times['dense']:.3f} ms a call")
 
 
+HEALTH_NODE = "gpu-node-0"
+HEALTH_SIZES_MB = (8, 256)   # the probe's default (in L2) and K1's array
+
+
+def phase_health_monitor() -> None:
+    """The node health monitor's CLI as its DaemonSet runs it, once, on
+    this machine's ``/dev`` and NVML, with the HBM sweep on K1 at 256 MiB,
+    against a fake cluster file: the node must come out healthy, its
+    condition ``"True"`` and the health file empty."""
+    import contextlib
+    import io
+    from tpu_operator_torch.cli.health_monitor import main as monitor
+    from tpu_operator_torch.health.monitor import NODE_CONDITION_TYPE
+    from tpu_operator_torch.kube.fake import FileBackedFakeClient
+    from tpu_operator_torch.ops import hbm
+    with tempfile.TemporaryDirectory() as tmp:
+        state = os.path.join(tmp, "state.json")
+        health_file = os.path.join(tmp, "gpu-health")
+        FileBackedFakeClient(state).add_node(HEALTH_NODE, {})
+        out = io.StringIO()
+        before = hbm.read_sum.launches
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = monitor(["--client", f"fake:{state}",
+                          "--node-name", HEALTH_NODE, "--once",
+                          "--hbm-sweep", "--hbm-sweep-config",
+                          '{"enable": true, "sizeMb": 256}',
+                          "--health-file", health_file])
+        wall = time.perf_counter() - t0
+        launched = hbm.read_sum.launches - before
+        line = out.getvalue().strip().splitlines()[-1]
+        print(f"[health] --once: {line} (rc {rc}; {wall:.3f} s on the host "
+              f"clock; K1 launched {launched} times)")
+        check(launched > 0, "the monitor's HBM sweep never launched K1")
+        report = json.loads(line)
+        check(rc == 0 and report["healthy"] is True,
+              f"health monitor --once: rc {rc}, {report}")
+        node = FileBackedFakeClient(state).get("Node", HEALTH_NODE)
+        conds = [c for c in node.get("status", "conditions", default=[])
+                 if c["type"] == NODE_CONDITION_TYPE]
+        check(len(conds) == 1 and conds[0]["status"] == "True",
+              f"node condition {conds}")
+        with open(health_file) as f:
+            check(f.read() == "", "health file not empty")
+
+
+def phase_health_probes() -> None:
+    """Each probe called directly, so that a probe that crashes cannot
+    pass as "unknown" the way the monitor treats it: presence must report
+    a healthy GPU, NVML must load and see a card whose device node is
+    there, the HBM sweep must give one healthy result at 8 and at 256 MiB;
+    then the device scan and feature discovery's labels."""
+    from tpu_operator_torch.deviceplugin.discovery import GpuDiscovery
+    from tpu_operator_torch.health.probes import (CounterThresholdProbe,
+                                                  DevicePresenceProbe,
+                                                  HbmSweepProbe, NvLinkProbe)
+    from tpu_operator_torch.kube.fake import FakeClient
+    from tpu_operator_torch.ops.hbm import hbm_read_gbps
+    from tpu_operator_torch.operands.feature_discovery import (
+        PREFIX, FeatureDiscovery)
+    from tpu_operator_torch.utils.nvml import COUNTERS, NvmlSource
+    nodes = GpuDiscovery().scan()
+    opens = {}
+    for d in nodes:      # the scan reads permission bits; try the open
+        try:
+            os.close(os.open(d.path, os.O_RDWR))
+            opens[d.id] = "opens"
+        except OSError as e:
+            opens[d.id] = f"open fails: {e.strerror}"
+    print(f"[health] GpuDiscovery().scan(): {nodes}; {opens}")
+    presence = DevicePresenceProbe().run()
+    print(f"[health] device-presence: {presence}")
+    check(any(r.healthy and r.gpu_index is not None for r in presence),
+          "presence probe reports no healthy GPU")
+    source = NvmlSource()
+    check(source.library() is not None, "libnvidia-ml.so.1 does not load")
+    t0 = time.perf_counter()
+    attrs = source.attributes()
+    secs = time.perf_counter() - t0
+    print(f"[health] NVML driver {source.driver_version()}: {len(attrs)} "
+          f"device(s) in {secs:.3f} s, device nodes {len(nodes)} "
+          f"(NVIDIA_VISIBLE_DEVICES={os.environ.get('NVIDIA_VISIBLE_DEVICES')}"
+          f"): {json.dumps(attrs)}")
+    # NVML sees the cards this container may use; /dev may hold more
+    # nodes than that. Each card NVML sees must have its node, under its
+    # minor number, healthy to the presence probe, and torch's card must
+    # be one of them.
+    healthy = {r.gpu_index for r in presence if r.healthy}
+    check(attrs and set(attrs) <= healthy,
+          f"NVML's cards {sorted(attrs)}, healthy device nodes "
+          f"{sorted(healthy)}")
+    check(torch.cuda.get_device_name(0) in
+          {a["name"] for a in attrs.values()},
+          f"NVML does not name {torch.cuda.get_device_name(0)}")
+    print(f"[health] nvlink: {NvLinkProbe(source).run()}")
+    counters = CounterThresholdProbe({c: 0 for c in COUNTERS}, source)
+    print(f"[health] counter-threshold (all at 0): {counters.run()}")
+    for size in HEALTH_SIZES_MB:
+        results = HbmSweepProbe(size_mb=size).run()
+        check(len(results) == 1 and results[0].healthy,
+              f"hbm-sweep at {size} MiB: {results}")
+        # the probe's own measurement three more times, unrounded
+        rates = [hbm_read_gbps(size_mb=size, sweeps=2, iters=2).read_gbps
+                 for _ in range(3)]
+        print(f"[health] hbm-sweep {size} MiB: {results[0].detail}; "
+              f"hbm_read_gbps(sweeps=2, iters=2) x3: {rates} GB/s")
+    client = FakeClient()
+    client.add_node(HEALTH_NODE, {})
+    labels = FeatureDiscovery(client, HEALTH_NODE).apply_once()
+    print(f"[health] feature discovery: {json.dumps(labels)}")
+    check(labels.get(PREFIX + "gpu.present") == "true"
+          and labels.get(PREFIX + "gpu.count") == str(len(nodes))
+          and labels.get(PREFIX + "cuda.driver") == "true"
+          and PREFIX + "gpu.product" in labels,
+          f"feature discovery labels {labels}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1081,6 +1204,8 @@ def main() -> int:
          {"flash_fwd": flash_mod.flash_attention,
           "flash_fwd_wgmma": flash_mod.flash_wgmma,
           "flash_fwd_generic": flash_mod.flash_generic}),
+        ("health monitor", (phase_health_monitor, phase_health_probes),
+         {"hbm_read": hbm_mod.read_sum}),
     )
     # a kernel's launches: the sum over the paths that must reach it
     launches = {entry_["name"]: 0 for entry_ in kernels}

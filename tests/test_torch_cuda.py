@@ -508,3 +508,44 @@ def test_cli_components_pass_on_the_machine(cuda, tmp_path, capsys,
         assert line["info"]["nvlink"] == (
             "skipped (single device)" if n == 1
             else f"ring round-trip ok over {n} devices")
+
+
+@pytest.mark.parametrize("size_mb", [8, 256])
+def test_hbm_sweep_probe_launches_the_read_kernel(cuda, size_mb):
+    from tpu_operator_torch.health.probes import HbmSweepProbe
+    before = hbm.read_sum.launches
+    results = HbmSweepProbe(size_mb=size_mb).run()
+    assert hbm.read_sum.launches > before
+    assert len(results) == 1 and results[0].healthy
+    assert results[0].gpu_index is None and "GB/s" in results[0].detail
+
+
+def test_nvml_sees_the_cards_the_device_nodes_show(cuda):
+    """NVML loads, keys each card it sees by a ``/dev/nvidia[0-9]*`` node's
+    minor number (a container's ``/dev`` may hold nodes of cards NVML does
+    not show it), and names the card torch runs on."""
+    from tpu_operator_torch.deviceplugin.discovery import GpuDiscovery
+    from tpu_operator_torch.utils.nvml import NvmlSource
+    source = NvmlSource()
+    assert source.library() is not None
+    attrs = source.attributes()
+    nodes = GpuDiscovery().scan()
+    assert attrs and set(attrs) <= {d.index for d in nodes}
+    assert torch.cuda.get_device_name(0) in {a["name"] for a in
+                                             attrs.values()}
+    assert source.driver_version()
+
+
+def test_health_monitor_once_on_the_machine(cuda, tmp_path, capsys):
+    import json
+    from tpu_operator_torch.cli.health_monitor import main
+    from tpu_operator_torch.kube.fake import FileBackedFakeClient
+    state = tmp_path / "state.json"
+    FileBackedFakeClient(str(state)).add_node("n0", {})
+    before = hbm.read_sum.launches
+    rc = main(["--client", f"fake:{state}", "--node-name", "n0", "--once",
+               "--hbm-sweep", "--health-file", str(tmp_path / "health")])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rc == 0 and line["healthy"] is True
+    assert hbm.read_sum.launches > before
+    assert (tmp_path / "health").read_text() == ""

@@ -47,7 +47,12 @@ def test_scan_covers_the_package():
             "tpu_operator_torch/cli/validator.py",
             "tpu_operator_torch/kube/fake.py",
             "tpu_operator_torch/kube/incluster.py",
-            "tpu_operator_torch/utils/prom.py"} <= rel
+            "tpu_operator_torch/utils/prom.py",
+            "tpu_operator_torch/health/probes.py",
+            "tpu_operator_torch/health/monitor.py",
+            "tpu_operator_torch/utils/nvml.py",
+            "tpu_operator_torch/deviceplugin/plugin.py",
+            "tpu_operator_torch/operands/feature_discovery.py"} <= rel
 
 
 @pytest.mark.parametrize("path", _port_files(),

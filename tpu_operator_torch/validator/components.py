@@ -54,6 +54,8 @@ import time
 
 import torch
 
+from tpu_operator_torch.utils.nvml import find_driver_library
+
 log = logging.getLogger("gpu-validator")
 
 DEFAULT_VALIDATIONS_DIR = "/run/nvidia/validations"
@@ -140,9 +142,6 @@ class DriverComponent(Component):
     module's."""
 
     name = "driver"
-    #: where the driver container stages ``libcuda.so.1``, under the root
-    LIBRARY_DIRS = ("usr/lib/x86_64-linux-gnu", "usr/lib64",
-                    "lib/x86_64-linux-gnu", "lib64", "usr/lib", "lib")
     DEFAULT_DEVICE_GLOB = "/dev/nvidia[0-9]*"
 
     def __init__(self, driver_root: str | None = None,
@@ -161,11 +160,7 @@ class DriverComponent(Component):
         self.observer = observer
 
     def find_library(self) -> str | None:
-        for d in self.LIBRARY_DIRS:
-            cand = os.path.join(self.driver_root, d, "libcuda.so.1")
-            if os.path.exists(cand):
-                return cand
-        return None
+        return find_driver_library(self.driver_root, "libcuda.so.1")
 
     def find_devices(self) -> list[str]:
         # no fallback: a glob that matches nothing fails
