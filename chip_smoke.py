@@ -42,7 +42,17 @@ the machine's ``/dev`` and NVML with the HBM sweep on K1 at 256 MiB, and
 must publish the node healthy; then each probe is called directly
 (presence, NVLink and error counters through NVML, the HBM sweep at 8 and
 256 MiB), each card NVML sees must have its device node, and the device
-scan and feature discovery's labels are printed.
+scan and feature discovery's labels are printed. Then the node agents
+(``tpu_operator_torch/native``) are built with the host C++ compiler and
+run on the machine: ``gpu-smoke --run-add`` JIT-compiles its PTX add on
+the machine's ``libcuda.so.1`` at n = 1024 and 1 << 24 and must be exact
+(and must fail on a library without ``cuInit``); ``gpu-metrics-agent``
+must list each card NVML lists under its minor number and name, and the
+metrics exporter must scrape it over HTTP; ``gpu-node-agent`` generates
+the CDI spec, probes, and stages the machine's driver library into a
+temporary directory; ``gpu-oci-hook`` injects NVML's card into a
+temporary bundle with its node's device number. Nothing is written
+outside temporary directories.
 
 Output: progress lines, then the ``nvidia-smi`` name and power limit, then
 one JSON line with every kernel's launches on the main path, error, times
@@ -59,6 +69,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -1172,6 +1183,235 @@ def phase_health_probes() -> None:
           f"feature discovery labels {labels}")
 
 
+AGENT_NODE = "gpu-node-0"
+
+
+def agent_bins():
+    """The node agents' directory, built from the checkout on first use."""
+    from tpu_operator_torch.native import build
+    return build.build()
+
+
+def agent(name: str, *args, timeout: float = 120) -> tuple:
+    """Run a node agent; (rc, stdout, stderr, host-clock seconds)."""
+    t0 = time.perf_counter()
+    out = subprocess.run([str(agent_bins() / name), *map(str, args)],
+                         capture_output=True, text=True, timeout=timeout)
+    return (out.returncode, out.stdout, out.stderr,
+            time.perf_counter() - t0)
+
+
+def nvml_cards() -> dict:
+    """{minor number: attributes} of the cards NVML lists, by the port's
+    Python binding: the yardstick the agents are held to."""
+    from tpu_operator_torch.utils.nvml import NvmlSource
+    source = NvmlSource()
+    check(source.library() is not None, "libnvidia-ml.so.1 does not load")
+    cards = source.attributes()
+    check(bool(cards), "NVML lists no card")
+    return cards
+
+
+def machine_libcuda() -> str:
+    from tpu_operator_torch.utils.nvml import find_driver_library
+    lib = find_driver_library("/", "libcuda.so.1")
+    check(lib is not None, "no libcuda.so.1 under the machine's library dirs")
+    return lib
+
+
+def phase_agents_build() -> None:
+    """The node agents built by the host C++ compiler from the checkout."""
+    from tpu_operator_torch.native import build
+    t0 = time.perf_counter()
+    built = build.output_dir().exists()
+    out = agent_bins()
+    print(f"[agents] build: {len(build.TARGETS)} targets -> {out.name} in "
+          f"{time.perf_counter() - t0:.3f} s"
+          + (" (already built)" if built else "")
+          + f"; {build.compiler()} {' '.join(build.CXX_FLAGS)}")
+
+
+def phase_agents_smoke() -> None:
+    """``gpu-smoke --run-add`` on the machine's ``libcuda.so.1``: the PTX
+    add JIT-compiled for this card and checked exactly, at the reference's
+    n and at 64 MiB a vector; then a library without ``cuInit`` must fail
+    it, and the probe mode must pass."""
+    lib = machine_libcuda()
+    kind = torch.cuda.get_device_name(0)
+    for n in (1024, 1 << 24):
+        rc, stdout, stderr, secs = agent("gpu-smoke", "--run-add", "--n", n,
+                                         "--libcuda", lib)
+        out = json.loads(stdout)
+        print(f"[agents] gpu-smoke --run-add --n {n}: rc {rc}, ok "
+              f"{out['ok']}, {out['device']} cc {out['cc']}, CUDA driver "
+              f"API {out['cuda_driver_version']}, ms {json.dumps(out['ms'])}"
+              f", {secs:.3f} s on the host clock"
+              + (f", error {out.get('error')}: {out.get('detail')}"
+                 if not out["ok"] else ""))
+        log = out["jit_log"].strip().splitlines()
+        print(f"[agents] the JIT took the sm_52 PTX for cc {out['cc']}: "
+              f"{'; '.join(log) if log else '(the driver logged nothing)'}")
+        check(rc == 0 and out["ok"] and out["n"] == n,
+              f"gpu-smoke --run-add --n {n}: rc {rc}, {out}, {stderr}")
+        check(out["device"] == kind and out["cc"] == "9.0",
+              f"gpu-smoke ran on {out['device']} cc {out['cc']}")
+    import ctypes.util
+    libc = ctypes.util.find_library("c")
+    rc, stdout, _, _ = agent("gpu-smoke", "--run-add", "--libcuda", libc)
+    out = json.loads(stdout)
+    print(f"[agents] planted: gpu-smoke --run-add --libcuda {libc}: rc {rc}, "
+          f"error {out.get('error')}")
+    check(rc == 1 and out["error"] == "dlsym(cuInit)",
+          f"a library without cuInit passed gpu-smoke: rc {rc}, {out}")
+    rc, stdout, _, secs = agent("gpu-smoke", "--libcuda", lib)
+    print(f"[agents] gpu-smoke (probe): rc {rc}, {stdout.strip()} "
+          f"({secs:.3f} s)")
+    check(rc == 0 and json.loads(stdout)["driver_api"], "gpu-smoke probe")
+
+
+def metric_lines(page: str, family: str) -> list[str]:
+    return [ln for ln in page.splitlines()
+            if ln.startswith(family + "{") or ln.startswith(family + " ")]
+
+
+def phase_agents_metrics() -> None:
+    """``gpu-metrics-agent --once`` on the machine's ``/dev`` and NVML:
+    every card NVML lists appears under its minor number with its name
+    and NVML's attributes; a node NVML does not list reads present 0 (F7).
+    Then the agent serves HTTP and the metrics exporter scrapes it."""
+    from tpu_operator_torch.operands.metrics_exporter import MetricsExporter
+    cards = nvml_cards()
+    rc, page, stderr, secs = agent("gpu-metrics-agent", "--once")
+    present = metric_lines(page, "gpu_agent_device_present")
+    print(f"[agents] gpu-metrics-agent --once: rc {rc} in {secs:.3f} s on "
+          f"the host clock; {present}; "
+          f"{metric_lines(page, 'gpu_agent_devices_total')}; "
+          f"{metric_lines(page, 'gpu_agent_driver_info')}")
+    check(rc == 0, f"gpu-metrics-agent --once: rc {rc}, {stderr}")
+    for minor, attrs in cards.items():
+        want = (f'gpu_agent_device_present{{device="/dev/nvidia{minor}",'
+                f'name="{attrs["name"]}"}} 1')
+        check(want in present, f"{want} not in {present}")
+        for attr, value in attrs.items():
+            if attr not in ("name", "nvlink_down"):
+                line = (f'gpu_agent_device_attr{{device="nvidia{minor}",'
+                        f'attr="{attr}"}} {value}')
+                check(line in page, f"{line} not on the page")
+    others = [ln for ln in present
+              if not any(f'"/dev/nvidia{m}"' in ln for m in cards)]
+    check(all(ln.endswith("} 0") for ln in others),
+          f"nodes NVML does not list read present: {others}")
+    check(f"gpu_agent_devices_total {len(cards)}" in page,
+          "devices_total is not NVML's count")
+    check("gpu_agent_driver_loadable 1" in page, "libcuda not loadable")
+
+    proc = subprocess.Popen([str(agent_bins() / "gpu-metrics-agent"),
+                             "--port", "0"], stdout=subprocess.PIPE,
+                            text=True)
+    try:
+        port = int(proc.stdout.readline().rsplit(":", 1)[1])
+        kind = torch.cuda.get_device_name(0)
+        exporter = MetricsExporter(f"127.0.0.1:{port}", node_name=AGENT_NODE,
+                                   accelerator=kind)
+        t0 = time.perf_counter()
+        ok = exporter.scrape_once()
+        secs = time.perf_counter() - t0
+        out = exporter.render()
+    finally:
+        proc.terminate()
+        proc.wait(timeout=30)
+    relabeled = [ln for ln in out.splitlines()
+                 if ln.startswith("gpu_agent_")]
+    stamp = f'node="{AGENT_NODE}",accelerator="{kind}"'
+    print(f"[agents] exporter scrape of the served agent: {ok} in "
+          f"{secs:.4f} s on the host clock, "
+          f"{metric_lines(out, 'gpu_exporter_last_scrape_duration_seconds')}"
+          f"; {len(relabeled)} relabeled samples, e.g. {relabeled[:2]}")
+    check(ok and "gpu_exporter_up 1" in out, "gpu_exporter_up is not 1")
+    check(relabeled and all(stamp in ln for ln in relabeled),
+          f"samples without node/accelerator labels: {relabeled}")
+
+
+def phase_agents_node() -> None:
+    """``gpu-node-agent cdi-generate`` and ``probe`` on the machine, then
+    ``driver-install`` of the machine's driver library into temporary
+    install and validations directories; then ``gpu-oci-hook inject`` of
+    NVML's card into a temporary bundle. Nothing is written outside the
+    temporaries, and no device setting is touched."""
+    cards = nvml_cards()
+    lib = machine_libcuda()
+    real = os.path.realpath(lib)
+    rc, stdout, stderr, secs = agent("gpu-node-agent", "cdi-generate")
+    spec = json.loads(stdout)
+    names = [d["name"] for d in spec["devices"]]
+    edits = spec["containerEdits"]
+    print(f"[agents] gpu-node-agent cdi-generate: rc {rc} in {secs:.3f} s; "
+          f"devices {names}; control nodes "
+          f"{[n['path'] for n in edits.get('deviceNodes', [])]}; mounts "
+          f"{[m['hostPath'] for m in edits.get('mounts', [])]}")
+    check(rc == 0 and names == [str(m) for m in sorted(cards)] + ["all"],
+          f"CDI devices {names}, NVML's cards {sorted(cards)}")
+    check(edits["mounts"][0]["hostPath"] == lib, "CDI mount of libcuda")
+    rc, stdout, _, _ = agent("gpu-node-agent", "probe")
+    print(f"[agents] gpu-node-agent probe: rc {rc}, {stdout.strip()}")
+    probe = json.loads(stdout)
+    check(rc == 0 and probe["devices"] == len(cards) and probe["loadable"],
+          f"probe {probe}")
+
+    from tpu_operator_torch.validator.driver_build import extract_build
+    with tempfile.TemporaryDirectory() as tmp:
+        img, host, vdir = (os.path.join(tmp, d)
+                           for d in ("img", "host", "validations"))
+        os.mkdir(img)
+        # the image's layout: the versioned file and the soname's link
+        shutil.copy(real, os.path.join(img, os.path.basename(real)))
+        os.symlink(os.path.basename(real), os.path.join(img, "libcuda.so.1"))
+        rc, stdout, stderr, secs = agent(
+            "gpu-node-agent", "driver-install", "--source", img,
+            "--install-dir", host, "--validations-dir", vdir, "--oneshot")
+        with open(os.path.join(vdir, "driver-ready")) as f:
+            status = json.load(f)
+        staged = os.path.join(host, "libcuda.so.1")
+        print(f"[agents] gpu-node-agent driver-install of {real} "
+              f"({os.path.getsize(real)} bytes): rc {rc} in {secs:.3f} s; "
+              f"{stdout.strip()}; status {status['info']}; staged version "
+              f"{extract_build(staged)} (the machine's {extract_build(lib)})")
+        check(rc == 0 and status["ok"] and status["component"] == "driver",
+              f"driver-install: rc {rc}, {stderr}")
+        check(os.readlink(staged) == os.path.basename(real)
+              and extract_build(staged) == extract_build(lib),
+              "the staged library is not the machine's")
+
+        minor = min(cards)
+        bundle = os.path.join(tmp, "bundle")
+        os.mkdir(bundle)
+        with open(os.path.join(bundle, "config.json"), "w") as f:
+            json.dump({"ociVersion": "1.0.2", "process": {
+                "args": ["nvidia-smi"], "cwd": "/",
+                "env": [f"NVIDIA_VISIBLE_DEVICES={minor}"]},
+                "linux": {"resources": {}}}, f)
+        rc, _, stderr, secs = agent("gpu-oci-hook", "inject", "--bundle",
+                                    bundle)
+        with open(os.path.join(bundle, "config.json")) as f:
+            config = json.load(f)
+    devices = config["linux"]["devices"]
+    print(f"[agents] gpu-oci-hook inject NVIDIA_VISIBLE_DEVICES={minor}: "
+          f"rc {rc} in {secs:.3f} s; "
+          f"{[(d['path'], d['major'], d['minor']) for d in devices]}; mounts "
+          f"{[m['source'] for m in config.get('mounts', [])]}")
+    check(rc == 0, f"gpu-oci-hook inject: rc {rc}, {stderr}")
+    card = f"/dev/nvidia{minor}"
+    for d in devices:
+        st = os.stat(d["path"])
+        check((d["major"], d["minor"]) == (os.major(st.st_rdev),
+                                           os.minor(st.st_rdev)),
+              f"{d['path']}: injected {d['major']}:{d['minor']}, the node "
+              f"is {os.major(st.st_rdev)}:{os.minor(st.st_rdev)}")
+    injected = [d["path"] for d in devices
+                if re.fullmatch(r"/dev/nvidia\d+", d["path"])]
+    check(injected == [card], f"cards injected: {injected}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1206,6 +1446,10 @@ def main() -> int:
           "flash_fwd_generic": flash_mod.flash_generic}),
         ("health monitor", (phase_health_monitor, phase_health_probes),
          {"hbm_read": hbm_mod.read_sum}),
+        # the node agents launch no TPU kernel's port: gpu-smoke's PTX add
+        # is the vectorAdd probe, not a kernel of the table
+        ("node agents", (phase_agents_build, phase_agents_smoke,
+                         phase_agents_metrics, phase_agents_node), {}),
     )
     # a kernel's launches: the sum over the paths that must reach it
     launches = {entry_["name"]: 0 for entry_ in kernels}

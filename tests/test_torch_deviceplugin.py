@@ -35,6 +35,7 @@ import tpu_operator_torch.deviceplugin.plugin as port_plugin
 import tpu_operator_torch.deviceplugin.wire as port_wire
 from tpu_operator.deviceplugin import deviceplugin_pb2 as ref_pb
 from tpu_operator_torch.deviceplugin import deviceplugin_pb2 as port_pb
+from torch_fake_nvml import FakeLibrary, device, nvml_so  # noqa: F401
 
 NAME_MAP = (
     (r"\baccel(\d+)", r"nvidia\1"),
@@ -410,3 +411,79 @@ def test_health_and_discovery_import_without_grpc():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+class _NoNvml:
+    """A source for a node without ``libnvidia-ml.so.1``."""
+
+    def minor_numbers(self):
+        return None
+
+
+@pytest.mark.parametrize("side_nodes", [1, 4])
+def test_presence_without_nvml_is_the_references(tmp_path, side_nodes):
+    """Without NVML the port keeps the reference's rule (readable and
+    writable) exactly."""
+    out = {}
+    for side, (discovery_cls, *_rest) in SIDES.items():
+        d = tmp_path / side / "dev"
+        d.mkdir(parents=True)
+        for i in range(side_nodes):
+            (d / f"{SIDES[side][4]}{i}").write_text("")
+        kw = {"nvml": _NoNvml()} if side == "p" else {}
+        devs = discovery_cls(str(d), **kw).scan()
+        out[side] = [[x.id, x.path, x.index, x.health] for x in devs]
+    assert out["p"] == to_port(out["r"])
+    assert all(x[3] == "Healthy" for x in out["p"])
+
+
+def test_reference_calls_healthy_a_card_nvml_does_not_list(tmp_path,
+                                                           nvml_so):
+    """F7, the deliberate divergence. A fixture ``/dev`` with two nodes,
+    both readable and writable; the fake NVML lists one of them (minors 0
+    and 2 of a host whose container sees ``nvidia0`` and ``nvidia1``). The
+    reference's ``ChipDiscovery`` reads permission bits and calls both
+    Healthy; the port calls ``nvidia1`` Unhealthy, and the presence probe
+    and the device plugin's listing, which scan through it, follow."""
+    from tpu_operator_torch.health.probes import DevicePresenceProbe
+    from tpu_operator_torch.utils.nvml import Library, NvmlSource
+    roots = {}
+    for side in SIDES:
+        d = tmp_path / side / "dev"
+        d.mkdir(parents=True)
+        for i in range(2):
+            (d / f"{SIDES[side][4]}{i}").write_text("")
+        roots[side] = str(d)
+    ref = ref_discovery.ChipDiscovery(roots["r"]).scan()
+    assert [c.health for c in ref] == ["Healthy", "Healthy"]
+    nvml = NvmlSource(Library(nvml_so))
+    discovery = port_discovery.GpuDiscovery(roots["p"], nvml=nvml)
+    port = discovery.scan()
+    assert [(d.id, d.health) for d in port] == [
+        ("nvidia0", "Healthy"), ("nvidia1", "Unhealthy")]
+    results = DevicePresenceProbe(discovery).run()
+    assert [(r.gpu_index, r.healthy) for r in results] == [(0, True),
+                                                           (1, False)]
+    plugin = port_plugin.GpuDevicePlugin(
+        plugin_dir=str(tmp_path / "plugins"), discovery=discovery)
+    assert [(d.id, d.health) for d in plugin._device_list()] == [
+        ("nvidia0", "Healthy"), ("nvidia1", "Unhealthy")]
+
+
+def test_an_nvml_that_fails_lists_no_card(tmp_path):
+    """NVML loads but its driver does not answer: no node is present, as
+    no CUDA program could use one."""
+    from tpu_operator_torch.utils.nvml import NvmlError, NvmlSource
+
+    class Broken(FakeLibrary):
+        def init(self):
+            raise NvmlError("nvmlInit_v2", 9)    # DRIVER_NOT_LOADED
+
+    d = tmp_path / "dev"
+    d.mkdir()
+    (d / "nvidia0").write_text("")
+    assert NvmlSource(Broken([device(0)])).minor_numbers() == set()
+    assert NvmlSource(FakeLibrary([device(0)])).minor_numbers() == {0}
+    devs = port_discovery.GpuDiscovery(
+        str(d), nvml=NvmlSource(Broken([device(0)]))).scan()
+    assert [x.health for x in devs] == ["Unhealthy"]

@@ -52,7 +52,10 @@ def test_scan_covers_the_package():
             "tpu_operator_torch/health/monitor.py",
             "tpu_operator_torch/utils/nvml.py",
             "tpu_operator_torch/deviceplugin/plugin.py",
-            "tpu_operator_torch/operands/feature_discovery.py"} <= rel
+            "tpu_operator_torch/operands/feature_discovery.py",
+            "tpu_operator_torch/operands/metrics_exporter.py",
+            "tpu_operator_torch/cli/metrics_exporter.py",
+            "tpu_operator_torch/native/build.py"} <= rel
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -215,3 +218,65 @@ def test_build_names_the_source_nvcc_refused(monkeypatch, tmp_path):
         _native.build()
     assert not _native.library_path().exists()
     assert list((tmp_path / "build").iterdir()) == []
+
+
+def _native_sources():
+    native = os.path.join(PACKAGE, "native")
+    return sorted(os.path.join(d, n) for d, _, names in os.walk(native)
+                  for n in names if n.endswith((".cc", ".h")))
+
+
+def test_native_scan_covers_the_agents():
+    rel = {os.path.relpath(p, PACKAGE) for p in _native_sources()}
+    assert {"native/common/util.h", "native/common/json.h",
+            "native/common/nvml.h", "native/gpu_smoke/main.cc",
+            "native/gpu_smoke/cuda_add.cc", "native/gpu_node_agent/main.cc",
+            "native/gpu_metrics_agent/main.cc", "native/gpu_oci_hook/main.cc",
+            "native/fake_cuda/fake_cuda.cc"} <= rel
+
+
+@pytest.mark.parametrize("path", _native_sources(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_native_includes_stay_in_the_port(path):
+    """The agents' C++ includes system headers and the port's own files
+    only: nothing under the reference's ``native/`` (its helpers, its
+    vendored PJRT header) and no CUDA or NVML header."""
+    native = os.path.join(PACKAGE, "native")
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line.startswith("#include"):
+                continue
+            target = line.split(None, 1)[1]
+            if target.startswith('"'):
+                inc = os.path.normpath(os.path.join(os.path.dirname(path),
+                                                    target.strip('"')))
+                assert inc.startswith(native + os.sep) and \
+                    os.path.exists(inc), f"{path}: {line}"
+            else:
+                assert not any(h in target for h in ("cuda", "nvml", "pjrt",
+                                                     "tpu")), line
+
+
+def test_exporter_imports_nothing_of_the_reference(tmp_path):
+    """A fresh interpreter that imports the metrics exporter and its CLI
+    and renders a page (which reads the validator's component list) holds
+    no module of the reference package or of JAX."""
+    (tmp_path / "driver-ready").touch()
+    code = textwrap.dedent("""
+        import sys
+        from tpu_operator_torch.cli import metrics_exporter as cli
+        from tpu_operator_torch.operands.metrics_exporter import \\
+            MetricsExporter
+        page = MetricsExporter("127.0.0.1:1",
+                               validations_dir=sys.argv[1]).render()
+        assert 'component="driver"} 1' in page, page
+        leaked = sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "tpu_operator"))
+        assert not leaked, leaked
+    """)
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                         cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr

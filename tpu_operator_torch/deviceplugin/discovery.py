@@ -5,8 +5,16 @@ The port of ``tpu_operator/deviceplugin/discovery.py`` (``ChipDiscovery``,
 one character device per card (``/dev/nvidia0`` … ``/dev/nvidiaN``) beside
 its control nodes (``nvidiactl``, ``nvidia-uvm``, ``nvidia-uvm-tools``,
 ``nvidia-modeset``), so the glob is ``nvidia[0-9]*``: a bare ``nvidia*``
-would advertise the control nodes as cards. Presence and openability of the
-device node, plus the health monitor's health file, is the health signal.
+would advertise the control nodes as cards. A card is healthy when it is
+present and the health monitor's health file does not name it.
+
+Presence: where ``libnvidia-ml.so.1`` loads, a node is present when NVML
+lists its minor number; without NVML, when the node is readable and
+writable (``os.access``), the reference's rule. Permission bits alone
+pass a node of a card the container's device cgroup refuses (mode
+``crw-rw-rw-``, ``open`` fails with ``EPERM``), which NVML does not list.
+No node is opened on a scan: an open may initialise a card that is not in
+persistence mode, on every poll.
 
 Left out of the reference, on purpose:
 
@@ -23,6 +31,8 @@ import glob
 import os
 import re
 from dataclasses import dataclass
+
+from tpu_operator_torch.utils.nvml import NvmlSource
 
 HEALTHY = "Healthy"
 UNHEALTHY = "Unhealthy"
@@ -56,8 +66,10 @@ class GpuDiscovery:
 
     def __init__(self, dev_root: str = "/dev",
                  device_glob: str | None = None,
-                 health_file: str | None = None):
+                 health_file: str | None = None,
+                 nvml: NvmlSource | None = None):
         self.dev_root = dev_root
+        self.nvml = nvml if nvml is not None else NvmlSource()
         env_glob = os.environ.get(DEVICE_GLOB_ENV)
         if device_glob is None and env_glob:
             # env convention uses absolute paths (e.g. /dev/nvidia[0-9]*);
@@ -85,6 +97,7 @@ class GpuDiscovery:
 
     def scan(self) -> list[GpuDevice]:
         bad = self._unhealthy_indices()
+        listed = self.nvml.minor_numbers()
         paths = sorted(glob.glob(os.path.join(self.dev_root,
                                               self.device_glob)))
         devices = []
@@ -93,7 +106,9 @@ class GpuDiscovery:
             if not m:
                 continue
             idx = int(m.group(1))
-            ok = os.access(path, os.R_OK | os.W_OK) and idx not in bad
+            present = idx in listed if listed is not None \
+                else os.access(path, os.R_OK | os.W_OK)
+            ok = present and idx not in bad
             devices.append(GpuDevice(id=os.path.basename(path), path=path,
                                      index=idx,
                                      health=HEALTHY if ok else UNHEALTHY))

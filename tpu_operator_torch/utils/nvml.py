@@ -206,6 +206,19 @@ class NvmlSource:
     def driver_version(self) -> str | None:
         return self._session(lambda lib: lib.driver_version())
 
+    def minor_numbers(self) -> set[int] | None:
+        """The minor numbers of the cards NVML lists; None where NVML does
+        not load. An NVML that loads but fails lists no card: the driver
+        it speaks for does not answer."""
+        if self.library() is None:
+            return None
+        try:
+            return self._session(lambda lib: {
+                lib.minor_number(lib.handle(i))
+                for i in range(lib.device_count())})
+        except NvmlError:
+            return set()
+
     def where(self, index: int, attr: str) -> str:
         return f"nvml:nvidia{index}/{attr}"
 
