@@ -51,8 +51,16 @@ must list each card NVML lists under its minor number and name, and the
 metrics exporter must scrape it over HTTP; ``gpu-node-agent`` generates
 the CDI spec, probes, and stages the machine's driver library into a
 temporary directory; ``gpu-oci-hook`` injects NVML's card into a
-temporary bundle with its node's device number. Nothing is written
-outside temporary directories.
+temporary bundle with its node's device number. Last, the operator's
+states: the NVLink slice manager's CLI runs once per profile (``full``,
+``nvlink-pairs``, ``per-gpu``) on the machine's ``/dev`` and NVML against a
+fake cluster file, and its plan must hold exactly the cards NVML lists;
+the state pipeline renders every operand for a fake cluster holding this
+node (labelled by the port's feature discovery on this card) and a CPU
+node, and a second pass must write nothing; then the ``workload``
+validation container it rendered runs through the validator CLI with its
+own environment, where K1 and K2 must launch. Nothing is written outside
+temporary directories.
 
 Output: progress lines, then the ``nvidia-smi`` name and power limit, then
 one JSON line with every kernel's launches on the main path, error, times
@@ -1176,8 +1184,9 @@ def phase_health_probes() -> None:
     client.add_node(HEALTH_NODE, {})
     labels = FeatureDiscovery(client, HEALTH_NODE).apply_once()
     print(f"[health] feature discovery: {json.dumps(labels)}")
+    # the count is of the cards present, NVML's (F9), not of the nodes
     check(labels.get(PREFIX + "gpu.present") == "true"
-          and labels.get(PREFIX + "gpu.count") == str(len(nodes))
+          and labels.get(PREFIX + "gpu.count") == str(len(attrs))
           and labels.get(PREFIX + "cuda.driver") == "true"
           and PREFIX + "gpu.product" in labels,
           f"feature discovery labels {labels}")
@@ -1412,6 +1421,268 @@ def phase_agents_node() -> None:
     check(injected == [card], f"cards injected: {injected}")
 
 
+# -- operator states: the slice manager, the state pipeline, the validator
+# it renders ---------------------------------------------------------------
+
+STATES_NODE = "gpu-node-0"
+STATES_NS = "gpu-operator"
+SLICE_PROFILES = """version: v1alpha1
+profiles:
+  full: {partitions: 1}
+  per-gpu: {partitions: per-gpu}
+  nvlink-pairs: {gpusPerPartition: 2}
+"""
+OPERAND_IMAGES = ("DRIVER_IMAGE", "CONTAINER_TOOLKIT_IMAGE",
+                  "DEVICE_PLUGIN_IMAGE", "FEATURE_DISCOVERY_IMAGE",
+                  "SLICE_MANAGER_IMAGE", "METRICS_AGENT_IMAGE",
+                  "METRICS_EXPORTER_IMAGE", "VALIDATOR_IMAGE")
+#: what the pipeline's phase hands the validator's phase
+STATES_RUN: dict = {}
+
+
+def nvml_header_p2p_nvlink() -> str:
+    """``NVML_P2P_CAPS_INDEX_NVLINK`` as the toolkit's ``nvml.h`` spells
+    it, against the value the port declares by hand."""
+    from tpu_operator_torch.utils.nvml import NVML_P2P_CAPS_INDEX_NVLINK
+    header = "/usr/local/cuda/include/nvml.h"
+    if not os.path.exists(header):
+        return f"{header} not found"
+    m = re.search(r"NVML_P2P_CAPS_INDEX_NVLINK\s*=\s*(\d+)",
+                  open(header, errors="replace").read())
+    check(m is not None and int(m.group(1)) == NVML_P2P_CAPS_INDEX_NVLINK,
+          f"nvml.h's NVML_P2P_CAPS_INDEX_NVLINK is "
+          f"{m.group(1) if m else 'absent'}, the port's "
+          f"{NVML_P2P_CAPS_INDEX_NVLINK}")
+    return f"{header}: NVML_P2P_CAPS_INDEX_NVLINK = {m.group(1)}"
+
+
+def phase_states_slices() -> None:
+    """``gpu-slice-manager --once`` on this machine's ``/dev`` and NVML,
+    against a fake cluster file, with its plan and state in a temporary
+    directory: ``full`` must make one group of exactly the cards NVML lists
+    (never a foreign ``/dev/nvidia0``), ``nvlink-pairs`` on one card must
+    fail with rc 1, ``per-gpu`` must make one group a card, and the
+    slice-aware device plugin view must advertise the plan's group as one
+    healthy unit. No device setting is changed."""
+    from tpu_operator_torch.deviceplugin.discovery import (
+        HEALTHY, GpuDiscovery, SliceAwareDiscovery)
+    from tpu_operator_torch.kube.fake import FileBackedFakeClient
+    from tpu_operator_torch.operands.slice_manager import CONFIG_LABEL
+    from tpu_operator_torch.utils.nvml import NvmlSource
+    print(f"[states] {nvml_header_p2p_nvlink()}")
+    nvml = NvmlSource()
+    peers = nvml.nvlink_peers()
+    check(peers is not None, "libnvidia-ml.so.1 does not load")
+    own = sorted(f"/dev/nvidia{m}" for m in peers)
+    print(f"[states] NVML's NVLink peer map: "
+          f"{ {m: sorted(p) for m, p in peers.items()} }; the container's "
+          f"cards {own}")
+    with tempfile.TemporaryDirectory() as tmp:
+        state = os.path.join(tmp, "state.json")
+        plan_file = os.path.join(tmp, "slice-partitions.json")
+        with open(os.path.join(tmp, "config.yaml"), "w") as f:
+            f.write(SLICE_PROFILES)
+        FileBackedFakeClient(state).add_node(STATES_NODE, {})
+        env = dict(os.environ,
+                   SLICE_CONFIG_FILE=os.path.join(tmp, "config.yaml"),
+                   SLICE_STATE_DIR=os.path.join(tmp, "slice-manager"),
+                   SLICE_PARTITIONS_FILE=plan_file,
+                   GPU_HEALTH_FILE=os.path.join(tmp, "gpu-health"))
+
+        def once(profile):
+            client = FileBackedFakeClient(state)
+            node = client.get("Node", STATES_NODE)
+            node.labels[CONFIG_LABEL] = profile
+            client.update(node)
+            t0 = time.perf_counter()
+            out = subprocess.run(
+                [sys.executable, "-m", "tpu_operator_torch.cli.slice_manager",
+                 "--once", "--client", f"fake:{state}",
+                 "--node-name", STATES_NODE], capture_output=True,
+                text=True, env=env, timeout=120)
+            wall = time.perf_counter() - t0
+            plan = None
+            if os.path.exists(plan_file):
+                with open(plan_file) as f:
+                    plan = json.load(f)
+            print(f"[states] slice manager {profile}: rc {out.returncode}, "
+                  f"{out.stdout.strip()}"
+                  + (f", plan {plan['partitions']}" if out.returncode == 0
+                     else "") + f" ({wall:.3f} s on the host clock)")
+            return out.returncode, json.loads(out.stdout), plan
+
+        rc, line, plan = once("full")
+        check(rc == 0 and line["state"] == "success", f"full: {line}")
+        check(plan["partitions"] == [own], f"full: {plan['partitions']}")
+        check(all(p in own for g in plan["partitions"] for p in g),
+              "a card NVML does not list entered the plan")
+        units = [u for u in SliceAwareDiscovery(
+            GpuDiscovery(), plan_file).scan() if u.health == HEALTHY]
+        print(f"[states] slice-aware units: "
+              f"{[(u.id, list(u.member_paths)) for u in units]}")
+        check(len(units) == 1 and list(units[0].member_paths) == own,
+              f"slice-aware view of full: {units}")
+        if len(own) % 2:
+            rc, line, _ = once("nvlink-pairs")
+            check(rc == 1 and line["state"] == "failed",
+                  f"nvlink-pairs on {len(own)} card(s): rc {rc}, {line}")
+        rc, line, plan = once("per-gpu")
+        check(rc == 0 and plan["partitions"] == [[p] for p in own],
+              f"per-gpu: rc {rc}, {plan}")
+
+
+def phase_states_pipeline() -> None:
+    """The state pipeline over a fake cluster holding this node, labelled
+    by the port's feature discovery run on this card plus NFD's PCI vendor
+    label, and a CPU node: the default ``GPUClusterPolicy`` with images
+    from the environment, ``init`` and the DAG walk, then a second pass
+    that must write nothing."""
+    from tpu_operator_torch.api.v1alpha1 import GPUClusterPolicy, State
+    from tpu_operator_torch.controllers.state_manager import (
+        NFD_PCI_LABEL, StateManager)
+    from tpu_operator_torch.kube import FakeClient, Obj
+    from tpu_operator_torch.operands.feature_discovery import \
+        FeatureDiscovery
+    client = FakeClient(auto_ready=True)
+    client.add_node(STATES_NODE, {})
+    labels = FeatureDiscovery(client, node_name=STATES_NODE).apply_once()
+    for key in ("nvidia.com/gpu.product", "nvidia.com/gpu.count",
+                "nvidia.com/cuda.driver"):
+        check(key in labels, f"feature discovery gave no {key}: {labels}")
+    from tpu_operator_torch.utils.nvml import NvmlSource
+    cards = NvmlSource().minor_numbers()
+    check(labels["nvidia.com/gpu.count"] == str(len(cards)),
+          f"gpu.count {labels['nvidia.com/gpu.count']}, NVML's cards "
+          f"{sorted(cards)}")
+    node = client.get("Node", STATES_NODE)
+    node.labels[NFD_PCI_LABEL] = "true"
+    client.update(node)
+    client.add_node("cpu-node-0", {})
+    print(f"[states] node labels from feature discovery: {labels}")
+    saved = {k: os.environ.get(k) for k in OPERAND_IMAGES}
+    os.environ.update({k: f"registry.local/gpu-operator/"
+                          f"{k[:-6].lower().replace('_', '-')}:smoke"
+                       for k in OPERAND_IMAGES})
+    try:
+        cr = client.create(Obj({
+            "apiVersion": "nvidia.com/v1alpha1", "kind": "GPUClusterPolicy",
+            "metadata": {"name": "gpu-cluster-policy"}, "spec": {}}))
+        sm = StateManager(client, STATES_NS)
+        t0 = time.perf_counter()
+        sm.init(GPUClusterPolicy.from_obj(cr.raw), cr)
+        statuses = sm.run_all()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        kinds: dict = {}
+        for kind in ("DaemonSet", "Deployment", "Service", "ServiceMonitor",
+                     "ConfigMap", "ServiceAccount", "Role", "RoleBinding",
+                     "ClusterRole", "ClusterRoleBinding", "RuntimeClass",
+                     "PriorityClass", "PrometheusRule"):
+            n = len(client.list(kind))
+            if n:
+                kinds[kind] = n
+        print(f"[states] pass 1: {json.dumps(statuses, sort_keys=True)}")
+        print(f"[states] pass 1: objects {kinds}; {first_ms:.3f} ms on the "
+              f"host clock (labels, compile, apply; DAG walk "
+              f"{sm.last_dag_wall_s * 1e3:.3f} ms, peak "
+              f"{sm.last_concurrency} states in flight)")
+        client.actions.clear()
+        t0 = time.perf_counter()
+        sm.init(GPUClusterPolicy.from_obj(cr.raw), cr)
+        sm.run_all()
+        second_ms = (time.perf_counter() - t0) * 1e3
+        writes = [a for a in client.actions
+                  if a[0] in ("create", "update", "patch", "delete")]
+        print(f"[states] pass 2: {len(writes)} writes; {second_ms:.3f} ms "
+              f"on the host clock ({sm.last_compile_hits} compiles served "
+              f"from the cache)")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    check(writes == [], f"the converged pass wrote {writes}")
+    opt_in = ("state-node-status-exporter", "state-relay-service")
+    for name, status in statuses.items():
+        want = State.DISABLED if name in opt_in else State.READY
+        check(status == want, f"{name}: {status}, not {want}")
+    cpu = client.get("Node", "cpu-node-0").labels
+    check(not any(k.startswith("nvidia.com/gpu.deploy.") for k in cpu),
+          f"the CPU node carries deploy labels: {cpu}")
+    STATES_RUN["client"] = client
+
+
+def phase_states_validator() -> None:
+    """The ``workload-validation`` init container of the DaemonSet the
+    pipeline rendered, run as a node would run it: its command through the
+    port's validator CLI in this process, with its environment and its
+    hostPaths mapped into a temporary directory (the device tree stays the
+    machine's; the install dir holds the machine's ``libcuda.so.1``, as the
+    driver installer leaves it). K1 and K2 must launch."""
+    import contextlib
+    import io
+    from tpu_operator_torch.cli.validator import main as validator
+    client = STATES_RUN.pop("client")
+    ds = client.get("DaemonSet", "gpu-operator-validator", STATES_NS)
+    spec = ds.get("spec", "template", "spec")
+    [c] = [c for c in spec["initContainers"]
+           if c["name"] == "workload-validation"]
+    check(c["command"] == ["gpu-validator", "--component", "workload"],
+          f"workload container command {c['command']}")
+    volumes = {v["name"]: v for v in spec["volumes"]}
+    with tempfile.TemporaryDirectory() as tmp:
+        moved = {}
+        for m in c["volumeMounts"]:
+            if "/dev" in (m["mountPath"], volumes[m["name"]]
+                          .get("hostPath", {}).get("path")):
+                continue
+            moved[m["mountPath"]] = os.path.join(tmp, m["name"])
+            os.makedirs(moved[m["mountPath"]], exist_ok=True)
+
+        def mapped(value):
+            for mount, local in moved.items():
+                if value == mount or value.startswith(mount + "/"):
+                    return local + value[len(mount):]
+            return value
+
+        env = {}
+        for e in c.get("env", []):
+            if "value" in e:
+                env[e["name"]] = mapped(e["value"])
+            elif e["valueFrom"]["fieldRef"]["fieldPath"] == "spec.nodeName":
+                env[e["name"]] = STATES_NODE
+        os.symlink(machine_libcuda(),
+                   os.path.join(env["DRIVER_INSTALL_DIR"], "libcuda.so.1"))
+        vdir = mapped(next(m["mountPath"] for m in c["volumeMounts"]
+                           if m["name"] == "validations"))
+        print(f"[states] workload container env: "
+              f"{json.dumps(env, sort_keys=True)}")
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out):
+                rc = validator(c["command"][1:] + ["--validations-dir", vdir])
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        wall = time.perf_counter() - t0
+        line = json.loads(out.getvalue().strip().splitlines()[-1])
+        print(f"[states] rendered workload validation: rc {rc}, ok "
+              f"{line['ok']} ({wall:.3f} s on the host clock)")
+        check(rc == 0 and line["ok"] is True,
+              f"rendered workload validation: rc {rc}, {line}")
+        info = line["info"]
+        check(info["hbm_backend"] == "cuda" and info["platform"] == "cuda",
+              f"the rendered validator ran off the card: {info}")
+        check(os.path.exists(os.path.join(vdir, "workload-ready")),
+              "no workload status file")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1450,6 +1721,10 @@ def main() -> int:
         # is the vectorAdd probe, not a kernel of the table
         ("node agents", (phase_agents_build, phase_agents_smoke,
                          phase_agents_metrics, phase_agents_node), {}),
+        ("operator states", (phase_states_slices, phase_states_pipeline,
+                             phase_states_validator),
+         {"hbm_read": hbm_mod.read_sum,
+          "flash_fwd": flash_mod.flash_attention}),
     )
     # a kernel's launches: the sum over the paths that must reach it
     launches = {entry_["name"]: 0 for entry_ in kernels}

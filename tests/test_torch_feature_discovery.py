@@ -118,8 +118,9 @@ def _inputs(side, sc, tmp_path, driver_libs):
             "tpu-v5p-slice" if side == "ref" else "nvidia-h100-80gb"
     if sc["accel"] == "host" and side == "ref":
         env["TPU_ACCELERATOR_TYPE"] = "v5p-8"
-    cards = [device(i) for i in range(sc["devices"])] \
-        if sc["accel"] == "host" else []
+    # NVML lists the fixture's cards (presence is NVML's list, F7/F9);
+    # the product comes from it only where no node label names one
+    cards = [device(i) for i in range(sc["devices"])]
     names = ("TPU_WORKER_ID", "TPU_WORKER_HOSTNAMES") if side == "ref" \
         else ("WORKER_ID", "WORKER_HOSTNAMES")
     for name, key in zip(names, ("worker", "hosts")):
@@ -276,3 +277,25 @@ def test_cli_once(tmp_path, capsys, monkeypatch):
                     "nvidia.com/gpu.count": "1"}
     node = port_fake.FileBackedFakeClient(str(state)).get("Node", "n1")
     assert node.labels["nvidia.com/gpu.count"] == "1"
+
+
+def test_count_is_of_the_cards_present(tmp_path):
+    """F9: a node the container cannot open (NVML does not list it) is no
+    card of this node. The reference counts every node its glob matches."""
+    dev = tmp_path / "dev"
+    dev.mkdir()
+    for i in (0, 1):
+        (dev / f"nvidia{i}").touch()
+        (dev / f"accel{i}").touch()
+    port = port_fake.FakeClient()
+    port.add_node("n1", {})
+    got = port_fd.FeatureDiscovery(
+        port, node_name="n1", device_glob=str(dev / "nvidia[0-9]*"),
+        env={}, nvml=nvml.NvmlSource(FakeLibrary([device(1)]))).discover({})
+    assert got["nvidia.com/gpu.count"] == "1"
+    ref = ref_fake.FakeClient()
+    ref.add_node("n1", {})
+    want = ref_fd.FeatureDiscovery(ref, node_name="n1",
+                                   device_glob=str(dev / "accel*"),
+                                   env={}).discover({})
+    assert want["tpu.dev/chip.count"] == "2"

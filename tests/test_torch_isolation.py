@@ -55,7 +55,16 @@ def test_scan_covers_the_package():
             "tpu_operator_torch/operands/feature_discovery.py",
             "tpu_operator_torch/operands/metrics_exporter.py",
             "tpu_operator_torch/cli/metrics_exporter.py",
-            "tpu_operator_torch/native/build.py"} <= rel
+            "tpu_operator_torch/native/build.py",
+            "tpu_operator_torch/operands/slice_manager.py",
+            "tpu_operator_torch/cli/slice_manager.py",
+            "tpu_operator_torch/api/v1alpha1.py",
+            "tpu_operator_torch/api/crdgen.py",
+            "tpu_operator_torch/api/schema.py",
+            "tpu_operator_torch/controllers/resource_manager.py",
+            "tpu_operator_torch/controllers/sharding.py",
+            "tpu_operator_torch/controllers/object_controls.py",
+            "tpu_operator_torch/controllers/state_manager.py"} <= rel
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -63,6 +72,30 @@ def test_scan_covers_the_package():
 def test_port_imports_no_jax_and_no_reference(path):
     bad = [m for m in _imported_modules(path) if _forbidden(m)]
     assert bad == [], f"{os.path.relpath(path, ROOT)} imports {bad}"
+
+
+#: the reference's names that must not be left in the port's manifests
+TPU_NAMES = ("tpu.dev/", "libtpu", "tpu-validator")
+
+
+def _manifests():
+    out = []
+    for sub in ("assets", "config"):
+        for dirpath, _, names in os.walk(os.path.join(PACKAGE, sub)):
+            out += [os.path.join(dirpath, n) for n in names
+                    if n.endswith((".yaml", ".yml"))]
+    return sorted(out)
+
+
+def test_manifests_carry_no_tpu_names():
+    """The assets the pipeline renders, the CRD and the sample: 52 asset
+    files, none naming the reference's group, library or validator."""
+    files = _manifests()
+    assert sum("/assets/" in f for f in files) == 52
+    for path in files:
+        text = open(path).read()
+        left = [n for n in TPU_NAMES if n in text]
+        assert left == [], f"{os.path.relpath(path, ROOT)} names {left}"
 
 
 def test_forbidden_matches_the_reference_but_not_the_port():

@@ -2,7 +2,8 @@
 ``objects``, ``selectors``, ``client``, ``fake``, ``incluster`` and utils
 ``prom``, ``trace``, ``logs``) against the originals: each scenario runs
 the same calls on both copies and compares what they return, raise and
-render, exactly."""
+render, exactly. The policy kind and ``consumes_gpu`` compare through the
+GPU names (``torch_names.to_port``)."""
 
 import dataclasses
 import http.server
@@ -28,6 +29,7 @@ import tpu_operator_torch.kube.selectors as port_selectors
 import tpu_operator_torch.utils.logs as port_logs
 import tpu_operator_torch.utils.prom as port_prom
 import tpu_operator_torch.utils.trace as port_trace
+from torch_names import to_port
 
 PAIRS = {
     "objects": (ref_objects, port_objects),
@@ -71,7 +73,8 @@ def test_copies_define_the_same_public_names(name):
                       if not n.startswith("_")
                       and getattr(v, "__module__", mod.__name__)
                       == mod.__name__)
-    assert public(port) == public(ref)
+    assert public(port) == sorted(
+        n.replace("consumes_tpu", "consumes_gpu") for n in public(ref))
 
 
 def _pod(resources=None):
@@ -84,9 +87,23 @@ def _pod(resources=None):
                 "initContainers": [{"name": "i"}]}}
 
 
+#: pods that consume the accelerator (the resource itself, then a name the
+#: drain also counts) and one that does not, on each side
+CONSUMERS = {
+    "ref": ({"limits": {"tpu.dev/chip": "1"}},
+            {"requests": {"google.com/tpu": "4"}},
+            {"limits": {"nvidia.com/gpu": "1"}}, {}),
+    "port": ({"limits": {"nvidia.com/gpu": "1"}},
+             {"requests": {"nvidia.com/gpu.shared": "4"}},
+             {"limits": {"google.com/tpu": "1"}}, {}),
+}
+
+
 def _objects_scenario(m):
-    out = [dataclasses.astuple(m.gvr_for(kind)) for kind in sorted(
-        m.REGISTRY)]
+    side = "port" if m is port_objects else "ref"
+    registry = {kind: dataclasses.astuple(m.gvr_for(kind))
+                for kind in m.REGISTRY}
+    out = [registry if side == "port" else to_port(registry)]
     out.append(_call(m.gvr_for, "NoSuchKind"))
     ds = m.Obj({"apiVersion": "apps/v1", "kind": "DaemonSet",
                 "metadata": {"name": "d", "namespace": "ns",
@@ -107,10 +124,9 @@ def _objects_scenario(m):
     out += [m.get_env(c, "A"), m.get_env(c, "B"), m.get_env(c, "Z"),
             [x["name"] for x in m.containers(ds, init=True)],
             m.find_container(ds, "nope")]
-    for res in ({"limits": {"tpu.dev/chip": "1"}},
-                {"requests": {"google.com/tpu": "4"}},
-                {"limits": {"nvidia.com/gpu": "1"}}, {}):
-        out.append(m.consumes_tpu(m.Obj(_pod(res))))
+    consumes = m.consumes_gpu if side == "port" else m.consumes_tpu
+    for res in CONSUMERS[side]:
+        out.append(consumes(m.Obj(_pod(res))))
     for target, patch in (({"a": 1, "b": {"c": 2}}, {"b": {"c": None,
                                                          "d": [1]}}),
                           ({"a": 1}, {"a": {"x": 1}}), ("s", {"k": 1}),

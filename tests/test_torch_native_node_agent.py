@@ -378,3 +378,25 @@ def test_cdi_spec_and_install_follow_nvml(port_bins, tmp_path, nvml_so):
     p = run(port_bins, "gpu-node-agent", "driver-install",
             *agent_args(root, "p"), "--nvml", nvml_so)
     assert p.returncode == 1 and "no GPU devices" in p.stderr
+
+
+@pytest.mark.parametrize("required,ok", [("580.159.03", True),
+                                         ("575.51.03", False),
+                                         ("latest", False)])
+def test_driver_install_holds_the_required_version(port_bins, tmp_path,
+                                                   required, ok):
+    """``DRIVER_REQUIRED_VERSION`` (the operator's per-product pin from
+    ``driver.versionMap``) must equal the staged library's version, read
+    as the metrics agent reads it; otherwise the install fails and the
+    ``driver`` status is not written."""
+    root = side_tree(tmp_path, "p")
+    img = root / "img"
+    (img / "libcuda.so.1").unlink()
+    shutil.copy(port_bins / "libfake-cuda.so", img / "libcuda.so.580.159.03")
+    (img / "libcuda.so.1").symlink_to("libcuda.so.580.159.03")
+    p = run(port_bins, "gpu-node-agent", "driver-install",
+            *agent_args(root, "p"), env={"DRIVER_REQUIRED_VERSION": required})
+    assert (p.returncode == 0) is ok, p.stderr
+    assert os.path.exists(root / "validations" / "driver-ready") is ok
+    if not ok:
+        assert "DRIVER_REQUIRED_VERSION" in p.stderr

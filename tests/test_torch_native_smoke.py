@@ -240,3 +240,20 @@ def test_smoke_ptx_is_written_for_a_low_target():
     for sym in ("cuMemAlloc", "cuMemcpyHtoD", "cuMemcpyDtoH", "cuMemFree"):
         assert f"{sym}_v2" in src
         assert f"GPUOP_BIND({sym})" not in src
+
+
+def test_smoke_finds_libcuda_in_the_install_dir(port_bins, tmp_path):
+    """The startup probe runs in the driver installer's container, whose
+    ``DRIVER_INSTALL_DIR`` names the directory it staged into: the probe
+    checks that library and falls back to no other."""
+    root = side_tree(tmp_path, "p", payload=str(port_bins /
+                                                "libfake-cuda.so"))
+    p = smoke(port_bins, "p", "--device-glob", glob_of(root, "p"),
+              env={"DRIVER_INSTALL_DIR": str(root / "img")})
+    out = json.loads(p.stdout)
+    assert p.returncode == 0 and out["libcuda"] == str(root / "img" /
+                                                       "libcuda.so.1")
+    p = smoke(port_bins, "p", "--device-glob", glob_of(root, "p"),
+              env={"DRIVER_INSTALL_DIR": str(root / "host"),
+                   "NVIDIA_DRIVER_ROOT": "/"})
+    assert p.returncode == 1

@@ -699,3 +699,26 @@ def test_metric_families_are_the_references_renamed(tmp_path):
            .replace("tpu_devices", "gpu_devices")
            for f in families(RefMetrics(str(tmp_path)))]
     assert families(NodeMetrics(str(tmp_path))) == sorted(ref)
+
+
+def test_driver_component_looks_in_the_install_dir_alone(tmp_path,
+                                                         monkeypatch):
+    """``DRIVER_INSTALL_DIR`` (the driver installer's host directory as the
+    validator's DaemonSet mounts it) is where the library is looked for,
+    with no fallback to the driver root, as the node agents do."""
+    from tpu_operator_torch.validator.components import DriverComponent
+    root = tmp_path / "root"
+    (root / "usr" / "lib64").mkdir(parents=True)
+    (root / "usr" / "lib64" / "libcuda.so.1").touch()
+    staged = tmp_path / "host-install-dir"
+    staged.mkdir()
+    monkeypatch.setenv("DRIVER_INSTALL_DIR", str(staged))
+    comp = DriverComponent(driver_root=str(root),
+                           validations_dir=str(tmp_path / "v"))
+    assert comp.find_library() is None
+    (staged / "libcuda.so.1").touch()
+    assert comp.find_library() == str(staged / "libcuda.so.1")
+    monkeypatch.delenv("DRIVER_INSTALL_DIR")
+    assert DriverComponent(driver_root=str(root),
+                           validations_dir=str(tmp_path / "v")) \
+        .find_library() == str(root / "usr" / "lib64" / "libcuda.so.1")

@@ -23,13 +23,24 @@ GPU_IS_LOST = 15
 
 
 def device(minor, name="NVIDIA H100 80GB HBM3", links=None, ecc=(0, 0),
-           remapped=(0, 0, 0, 0)):
+           remapped=(0, 0, 0, 0), p2p=None):
     """One card: ``links`` maps a link number to True/False (up/down) or an
     NVML error code; links not named answer NOT_SUPPORTED. ``ecc`` is
     (corrected, uncorrected) or an error code, ``remapped`` the four values
-    of ``nvmlDeviceGetRemappedRows`` or an error code."""
+    of ``nvmlDeviceGetRemappedRows`` or an error code. ``p2p`` maps a peer's
+    minor number to True/False (NVLink P2P status OK or not) or an NVML
+    error code; peers not named answer not linked."""
     return {"minor": minor, "name": name, "links": dict(links or {}),
-            "ecc": ecc, "remapped": remapped}
+            "ecc": ecc, "remapped": remapped, "p2p": dict(p2p or {})}
+
+
+def nvlink_cards(minors, pairs):
+    """Cards with these minor numbers, NVLink P2P capable exactly on the
+    given (minor, minor) pairs, both ways."""
+    p2p = {m: {} for m in minors}
+    for a, b in pairs:
+        p2p[a][b] = p2p[b][a] = True
+    return [device(m, p2p=p2p[m]) for m in minors]
 
 
 class FakeLibrary:
@@ -79,11 +90,17 @@ class FakeLibrary:
     def driver_version(self):
         return self.driver
 
+    def p2p_nvlink(self, h1, h2):
+        peer = self.devices[h2]["minor"]
+        return self._check("nvmlDeviceGetP2PStatus",
+                           self.devices[h1]["p2p"].get(peer, False))
+
 
 # Two cards: NVML index 0 is minor 0, index 1 is minor 2. Links 0-3 exist
 # (link 2 of the second card is down); past them the first card answers
 # NOT_SUPPORTED and the second INVALID_ARGUMENT. The first card reports
-# no remapped rows (NOT_SUPPORTED).
+# no remapped rows (NOT_SUPPORTED). The two cards are NVLink peers; a card
+# asked about itself answers INVALID_ARGUMENT.
 FAKE_NVML_C = r"""
 #include <string.h>
 typedef void *dev_t_;
@@ -114,7 +131,13 @@ int nvmlDeviceGetRemappedRows(dev_t_ h, unsigned *c, unsigned *u,
     *c = 1; *u = 2; *p = 1; *f = 0; return 0; }
 int nvmlSystemGetDriverVersion(char *buf, unsigned len) {
     strncpy(buf, "580.159.03", len); return 0; }
+int nvmlDeviceGetP2PStatus(dev_t_ a, dev_t_ b, int caps, int *status) {
+    if (a == b || caps != 2) return 2;
+    *status = 0; return 0; }
 """
+
+#: what ``NvmlSource.nvlink_peers`` must read from the compiled library
+FAKE_NVML_PEERS = {0: {2}, 2: {0}}
 
 #: what ``NvmlSource`` must read from the compiled library
 FAKE_NVML_ATTRIBUTES = {

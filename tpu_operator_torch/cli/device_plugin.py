@@ -6,6 +6,8 @@ NVIDIA k8s-device-plugin — advertises cards to kubelet over the
 device-plugin gRPC API. ``--driver-lib-path`` takes the place of
 ``--libtpu-path``; the reference's ``--host-chips`` and
 ``--accelerator-type`` serve only the ICI bounds and have no counterpart.
+The operator's DaemonSet configures it by environment: ``GPU_RESOURCE_NAME``,
+``DEVICE_PLUGIN_DIR``, ``GPU_HEALTH_FILE`` and ``SLICE_AWARE``.
 """
 
 from __future__ import annotations
@@ -20,8 +22,12 @@ def main(argv=None) -> int:
                                                            GpuDiscovery)
 
     p = argparse.ArgumentParser(prog="gpu-device-plugin")
-    p.add_argument("--resource-name", default="nvidia.com/gpu")
-    p.add_argument("--plugin-dir", default="/var/lib/kubelet/device-plugins")
+    p.add_argument("--resource-name",
+                   default=os.environ.get("GPU_RESOURCE_NAME")
+                   or "nvidia.com/gpu")
+    p.add_argument("--plugin-dir",
+                   default=os.environ.get("DEVICE_PLUGIN_DIR")
+                   or "/var/lib/kubelet/device-plugins")
     p.add_argument("--dev-root", default="/dev")
     p.add_argument("--device-glob", default=None,
                    help="default: GPU_DEVICE_GLOB env, else nvidia[0-9]*")
@@ -44,11 +50,19 @@ def main(argv=None) -> int:
     from tpu_operator_torch.utils.logs import setup_logging
     setup_logging(args.verbose, args.log_format)
 
+    discovery = GpuDiscovery(args.dev_root, args.device_glob,
+                             args.health_file)
+    if os.environ.get("SLICE_AWARE", "").lower() == "true":
+        # re-advertise per NVLink group when the slice manager has written
+        # a plan (the MIG-strategy analogue)
+        from tpu_operator_torch.deviceplugin.discovery import \
+            SliceAwareDiscovery
+        discovery = SliceAwareDiscovery(discovery)
+
     plugin = GpuDevicePlugin(
         resource_name=args.resource_name,
         plugin_dir=args.plugin_dir,
-        discovery=GpuDiscovery(args.dev_root, args.device_glob,
-                               args.health_file),
+        discovery=discovery,
         strategy=args.strategy,
         driver_lib_host_path=args.driver_lib_path,
         poll_seconds=args.poll_seconds)

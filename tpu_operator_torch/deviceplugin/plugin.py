@@ -146,14 +146,18 @@ class GpuDevicePlugin:
                 if dev is None or dev.health != HEALTHY:
                     context.abort(grpc.StatusCode.INVALID_ARGUMENT,
                                   f"unknown or unhealthy device {did!r}")
-                indices.append(dev.index)
+                # a slice-aware unit (an NVLink group) expands into its
+                # member cards
+                indices.extend(dev.member_indices)
                 if self.strategy == "cdi":
-                    car.cdi_devices.append(pb.CDIDevice(
-                        name=f"{CDI_KIND}={dev.index}"))
+                    for index in dev.member_indices:
+                        car.cdi_devices.append(pb.CDIDevice(
+                            name=f"{CDI_KIND}={index}"))
                 else:
-                    car.devices.append(pb.DeviceSpec(
-                        container_path=dev.path, host_path=dev.path,
-                        permissions="rw"))
+                    for path in dev.member_paths:
+                        car.devices.append(pb.DeviceSpec(
+                            container_path=path, host_path=path,
+                            permissions="rw"))
             if self.strategy == "device":
                 for path in self.control_nodes():
                     car.devices.append(pb.DeviceSpec(

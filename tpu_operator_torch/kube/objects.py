@@ -2,7 +2,10 @@
 
 The port's copy of ``tpu_operator/kube/objects.py``, which uses no device:
 the port imports nothing of the JAX package, so it keeps its own, and
-``tests/test_torch_kube_copy.py`` holds the two equal on the same inputs.
+``tests/test_torch_kube_copy.py`` holds the two equal on the same inputs,
+through the GPU names: the policy kind is ``GPUClusterPolicy``
+(``nvidia.com/v1alpha1``) and ``consumes_gpu`` takes ``consumes_tpu``'s
+place.
 
 Design departure from the reference: the GPU operator decodes every manifest
 into typed Go structs and keeps one controlFunc per concrete type
@@ -51,7 +54,8 @@ REGISTRY: dict[str, KindInfo] = {
     "Lease": KindInfo("coordination.k8s.io/v1", "leases", True),
     "ServiceMonitor": KindInfo("monitoring.coreos.com/v1", "servicemonitors", True),
     "PrometheusRule": KindInfo("monitoring.coreos.com/v1", "prometheusrules", True),
-    "TPUClusterPolicy": KindInfo("tpu.dev/v1alpha1", "tpuclusterpolicies", False),
+    "GPUClusterPolicy": KindInfo("nvidia.com/v1alpha1", "gpuclusterpolicies",
+                                 False),
     "CustomResourceDefinition": KindInfo("apiextensions.k8s.io/v1",
                                          "customresourcedefinitions", False),
 }
@@ -216,15 +220,16 @@ def get_env(container: dict, name: str):
     return None
 
 
-def consumes_tpu(pod: Obj, resource_name: str = "tpu.dev/chip") -> bool:
-    """Does any container request/limit a TPU resource? Shared by the
+def consumes_gpu(pod: Obj, resource_name: str = "nvidia.com/gpu") -> bool:
+    """Does any container request/limit a GPU resource? Shared by the
     upgrade drain and the slice-manager drain (reference analogue:
-    gpuPodSpecFilter, main.go:161-183)."""
+    gpuPodSpecFilter, main.go:161-183). Any ``nvidia.com/gpu*`` name counts
+    (the renamed resources of time-slicing, ``nvidia.com/gpu.shared``)."""
     for c in pod.get("spec", "containers", default=[]) or []:
         res = c.get("resources", {})
         merged = {**res.get("requests", {}), **res.get("limits", {})}
         if resource_name in merged or any(
-                k.startswith("google.com/tpu") for k in merged):
+                k.startswith("nvidia.com/gpu") for k in merged):
             return True
     return False
 

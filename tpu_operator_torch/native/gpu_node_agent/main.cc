@@ -6,8 +6,10 @@
 // Subcommands:
 //   driver-install      stage the driver's user-space libraries from the
 //                       operand image into the install dir (atomic rename),
-//                       verify dlopen, write the `driver` status file; then
-//                       hold (DaemonSet main container).
+//                       verify dlopen (and, with DRIVER_REQUIRED_VERSION or
+//                       --required-version, the staged version), write the
+//                       `driver` status file; then hold (DaemonSet main
+//                       container).
 //   runtime-configure   write the CDI spec for the node's cards and a
 //                       containerd drop-in registering the `nvidia`
 //                       handlers; write the `container-toolkit` status
@@ -52,6 +54,9 @@ struct Options {
   std::string source = "/usr/share/gpu-operator/driver";
   std::string driverRoot = "/";
   std::string installDir;  // empty: <driver root>/usr/lib/x86_64-linux-gnu
+  // the driver version the staged libcuda must carry (the operator's
+  // per-product pin, driver.versionMap); empty: any
+  std::string requiredVersion;
   std::string devGlob = gpuop::kDefaultDeviceGlob;
   std::string nvml = gpuop::kNvmlSoname;
   std::string cdiSpecDir = "/etc/cdi";
@@ -284,6 +289,16 @@ int DriverInstall(const Options& opt) {
     RemoveStatus(opt, kDriverComponent);
     return 1;
   }
+  if (!opt.requiredVersion.empty()) {
+    long long want = gpuop::DriverVersionEpoch(opt.requiredVersion);
+    long long have = gpuop::StagedDriverEpoch(dest);
+    if (want < 0 || have != want) {
+      std::cerr << "driver-install: " << dest << " is not driver version "
+                << opt.requiredVersion << " (DRIVER_REQUIRED_VERSION)\n";
+      RemoveStatus(opt, kDriverComponent);
+      return 1;
+    }
+  }
   auto devices = gpuop::PresentGpuDevices(opt.devGlob, opt.nvml);
   if (devices.empty()) {
     std::cerr << "driver-install: no GPU devices match " << opt.devGlob
@@ -454,6 +469,8 @@ int main(int argc, char** argv) {
   // parsed below take precedence — same order as the Python components
   if (const char* v = getenv("NVIDIA_DRIVER_ROOT")) opt.driverRoot = v;
   if (const char* v = getenv("DRIVER_INSTALL_DIR")) opt.installDir = v;
+  if (const char* v = getenv("DRIVER_REQUIRED_VERSION"))
+    opt.requiredVersion = v;
   if (const char* v = getenv("GPU_DEVICE_GLOB")) opt.devGlob = v;
   if (const char* v = getenv("CDI_SPEC_DIR")) opt.cdiSpecDir = v;
   if (const char* v = getenv("CONTAINERD_CONFIG")) opt.containerdConfig = v;
@@ -470,6 +487,7 @@ int main(int argc, char** argv) {
     if (a == "--source") next(&opt.source);
     else if (a == "--driver-root") next(&opt.driverRoot);
     else if (a == "--install-dir") next(&opt.installDir);
+    else if (a == "--required-version") next(&opt.requiredVersion);
     else if (a == "--device-glob") next(&opt.devGlob);
     else if (a == "--nvml") next(&opt.nvml);
     else if (a == "--cdi-spec-dir") next(&opt.cdiSpecDir);

@@ -2,7 +2,9 @@
 // operator ships it: a cheap startup probe for the driver DaemonSet.
 //
 // Without --run-add: the card device nodes exist and libcuda.so.1 is
-// present, dlopen-able, and exports the driver API (cuInit). With
+// present, dlopen-able, and exports the driver API (cuInit). The library
+// is --libcuda, else DRIVER_INSTALL_DIR's (the driver installer's
+// container, where the probe runs), else the one under NVIDIA_DRIVER_ROOT. With
 // --run-add: an elementwise add of n floats JIT-compiled from PTX and run
 // on device 0 through the driver API, checked exactly on the host.
 //
@@ -31,6 +33,8 @@ int main(int argc, char** argv) {
   std::string libcudaPath;
   std::string driverRoot = "/";
   if (const char* v = getenv("NVIDIA_DRIVER_ROOT")) driverRoot = v;
+  std::string installDir;
+  if (const char* v = getenv("DRIVER_INSTALL_DIR")) installDir = v;
   bool quiet = false;
   bool requireDevices = true;
   bool runAdd = false;
@@ -67,7 +71,7 @@ int main(int argc, char** argv) {
   // install (the probe exists to catch exactly that)
   std::string lib = !libcudaPath.empty()
                         ? libcudaPath
-                        : gpuop::FindDriverLibrary(driverRoot, "libcuda.so.1");
+                        : gpuop::LibcudaPath(installDir, driverRoot);
 
   if (runAdd) {
     char* end = nullptr;

@@ -28,7 +28,6 @@ and the product name carries it.
 from __future__ import annotations
 
 import ctypes
-import glob
 import logging
 import os
 import time
@@ -100,9 +99,18 @@ class FeatureDiscovery:
             return ""
         return devices[min(devices)].get("name", "") if devices else ""
 
+    def present_devices(self) -> list[str]:
+        """The device nodes of the cards present (F7's rule: NVML's minor
+        numbers where NVML loads, else readable and writable) — a node the
+        container cannot open is not a card of this node (F9)."""
+        scan = GpuDiscovery(dev_root=os.path.dirname(self.device_glob),
+                            device_glob=os.path.basename(self.device_glob),
+                            nvml=self.nvml)
+        return [path for path, _, present in scan.nodes() if present]
+
     def discover(self, node_labels: dict) -> dict:
         """Compute the desired nvidia.com/* label set for this node."""
-        devices = sorted(glob.glob(self.device_glob))
+        devices = self.present_devices()
         product = node_labels.get(GKE_ACCELERATOR_LABEL) \
             or self.nvml_product()
 

@@ -39,6 +39,11 @@ NVML_FEATURE_ENABLED = 1
 NVML_MEMORY_ERROR_TYPE_CORRECTED = 0
 NVML_MEMORY_ERROR_TYPE_UNCORRECTED = 1
 NVML_VOLATILE_ECC = 0
+#: ``nvmlGpuP2PCapsIndex_t``: the NVLink index of ``nvmlDeviceGetP2PStatus``
+#: (nvml.h: READ 0, WRITE 1, NVLINK 2, ATOMICS 3, PROP 4)
+NVML_P2P_CAPS_INDEX_NVLINK = 2
+#: ``nvmlGpuP2PStatus_t``: the pair can talk by that capability
+NVML_P2P_STATUS_OK = 0
 
 #: the error counters ``NvmlSource`` reports (NVML has no Xid counter:
 #: Xids arrive only as events)
@@ -88,6 +93,9 @@ _PROTOTYPES = {
                                   ctypes.POINTER(_uint),
                                   ctypes.POINTER(_uint)),
     "nvmlSystemGetDriverVersion": (ctypes.c_char_p, _uint),
+    # nvmlGpuP2PCapsIndex_t and nvmlGpuP2PStatus_t are C enums: ints
+    "nvmlDeviceGetP2PStatus": (_handle, _handle, ctypes.c_int,
+                               ctypes.POINTER(ctypes.c_int)),
 }
 
 
@@ -163,6 +171,13 @@ class Library:
         self._call("nvmlSystemGetDriverVersion", buf, len(buf))
         return buf.value.decode(errors="replace")
 
+    def p2p_nvlink(self, h1, h2) -> bool:
+        """Whether the two cards can reach each other over NVLink."""
+        status = ctypes.c_int()
+        self._call("nvmlDeviceGetP2PStatus", h1, h2,
+                   NVML_P2P_CAPS_INDEX_NVLINK, ctypes.byref(status))
+        return status.value == NVML_P2P_STATUS_OK
+
 
 def _absent(e: NvmlError) -> bool:
     """The codes by which NVML says a device lacks a feature."""
@@ -218,6 +233,32 @@ class NvmlSource:
                 for i in range(lib.device_count())})
         except NvmlError:
             return set()
+
+    def nvlink_peers(self) -> dict[int, set[int]] | None:
+        """{minor number: the minor numbers it reaches over NVLink} for
+        every card NVML lists; None where NVML does not load. A pair whose
+        status query fails counts as not linked."""
+        if self.library() is None:
+            return None
+
+        def read(lib):
+            cards = [(lib.minor_number(h), h) for h in
+                     (lib.handle(i) for i in range(lib.device_count()))]
+            peers: dict[int, set[int]] = {m: set() for m, _ in cards}
+            for i, (m1, h1) in enumerate(cards):
+                for m2, h2 in cards[i + 1:]:
+                    try:
+                        linked = lib.p2p_nvlink(h1, h2)
+                    except NvmlError:
+                        linked = False
+                    if linked:
+                        peers[m1].add(m2)
+                        peers[m2].add(m1)
+            return peers
+        try:
+            return self._session(read)
+        except NvmlError:
+            return {}
 
     def where(self, index: int, attr: str) -> str:
         return f"nvml:nvidia{index}/{attr}"

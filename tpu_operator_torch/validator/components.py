@@ -146,9 +146,14 @@ class DriverComponent(Component):
 
     def __init__(self, driver_root: str | None = None,
                  device_glob: str | None = None, observer: bool = False,
-                 **kw):
+                 install_dir: str | None = None, **kw):
         super().__init__(**kw)
         self.driver_root = driver_root or _driver_root_default()
+        # where the driver installer staged the library (its host directory
+        # as mounted here); set, it is the only place looked at, as the
+        # node agents do (common/util.h LibcudaPath)
+        self.install_dir = install_dir if install_dir is not None \
+            else os.environ.get("DRIVER_INSTALL_DIR", "")
         self.device_glob = device_glob or os.environ.get(
             "GPU_DEVICE_GLOB", self.DEFAULT_DEVICE_GLOB)
         # observer=True: a read-only caller (the metrics revalidation loop)
@@ -160,6 +165,9 @@ class DriverComponent(Component):
         self.observer = observer
 
     def find_library(self) -> str | None:
+        if self.install_dir:
+            path = os.path.join(self.install_dir, "libcuda.so.1")
+            return path if os.path.exists(path) else None
         return find_driver_library(self.driver_root, "libcuda.so.1")
 
     def find_devices(self) -> list[str]:
@@ -218,7 +226,9 @@ class DriverComponent(Component):
         lib = self.find_library()
         if lib is None:
             raise ValidationFailed(
-                f"libcuda.so.1 not found under {self.driver_root}")
+                "libcuda.so.1 not found " + (
+                    f"in {self.install_dir}" if self.install_dir
+                    else f"under {self.driver_root}"))
         if not self.loadable(lib):
             raise ValidationFailed(f"{lib} exists but dlopen failed")
         devs = self.find_devices()
