@@ -59,7 +59,15 @@ the state pipeline renders every operand for a fake cluster holding this
 node (labelled by the port's feature discovery on this card) and a CPU
 node, and a second pass must write nothing; then the ``workload``
 validation container it rendered runs through the validator CLI with its
-own environment, where K1 and K2 must launch. Nothing is written outside
+own environment, where K1 and K2 must launch. Last, the operator: its CLI
+(``tpu_operator_torch.cli.operator``, ``--client fake:<file> --once``)
+runs pass after pass on a file-backed fake cluster of this node, a CPU
+node and the sample ``GPUClusterPolicy``, with this script marking the
+rendered DaemonSets ready between passes, until it reports ready; three
+more passes must move no object's resourceVersion; the ``workload``
+container of the validator DaemonSet it rendered runs on the card (K1 and
+K2 must launch); and ``gpu-oci-hook`` must inject the same card node for
+the card's NVML UUID as for its minor number. Nothing is written outside
 temporary directories.
 
 Output: progress lines, then the ``nvidia-smi`` name and power limit, then
@@ -1347,7 +1355,9 @@ def phase_agents_node() -> None:
     install and validations directories; then ``gpu-oci-hook inject`` of
     NVML's card into a temporary bundle. Nothing is written outside the
     temporaries, and no device setting is touched."""
+    from tpu_operator_torch.utils.nvml import NvmlSource
     cards = nvml_cards()
+    uuids = NvmlSource().uuids()
     lib = machine_libcuda()
     real = os.path.realpath(lib)
     rc, stdout, stderr, secs = agent("gpu-node-agent", "cdi-generate")
@@ -1358,8 +1368,10 @@ def phase_agents_node() -> None:
           f"devices {names}; control nodes "
           f"{[n['path'] for n in edits.get('deviceNodes', [])]}; mounts "
           f"{[m['hostPath'] for m in edits.get('mounts', [])]}")
-    check(rc == 0 and names == [str(m) for m in sorted(cards)] + ["all"],
-          f"CDI devices {names}, NVML's cards {sorted(cards)}")
+    # each card by its minor number and by its NVML UUID (F10)
+    check(rc == 0 and names == [n for m in sorted(cards)
+                                for n in (str(m), uuids[m])] + ["all"],
+          f"CDI devices {names}, NVML's cards {uuids}")
     check(edits["mounts"][0]["hostPath"] == lib, "CDI mount of libcuda")
     rc, stdout, _, _ = agent("gpu-node-agent", "probe")
     print(f"[agents] gpu-node-agent probe: rc {rc}, {stdout.strip()}")
@@ -1614,15 +1626,21 @@ def phase_states_pipeline() -> None:
 
 def phase_states_validator() -> None:
     """The ``workload-validation`` init container of the DaemonSet the
-    pipeline rendered, run as a node would run it: its command through the
-    port's validator CLI in this process, with its environment and its
-    hostPaths mapped into a temporary directory (the device tree stays the
-    machine's; the install dir holds the machine's ``libcuda.so.1``, as the
-    driver installer leaves it). K1 and K2 must launch."""
+    pipeline rendered, run as a node would run it (``run_rendered_workload``).
+    K1 and K2 must launch."""
+    run_rendered_workload(STATES_RUN.pop("client"), "[states]")
+
+
+def run_rendered_workload(client, tag: str) -> None:
+    """The ``workload-validation`` init container of the validator
+    DaemonSet in ``client``: its command through the port's validator CLI
+    in this process, with its environment and its hostPaths mapped into a
+    temporary directory (the device tree stays the machine's; the install
+    dir holds the machine's ``libcuda.so.1``, as the driver installer leaves
+    it). It must pass on the card."""
     import contextlib
     import io
     from tpu_operator_torch.cli.validator import main as validator
-    client = STATES_RUN.pop("client")
     ds = client.get("DaemonSet", "gpu-operator-validator", STATES_NS)
     spec = ds.get("spec", "template", "spec")
     [c] = [c for c in spec["initContainers"]
@@ -1655,7 +1673,7 @@ def phase_states_validator() -> None:
                    os.path.join(env["DRIVER_INSTALL_DIR"], "libcuda.so.1"))
         vdir = mapped(next(m["mountPath"] for m in c["volumeMounts"]
                            if m["name"] == "validations"))
-        print(f"[states] workload container env: "
+        print(f"{tag} workload container env: "
               f"{json.dumps(env, sort_keys=True)}")
         saved = {k: os.environ.get(k) for k in env}
         os.environ.update(env)
@@ -1672,8 +1690,9 @@ def phase_states_validator() -> None:
                     os.environ[k] = v
         wall = time.perf_counter() - t0
         line = json.loads(out.getvalue().strip().splitlines()[-1])
-        print(f"[states] rendered workload validation: rc {rc}, ok "
-              f"{line['ok']} ({wall:.3f} s on the host clock)")
+        print(f"{tag} rendered workload validation: rc {rc}, ok "
+              f"{line['ok']}, platform {line['info']['platform']} "
+              f"({wall:.3f} s on the host clock)")
         check(rc == 0 and line["ok"] is True,
               f"rendered workload validation: rc {rc}, {line}")
         info = line["info"]
@@ -1681,6 +1700,180 @@ def phase_states_validator() -> None:
               f"the rendered validator ran off the card: {info}")
         check(os.path.exists(os.path.join(vdir, "workload-ready")),
               "no workload status file")
+
+
+# -- the operator: its CLI drives the node to ready, the workload it renders
+# runs on the card, the OCI hook injects the card by its NVML UUID ---------
+
+#: what the operator's phases hand each other
+OPERATOR_RUN: dict = {}
+SAMPLE_CR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "tpu_operator_torch", "config", "samples",
+                         "v1alpha1_gpuclusterpolicy.yaml")
+
+
+def resource_versions(path: str) -> dict:
+    """{object key: resourceVersion} of a file-backed fake cluster."""
+    with open(path) as f:
+        doc = json.load(f)
+    return {"/".join(str(p) for p in e["key"]):
+            e["raw"]["metadata"].get("resourceVersion")
+            for e in doc["objects"]}
+
+
+def phase_operator_cli() -> None:
+    """``tpu_operator_torch.cli.operator.main`` with ``--client fake:<file>
+    --once --no-retry``, pass after pass, on a file-backed fake cluster of
+    this node (labelled by the port's feature discovery run on this card
+    plus NFD's PCI vendor label), a CPU node and the sample
+    ``GPUClusterPolicy``; between passes this script plays kubelet and
+    marks the rendered DaemonSets ready. The CLI must reach ready (rc 0)
+    within 10 passes; then three more passes must move no object's
+    resourceVersion."""
+    import contextlib
+    import io
+    import yaml
+    from tpu_operator_torch.cli import operator as cli
+    from tpu_operator_torch.controllers.state_manager import NFD_PCI_LABEL
+    from tpu_operator_torch.kube import Obj
+    from tpu_operator_torch.kube.fake import FileBackedFakeClient
+    from tpu_operator_torch.operands.feature_discovery import \
+        FeatureDiscovery
+    tmp = tempfile.mkdtemp(prefix="gpu-operator-")
+    OPERATOR_RUN["tmp"] = tmp
+    path = os.path.join(tmp, "cluster.json")
+    client = FileBackedFakeClient(path)
+    client.add_node(STATES_NODE, {})
+    labels = FeatureDiscovery(client, node_name=STATES_NODE).apply_once()
+    node = client.get("Node", STATES_NODE)
+    node.labels[NFD_PCI_LABEL] = "true"
+    client.update(node)
+    client.add_node("cpu-node-0", {})
+    with open(SAMPLE_CR) as f:
+        cr = client.create(Obj(yaml.safe_load(f)))
+    print(f"[operator] cluster {path}: {STATES_NODE} labelled {labels} and "
+          f"{NFD_PCI_LABEL}; cpu-node-0; {cr.kind} {cr.name} "
+          f"(config/samples)")
+
+    metrics = []
+    real_metrics = cli.OperatorMetrics
+
+    class Recorded(real_metrics):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            metrics.append(self)
+
+    def once():
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["--client", f"fake:{path}", "--once",
+                           "--no-retry"])
+        return rc, json.loads(out.getvalue()), (time.perf_counter() - t0) * 1e3
+
+    saved = {k: os.environ.get(k) for k in cli.IMAGE_ENVS}
+    cli.OperatorMetrics = Recorded
+    try:
+        passes = []
+        for _ in range(10):
+            rc, res, ms = once()
+            passes.append(ms)
+            print(f"[operator] pass {len(passes)}: rc {rc}, ready "
+                  f"{res['ready']}, {res['message']!r}, requeue "
+                  f"{res['requeueAfter']} s; {ms:.3f} ms on the host clock")
+            if rc == 0:
+                break
+            FileBackedFakeClient(path).mark_daemonsets_ready()
+        check(rc == 0 and res["ready"],
+              f"the operator did not reach ready in {len(passes)} passes")
+        status = FileBackedFakeClient(path).get(cr.kind, cr.name).raw[
+            "status"]
+        gauge = metrics[-1].reconciliation_status.get()
+        print(f"[operator] ready after {len(passes)} passes "
+              f"({', '.join(f'{ms:.3f}' for ms in passes)} ms); CR "
+              f"status.state {status['state']!r}; "
+              f"gpu_operator_reconciliation_status {gauge}; states "
+              f"{json.dumps(res['states'], sort_keys=True)}")
+        check(status["state"] == "ready" and gauge == 1,
+              f"CR state {status['state']}, gauge {gauge}")
+        before = resource_versions(path)
+        converged = []
+        for _ in range(3):
+            rc, res, ms = once()
+            converged.append(ms)
+            check(rc == 0 and res["ready"], f"converged pass: rc {rc}")
+        after = resource_versions(path)
+        moved = sorted(k for k in set(before) | set(after)
+                       if before.get(k) != after.get(k))
+        print(f"[operator] 3 converged passes: "
+              f"{', '.join(f'{ms:.3f}' for ms in converged)} ms on the host "
+              f"clock; {len(moved)} objects' resourceVersion moved of "
+              f"{len(after)}")
+        check(moved == [], f"converged passes wrote {moved}")
+    finally:
+        cli.OperatorMetrics = real_metrics
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    OPERATOR_RUN["path"] = path
+
+
+def phase_operator_validator() -> None:
+    """The ``workload-validation`` container of the validator DaemonSet the
+    operator rendered in this path's cluster, run on the card
+    (``run_rendered_workload``). K1 and K2 must launch."""
+    from tpu_operator_torch.kube.fake import FileBackedFakeClient
+    try:
+        run_rendered_workload(FileBackedFakeClient(OPERATOR_RUN["path"]),
+                              "[operator]")
+    finally:
+        shutil.rmtree(OPERATOR_RUN.pop("tmp"), ignore_errors=True)
+
+
+def phase_operator_oci_hook() -> None:
+    """F10 on the card: the device plugin names this card by its NVML UUID
+    where NVML loads, so ``gpu-oci-hook`` must inject, for
+    ``NVIDIA_VISIBLE_DEVICES=<UUID>``, the same card node it injects for
+    the card's minor number."""
+    from tpu_operator_torch.utils.nvml import NvmlSource
+    uuids = NvmlSource().uuids()
+    check(bool(uuids), f"NVML's UUIDs: {uuids}")
+    props = torch.cuda.get_device_properties(0)
+    torch_uuid = str(getattr(props, "uuid", ""))
+    print(f"[operator] NVML's UUIDs by minor number: {uuids}; torch's card "
+          f"{torch_uuid or 'not reported'}")
+    minor = min(uuids)
+    check(not torch_uuid
+          or uuids[minor].lower() == f"gpu-{torch_uuid.lower()}",
+          "NVML's UUID is not the card torch runs on")
+    injected = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for value in (str(minor), uuids[minor]):
+            bundle = os.path.join(tmp, f"bundle-{len(injected)}")
+            os.mkdir(bundle)
+            with open(os.path.join(bundle, "config.json"), "w") as f:
+                json.dump({"ociVersion": "1.0.2", "process": {
+                    "args": ["nvidia-smi"], "cwd": "/",
+                    "env": [f"NVIDIA_VISIBLE_DEVICES={value}"]},
+                    "linux": {"resources": {}}}, f)
+            rc, _, stderr, secs = agent("gpu-oci-hook", "inject", "--bundle",
+                                        bundle)
+            check(rc == 0, f"gpu-oci-hook NVIDIA_VISIBLE_DEVICES={value}: "
+                           f"rc {rc}, {stderr}")
+            with open(os.path.join(bundle, "config.json")) as f:
+                devices = json.load(f)["linux"]["devices"]
+            injected[value] = [(d["path"], d["major"], d["minor"])
+                               for d in devices
+                               if re.fullmatch(r"/dev/nvidia\d+", d["path"])]
+            print(f"[operator] gpu-oci-hook inject "
+                  f"NVIDIA_VISIBLE_DEVICES={value}: rc {rc} in {secs:.3f} s;"
+                  f" cards {injected[value]}")
+    card = f"/dev/nvidia{minor}"
+    check([p for p, *_ in injected[uuids[minor]]] == [card]
+          and injected[uuids[minor]] == injected[str(minor)],
+          f"by UUID {injected[uuids[minor]]}, by minor {injected[str(minor)]}")
 
 
 def main() -> int:
@@ -1723,6 +1916,10 @@ def main() -> int:
                          phase_agents_metrics, phase_agents_node), {}),
         ("operator states", (phase_states_slices, phase_states_pipeline,
                              phase_states_validator),
+         {"hbm_read": hbm_mod.read_sum,
+          "flash_fwd": flash_mod.flash_attention}),
+        ("operator", (phase_operator_cli, phase_operator_validator,
+                      phase_operator_oci_hook),
          {"hbm_read": hbm_mod.read_sum,
           "flash_fwd": flash_mod.flash_attention}),
     )

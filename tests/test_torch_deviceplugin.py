@@ -419,6 +419,9 @@ class _NoNvml:
     def minor_numbers(self):
         return None
 
+    def uuids(self):
+        return None
+
 
 @pytest.mark.parametrize("side_nodes", [1, 4])
 def test_presence_without_nvml_is_the_references(tmp_path, side_nodes):
@@ -487,3 +490,69 @@ def test_an_nvml_that_fails_lists_no_card(tmp_path):
     devs = port_discovery.GpuDiscovery(
         str(d), nvml=NvmlSource(Broken([device(0)]))).scan()
     assert [x.health for x in devs] == ["Unhealthy"]
+
+
+# == F10: the toolkit reads an NVML identity, not a minor number ============
+
+def _allocate_one(plugin, device_id):
+    resp = plugin.Allocate(port_pb.AllocateRequest(container_requests=[
+        port_pb.ContainerAllocateRequest(device_ids=[device_id])]), None)
+    [car] = resp.container_responses
+    return car
+
+
+@pytest.mark.parametrize("strategy", ["device", "cdi"])
+def test_allocate_names_the_card_nvml_knows_by_that_node(tmp_path, nvml_so,
+                                                         strategy):
+    """F10. The compiled fake NVML lists two cards: index 0 at minor 0 and
+    index 1 at minor 2. Allocating ``nvidia2`` must hand the toolkit a name
+    that NVML resolves to that card, its index 1 or its UUID; the minor
+    number 2 names no card (or another one, on a host with three). The
+    port names it by UUID, in the env and in the CDI name."""
+    import ctypes
+    from tpu_operator_torch.utils.nvml import Library, NvmlSource
+    d = tmp_path / "dev"
+    d.mkdir()
+    for i in range(3):
+        (d / f"nvidia{i}").write_text("")
+    # NVML's identity of each card, read straight from the library
+    so = ctypes.CDLL(nvml_so)
+    by_minor = {}
+    for i in range(2):
+        h, minor = ctypes.c_void_p(), ctypes.c_uint()
+        buf = ctypes.create_string_buffer(96)
+        assert so.nvmlDeviceGetHandleByIndex_v2(i, ctypes.byref(h)) == 0
+        assert so.nvmlDeviceGetMinorNumber(h, ctypes.byref(minor)) == 0
+        assert so.nvmlDeviceGetUUID(h, buf, 96) == 0
+        by_minor[minor.value] = (str(i), buf.value.decode())
+    index, uuid = by_minor[2]
+    assert index == "1"
+    plugin = port_plugin.GpuDevicePlugin(
+        plugin_dir=str(tmp_path), strategy=strategy,
+        discovery=port_discovery.GpuDiscovery(
+            str(d), nvml=NvmlSource(Library(nvml_so))))
+    car = _allocate_one(plugin, "nvidia2")
+    visible = car.envs["NVIDIA_VISIBLE_DEVICES"]
+    assert visible in (index, uuid)
+    assert visible == uuid
+    if strategy == "cdi":
+        assert [c.name for c in car.cdi_devices] == [f"nvidia.com/gpu={uuid}"]
+    else:
+        assert [x.host_path for x in car.devices][:1] == [str(d / "nvidia2")]
+
+
+def test_allocate_names_cards_by_minor_number_without_nvml(tmp_path):
+    """Without NVML the reference's rule stays: the minor number, in both
+    strategies."""
+    d = tmp_path / "dev"
+    d.mkdir()
+    for i in range(3):
+        (d / f"nvidia{i}").write_text("")
+    for strategy in ("device", "cdi"):
+        plugin = port_plugin.GpuDevicePlugin(
+            plugin_dir=str(tmp_path), strategy=strategy,
+            discovery=port_discovery.GpuDiscovery(str(d), nvml=_NoNvml()))
+        car = _allocate_one(plugin, "nvidia2")
+        assert car.envs["NVIDIA_VISIBLE_DEVICES"] == "2"
+        assert [c.name for c in car.cdi_devices] == (
+            ["nvidia.com/gpu=2"] if strategy == "cdi" else [])

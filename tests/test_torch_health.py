@@ -33,9 +33,9 @@ import tpu_operator_torch.health.probes as port_probes
 import tpu_operator_torch.kube.fake as port_fake
 from tpu_operator_torch.ops import hbm as port_hbm
 from tpu_operator_torch.utils import nvml
-from torch_fake_nvml import (FAKE_NVML_ATTRIBUTES, GPU_IS_LOST,  # noqa: F401
-                             INVALID_ARGUMENT, NOT_SUPPORTED, FakeLibrary,
-                             device, nvml_so)
+from torch_fake_nvml import (FAKE_NVML_ATTRIBUTES, FAKE_NVML_UUIDS,  # noqa: F401
+                             GPU_IS_LOST, INVALID_ARGUMENT, NOT_SUPPORTED,
+                             FakeLibrary, device, nvml_so)
 
 # the reference's published names → the port's, applied in order to the
 # JSON text of what the reference published
@@ -641,6 +641,23 @@ def test_library_prototypes_over_a_compiled_stand_in(nvml_so):
     assert rows == [["nvlink", True, "", 0],
                     ["nvlink", False, "nvml:nvidia2/nvlink_up reports link "
                      "down (links 2)", 2]]
+
+
+def test_uuids_by_minor_number(nvml_so, monkeypatch):
+    """``NvmlSource.uuids``: NVML's UUID keyed by minor number, through the
+    compiled stand-in (minor 2 is NVML's index 1) and the fake; no card
+    where NVML fails; None where it does not load."""
+    assert nvml.NvmlSource(nvml.Library(nvml_so)).uuids() == FAKE_NVML_UUIDS
+    lib = FakeLibrary([device(3, uuid="GPU-a"), device(1, uuid="GPU-b")])
+    assert nvml.NvmlSource(lib).uuids() == {3: "GPU-a", 1: "GPU-b"}
+    assert not lib.open
+    lost = FakeLibrary([device(0, uuid=GPU_IS_LOST)])
+    assert nvml.NvmlSource(lost).uuids() == {}
+
+    def refuse(path=nvml.SONAME):
+        raise OSError(f"{path}: cannot open shared object file")
+    monkeypatch.setattr(nvml, "Library", refuse)
+    assert nvml.NvmlSource().uuids() is None
 
 
 # == the HBM sweep (K1's plain version on the CPU) ===========================

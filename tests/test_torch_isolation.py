@@ -64,7 +64,21 @@ def test_scan_covers_the_package():
             "tpu_operator_torch/controllers/resource_manager.py",
             "tpu_operator_torch/controllers/sharding.py",
             "tpu_operator_torch/controllers/object_controls.py",
-            "tpu_operator_torch/controllers/state_manager.py"} <= rel
+            "tpu_operator_torch/controllers/state_manager.py",
+            "tpu_operator_torch/controllers/events.py",
+            "tpu_operator_torch/controllers/metrics.py",
+            "tpu_operator_torch/controllers/leader.py",
+            "tpu_operator_torch/controllers/upgrade_controller.py",
+            "tpu_operator_torch/controllers/remediation_controller.py",
+            "tpu_operator_torch/controllers/reshard_controller.py",
+            "tpu_operator_torch/controllers/clusterpolicy_controller.py",
+            "tpu_operator_torch/controllers/watch.py",
+            "tpu_operator_torch/kube/cache.py",
+            "tpu_operator_torch/kube/retry.py",
+            "tpu_operator_torch/kube/chaos.py",
+            "tpu_operator_torch/observability/goodput.py",
+            "tpu_operator_torch/parallel/mesh_plan.py",
+            "tpu_operator_torch/cli/operator.py"} <= rel
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -313,3 +327,39 @@ def test_exporter_imports_nothing_of_the_reference(tmp_path):
                          cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+def test_control_plane_loads_no_torch_and_no_grpc():
+    """Every module of the control plane — the controllers, the client
+    stack, goodput, the torch-free ``MeshPlan`` and the operator CLI —
+    loads in a fresh interpreter without ``torch`` or ``grpc``, as the
+    reference keeps jax out of its operator; the CLI's ``--help`` runs
+    there too."""
+    code = textwrap.dedent("""
+        import importlib, pkgutil, sys
+        import tpu_operator_torch.controllers as controllers
+        import tpu_operator_torch.kube as kube
+        names = [m.name for pkg in (controllers, kube)
+                 for m in pkgutil.iter_modules(pkg.__path__,
+                                               pkg.__name__ + ".")]
+        names += ["tpu_operator_torch.observability",
+                  "tpu_operator_torch.observability.goodput",
+                  "tpu_operator_torch.parallel.mesh_plan",
+                  "tpu_operator_torch.cli.operator"]
+        for name in names:
+            importlib.import_module(name)
+        from tpu_operator_torch.cli import operator
+        try:
+            operator.main(["--help"])
+        except SystemExit as e:
+            assert e.code == 0
+        leaked = sorted(m for m in sys.modules if m.split(".")[0] in
+                        ("torch", "grpc", "jax", "tpu_operator"))
+        assert not leaked, leaked
+        print(len(names))
+    """)
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip().splitlines()[-1]) >= 20

@@ -24,7 +24,7 @@ import time
 
 import pytest
 
-from torch_fake_nvml import nvml_so  # noqa: F401 (a fixture)
+from torch_fake_nvml import FAKE_NVML_UUIDS, nvml_so  # noqa: F401
 from torch_native import (NO_AMBIENT, SIDES, agent_args,  # noqa: F401
                           binary, install_cmd, port_bins, ref_bins, run,
                           side_tree, to_port)
@@ -368,7 +368,9 @@ def test_cdi_spec_and_install_follow_nvml(port_bins, tmp_path, nvml_so):
     p = run(port_bins, "gpu-node-agent", "cdi-generate",
             *agent_args(root, "p"), "--nvml", nvml_so, env=NO_AMBIENT)
     spec = json.loads(p.stdout)
-    assert [d["name"] for d in spec["devices"]] == ["0", "2", "all"]
+    uuid = FAKE_NVML_UUIDS
+    assert [d["name"] for d in spec["devices"]] == [
+        "0", uuid[0], "2", uuid[2], "all"]
     p = run(port_bins, "gpu-node-agent", "probe", "--install-dir",
             root / "host", "--device-glob", root / "nvidia[0-9]*",
             "--nvml", nvml_so)
@@ -400,3 +402,22 @@ def test_driver_install_holds_the_required_version(port_bins, tmp_path,
     assert os.path.exists(root / "validations" / "driver-ready") is ok
     if not ok:
         assert "DRIVER_REQUIRED_VERSION" in p.stderr
+
+
+def test_cdi_spec_names_each_card_by_nvml_uuid_too(port_bins, tmp_path,
+                                                 nvml_so):
+    """F10: where NVML loads, each card's device appears twice, by minor
+    number and by NVML UUID (the name the device plugin's CDI strategy
+    asks for then), both holding that card's node; NVML's index 1 is
+    minor 2. Without NVML, only minor numbers (the test above)."""
+    root = side_tree(tmp_path, "p", nodes=3)
+    p = run(port_bins, "gpu-node-agent", "cdi-generate",
+            *agent_args(root, "p"), "--nvml", nvml_so, env=NO_AMBIENT)
+    assert p.returncode == 0, p.stderr
+    nodes = {d["name"]: d["containerEdits"]["deviceNodes"]
+             for d in json.loads(p.stdout)["devices"]}
+    for minor, uuid in FAKE_NVML_UUIDS.items():
+        assert nodes[uuid] == nodes[str(minor)] == [
+            {"path": str(root / f"nvidia{minor}")}]
+    assert nodes["all"] == [{"path": str(root / f"nvidia{m}")}
+                            for m in (0, 2)]

@@ -20,7 +20,7 @@ import subprocess
 
 import pytest
 
-from torch_fake_nvml import nvml_so  # noqa: F401 (a fixture)
+from torch_fake_nvml import FAKE_NVML_UUIDS, nvml_so  # noqa: F401
 from torch_native import (NO_AMBIENT, SIDES, binary, port_bins,  # noqa: F401
                           ref_bins, run, side_tree, to_port)
 
@@ -357,3 +357,39 @@ def test_oci_hook_injects_only_cards_nvml_lists(port_bins, tmp_path,
                        name="b1")
     p = hook(port_bins, "p", "inject", "--bundle", bundle, *args)
     assert p.returncode == 1
+
+
+@pytest.mark.parametrize("value,want", [
+    (FAKE_NVML_UUIDS[2], [2]),
+    (f"{FAKE_NVML_UUIDS[2]},{FAKE_NVML_UUIDS[0]}", [2, 0]),
+    (f"0,{FAKE_NVML_UUIDS[2]}", [0, 2]),
+    ("GPU-00000000-0000-4000-8000-000000000009", [])])
+def test_oci_hook_resolves_a_uuid_through_nvml(port_bins, tmp_path,
+                                               nvml_so, value, want):
+    """F10: the device plugin names a card by its NVML UUID where NVML
+    loads; the hook resolves it through NVML to the card's node (NVML's
+    index 1 is ``nvidia2``) and takes card numbers beside it. A UUID NVML
+    does not list selects nothing and fails."""
+    root = side_tree(tmp_path, "p", nodes=3)
+    bundle = bundle_of(root, "p", env=[f"NVIDIA_VISIBLE_DEVICES={value}"])
+    p = hook(port_bins, "p", "inject", "--bundle", bundle, "--device-glob",
+             root / "nvidia[0-9]*", "--install-dir", root / "img",
+             "--nvml", nvml_so, "--allow-non-char")
+    if not want:
+        assert p.returncode == 1 and "no GPU devices match" in p.stderr
+        return
+    assert p.returncode == 0, p.stderr
+    c = json.loads((bundle / "config.json").read_text())
+    assert [d["path"] for d in c["linux"]["devices"]] == \
+        [str(root / f"nvidia{i}") for i in want]
+    assert f"NVIDIA_VISIBLE_DEVICES={value}" in c["process"]["env"]
+
+
+def test_oci_hook_without_nvml_knows_no_uuid(port_bins, tmp_path):
+    """Without NVML nothing resolves a UUID: the minor-number rule alone."""
+    root = side_tree(tmp_path, "p", nodes=3)
+    bundle = bundle_of(root, "p", env=[
+        f"NVIDIA_VISIBLE_DEVICES={FAKE_NVML_UUIDS[2]}"])
+    p = hook(port_bins, "p", "inject", "--bundle", bundle,
+             *hook_args(root, "p"))
+    assert p.returncode == 1 and "no GPU devices match" in p.stderr

@@ -32,7 +32,7 @@ from tpu_operator_torch.kube import FakeClient as PortFakeClient
 from tpu_operator_torch.kube import Obj as PortObj
 from tpu_operator_torch.utils.nvml import Library, NvmlSource
 import torch_names as names
-from torch_fake_nvml import (FAKE_NVML_PEERS, FakeLibrary, device,
+from torch_fake_nvml import (FAKE_NVML_PEERS, FakeLibrary, device, fake_uuid,
                              nvlink_cards, nvml_so)  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -551,9 +551,14 @@ def test_allocate_expands_slice_members(tmp_path, monkeypatch):
         out[side] = [[d.host_path for d in car.devices],
                      car.envs.get("TPU_VISIBLE_CHIPS")
                      or car.envs.get("NVIDIA_VISIBLE_DEVICES")]
-    assert out["p"] == to_port(out["r"])
-    assert out["p"] == [[str(tmp_path / "p" / f"nvidia{i}") for i in (2, 3)],
-                        "2,3"]
+    # the members' nodes as the reference mounts them; the visible list
+    # names them by NVML UUID, where the reference gives its chip numbers
+    # (F10)
+    ref = to_port(out["r"])
+    assert out["p"][0] == ref[0] == [str(tmp_path / "p" / f"nvidia{i}")
+                                     for i in (2, 3)]
+    assert ref[1] == "2,3"
+    assert out["p"][1] == f"{fake_uuid(2)},{fake_uuid(3)}"
 
 
 def test_allocate_expands_members_under_cdi(tmp_path):
@@ -568,6 +573,7 @@ def test_allocate_expands_members_under_cdi(tmp_path):
     resp = plugin.Allocate(pb.AllocateRequest(container_requests=[
         pb.ContainerAllocateRequest(device_ids=["slice-0"])]), None)
     [car] = resp.container_responses
-    assert [d.name for d in car.cdi_devices] == ["nvidia.com/gpu=0",
-                                                 "nvidia.com/gpu=1"]
-    assert car.envs["NVIDIA_VISIBLE_DEVICES"] == "0,1"
+    assert [d.name for d in car.cdi_devices] == [
+        f"nvidia.com/gpu={fake_uuid(0)}", f"nvidia.com/gpu={fake_uuid(1)}"]
+    assert car.envs["NVIDIA_VISIBLE_DEVICES"] == \
+        f"{fake_uuid(0)},{fake_uuid(1)}"

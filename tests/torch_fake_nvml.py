@@ -22,16 +22,23 @@ INVALID_ARGUMENT = nvml.NVML_ERROR_INVALID_ARGUMENT
 GPU_IS_LOST = 15
 
 
+def fake_uuid(minor):
+    """The UUID ``device`` gives a card by default."""
+    return f"GPU-5e1f0000-0000-4000-8000-{minor:012d}"
+
+
 def device(minor, name="NVIDIA H100 80GB HBM3", links=None, ecc=(0, 0),
-           remapped=(0, 0, 0, 0), p2p=None):
+           remapped=(0, 0, 0, 0), p2p=None, uuid=None):
     """One card: ``links`` maps a link number to True/False (up/down) or an
     NVML error code; links not named answer NOT_SUPPORTED. ``ecc`` is
     (corrected, uncorrected) or an error code, ``remapped`` the four values
     of ``nvmlDeviceGetRemappedRows`` or an error code. ``p2p`` maps a peer's
     minor number to True/False (NVLink P2P status OK or not) or an NVML
-    error code; peers not named answer not linked."""
+    error code; peers not named answer not linked. ``uuid`` defaults to
+    ``fake_uuid(minor)``."""
     return {"minor": minor, "name": name, "links": dict(links or {}),
-            "ecc": ecc, "remapped": remapped, "p2p": dict(p2p or {})}
+            "ecc": ecc, "remapped": remapped, "p2p": dict(p2p or {}),
+            "uuid": fake_uuid(minor) if uuid is None else uuid}
 
 
 def nvlink_cards(minors, pairs):
@@ -74,6 +81,9 @@ class FakeLibrary:
     def name(self, h):
         return self.devices[h]["name"]
 
+    def uuid(self, h):
+        return self._check("nvmlDeviceGetUUID", self.devices[h]["uuid"])
+
     def nvlink_state(self, h, link):
         return self._check("nvmlDeviceGetNvLinkState",
                            self.devices[h]["links"].get(link, NOT_SUPPORTED))
@@ -100,8 +110,10 @@ class FakeLibrary:
 # (link 2 of the second card is down); past them the first card answers
 # NOT_SUPPORTED and the second INVALID_ARGUMENT. The first card reports
 # no remapped rows (NOT_SUPPORTED). The two cards are NVLink peers; a card
-# asked about itself answers INVALID_ARGUMENT.
+# asked about itself answers INVALID_ARGUMENT. Index i has the UUID
+# GPU-fa4e0000-0000-4000-8000-00000000000<i>.
 FAKE_NVML_C = r"""
+#include <stdio.h>
 #include <string.h>
 typedef void *dev_t_;
 static int count = 2;
@@ -118,6 +130,9 @@ int nvmlDeviceGetMinorNumber(dev_t_ h, unsigned *m) {
     *m = 2 * idx(h); return 0; }
 int nvmlDeviceGetName(dev_t_ h, char *buf, unsigned len) {
     strncpy(buf, "NVIDIA H100 80GB HBM3", len); return 0; }
+int nvmlDeviceGetUUID(dev_t_ h, char *buf, unsigned len) {
+    snprintf(buf, len, "GPU-fa4e0000-0000-4000-8000-%012u", idx(h));
+    return 0; }
 int nvmlDeviceGetNvLinkState(dev_t_ h, unsigned link, int *on) {
     if (link >= 4) return idx(h) == 0 ? 3 : 2;
     *on = !(idx(h) == 1 && link == 2); return 0; }
@@ -135,6 +150,11 @@ int nvmlDeviceGetP2PStatus(dev_t_ a, dev_t_ b, int caps, int *status) {
     if (a == b || caps != 2) return 2;
     *status = 0; return 0; }
 """
+
+#: what ``NvmlSource.uuids`` must read from the compiled library: minor 2
+#: is NVML's index 1
+FAKE_NVML_UUIDS = {0: "GPU-fa4e0000-0000-4000-8000-000000000000",
+                   2: "GPU-fa4e0000-0000-4000-8000-000000000001"}
 
 #: what ``NvmlSource.nvlink_peers`` must read from the compiled library
 FAKE_NVML_PEERS = {0: {2}, 2: {0}}

@@ -49,6 +49,13 @@ POLICY_NAME_MAP = (
     (r"cloud\.google\.com/gke-tpu-topology",
      "feature.node.kubernetes.io/pci-10de.present"),
     (r"tpu\.dev/libtpu\.accelerator", "nvidia.com/driver.product"),
+    # the reconciler's slice: the health condition, goodput's slice label
+    # (its own key, not the slice manager's slice.config/.state) and the
+    # node-count families
+    (r"TPUHealthy", "GPUHealthy"),
+    (r"tpu\.dev/slice(?![.\w-])", "nvidia.com/gpu.slice"),
+    (r"_tpu_nodes_total", "_gpu_nodes_total"),
+    (r"has_tpu_labels", "has_gpu_labels"),
     (r"tpu\.dev/", "nvidia.com/"),
     (r"\btpu\.dev\b", "nvidia.com"),
     # paths
@@ -92,6 +99,7 @@ POLICY_NAME_MAP = (
     (r"MEGASCALE_COORDINATOR_PORT", "MASTER_PORT"),
     # metric families, alerts and prose
     (r"tpu_operator_", "gpu_operator_"),
+    (r"TPU_OPERATOR_", "GPU_OPERATOR_"),
     (r"TPUOperator", "GPUOperator"),
     (r"TPUNode", "GPUNode"),
     (r"no Cloud TPU equivalent", "no counterpart in this operator"),

@@ -5,3 +5,5 @@ Mirrors the reference package's layout (``ops/``, ``parallel/``, ``utils/``,
 it builds nothing: the CUDA kernels under ``csrc/`` are compiled at their
 first launch on a CUDA tensor (see ``_native``).
 """
+
+__version__ = "0.1.0"

@@ -9,12 +9,14 @@ any health/count change. Allocate injects, per the configured strategy,
 either the cards' device nodes, the driver's control nodes, an optional
 read-only mount of the host's ``libcuda.so.1`` and
 ``NVIDIA_VISIBLE_DEVICES`` ("device"), or CDI device references
-(``nvidia.com/gpu=<index>``, the names the NVIDIA container toolkit's CDI
+(``nvidia.com/gpu=<name>``, the names the NVIDIA container toolkit's CDI
 spec gives) that the runtime resolves ("cdi").
 
-Both name a card by the minor number of its device node. The NVIDIA
-toolkit reads an index in its NVML order there, which is the same number
-where the driver numbered the nodes in that order, as it does by default.
+Both name a card by its NVML UUID wherever NVML loads, the upstream
+plugin's default (``deviceIDStrategy: uuid``): the NVIDIA toolkit reads an
+NVML index or a UUID there, and NVML's index need not be the minor number
+of the card's node (index 0 was minor 5, 6 and 7 on three machines).
+Without NVML they fall back to the minor number, the reference's rule.
 
 The reference's ``TPU_CHIPS_PER_HOST_BOUNDS``, ``TPU_ACCELERATOR_TYPE`` and
 its freeze of the host's chip count serve only the ICI bounds and have no
@@ -135,8 +137,16 @@ class GpuDevicePlugin:
                     device_ids=picked + best))
         return resp
 
+    def card_names(self) -> dict[int, str]:
+        """{minor number: the name the toolkit reads}: NVML's UUIDs where
+        NVML loads; empty without it, and a card then goes by its minor
+        number."""
+        nvml = getattr(self.discovery, "nvml", None)
+        return (nvml.uuids() if nvml is not None else None) or {}
+
     def Allocate(self, request, context):
         devices = {d.id: d for d in self.discovery.scan()}
+        names = self.card_names()
         resp = pb.AllocateResponse()
         for creq in request.container_requests:
             car = pb.ContainerAllocateResponse()
@@ -152,7 +162,8 @@ class GpuDevicePlugin:
                 if self.strategy == "cdi":
                     for index in dev.member_indices:
                         car.cdi_devices.append(pb.CDIDevice(
-                            name=f"{CDI_KIND}={index}"))
+                            name=f"{CDI_KIND}="
+                                 f"{names.get(index, index)}"))
                 else:
                     for path in dev.member_paths:
                         car.devices.append(pb.DeviceSpec(
@@ -164,7 +175,8 @@ class GpuDevicePlugin:
                         container_path=path, host_path=path,
                         permissions="rw"))
             indices.sort()
-            car.envs[VISIBLE_DEVICES_ENV] = ",".join(map(str, indices))
+            car.envs[VISIBLE_DEVICES_ENV] = ",".join(
+                str(names.get(i, i)) for i in indices)
             if self.strategy == "device" and self.driver_lib_host_path:
                 car.mounts.append(pb.Mount(
                     container_path=DRIVER_LIB_CONTAINER_PATH,

@@ -5,7 +5,8 @@
 // for ctypes, and this file reads the same facts under the same names:
 // cards keyed by their minor number (the N of /dev/nvidiaN), attributes
 // `index` (NVML's own), `name`, `nvlink_up`, `nvlink_down` and the error
-// counters. Nothing here creates a CUDA context.
+// counters, and each card's UUID (the name the NVIDIA container toolkit
+// reads beside NVML's index). Nothing here creates a CUDA context.
 #pragma once
 
 #include <dlfcn.h>
@@ -24,6 +25,7 @@ constexpr char kNvmlSoname[] = "libnvidia-ml.so.1";
 
 struct NvmlCard {
   unsigned minor = 0;
+  std::string uuid;
   // attribute → value, in the order NvmlSource publishes them
   std::vector<std::pair<std::string, std::string>> attrs;
 };
@@ -55,6 +57,7 @@ constexpr int kInvalidArgument = 2;
 constexpr int kNotSupported = 3;
 constexpr unsigned kMaxLinks = 18;
 constexpr unsigned kNameBuffer = 96;
+constexpr unsigned kUuidBuffer = 96;
 constexpr unsigned kDriverVersionBuffer = 80;
 
 using Handle = void*;
@@ -65,6 +68,7 @@ struct Api {
   int (*handle)(unsigned, Handle*);
   int (*minorNumber)(Handle, unsigned*);
   int (*name)(Handle, char*, unsigned);
+  int (*uuid)(Handle, char*, unsigned);
   int (*nvlinkState)(Handle, unsigned, int*);
   int (*eccErrors)(Handle, int, int, unsigned long long*);
   int (*remappedRows)(Handle, unsigned*, unsigned*, unsigned*, unsigned*);
@@ -98,6 +102,7 @@ inline NvmlView ReadNvml(const std::string& path) {
                Bind(h, "nvmlDeviceGetHandleByIndex_v2", &api.handle) &&
                Bind(h, "nvmlDeviceGetMinorNumber", &api.minorNumber) &&
                Bind(h, "nvmlDeviceGetName", &api.name) &&
+               Bind(h, "nvmlDeviceGetUUID", &api.uuid) &&
                Bind(h, "nvmlDeviceGetNvLinkState", &api.nvlinkState) &&
                Bind(h, "nvmlDeviceGetTotalEccErrors", &api.eccErrors) &&
                Bind(h, "nvmlDeviceGetRemappedRows", &api.remappedRows) &&
@@ -132,6 +137,10 @@ inline NvmlView ReadNvml(const std::string& path) {
       rc = api.name(dev, name, sizeof(name));
       if (rc != kSuccess) return fail();
       card.attrs = {{"index", std::to_string(i)}, {"name", name}};
+      char uuid[kUuidBuffer] = {0};
+      rc = api.uuid(dev, uuid, sizeof(uuid));
+      if (rc != kSuccess) return fail();
+      card.uuid = uuid;
       std::string down;
       bool anyLink = false;
       for (unsigned link = 0; link < kMaxLinks; ++link) {
@@ -180,11 +189,13 @@ inline NvmlView ReadNvml(const std::string& path) {
 // A card's device node and whether it counts as present: where NVML loads,
 // when NVML lists the node's number; without NVML, when the node is
 // readable and writable (the reference's rule). No node is ever opened: an
-// open may initialise a card that is not in persistence mode.
+// open may initialise a card that is not in persistence mode. `uuid` is
+// NVML's UUID of the card, empty without NVML.
 struct GpuNode {
   std::string path;
   long number = -1;
   bool present = false;
+  std::string uuid;
 };
 
 inline std::vector<GpuNode> ScanGpuNodes(const std::string& devGlob,
@@ -198,16 +209,25 @@ inline std::vector<GpuNode> ScanGpuNodes(const std::string& devGlob,
     node.present = nvml.loaded
                        ? listed.count(node.number) > 0
                        : access(path.c_str(), R_OK | W_OK) == 0;
+    if (const NvmlCard* card = nvml.Card(node.number)) node.uuid = card->uuid;
     out.push_back(node);
   }
+  return out;
+}
+
+inline std::vector<GpuNode> PresentGpuNodes(const std::string& devGlob,
+                                            const std::string& nvmlPath) {
+  std::vector<GpuNode> out;
+  for (const auto& n : ScanGpuNodes(devGlob, ReadNvml(nvmlPath)))
+    if (n.present) out.push_back(n);
   return out;
 }
 
 inline std::vector<std::string> PresentGpuDevices(
     const std::string& devGlob, const std::string& nvmlPath) {
   std::vector<std::string> out;
-  for (const auto& n : ScanGpuNodes(devGlob, ReadNvml(nvmlPath)))
-    if (n.present) out.push_back(n.path);
+  for (const auto& n : PresentGpuNodes(devGlob, nvmlPath))
+    out.push_back(n.path);
   return out;
 }
 

@@ -327,19 +327,26 @@ std::string DeviceNodes(const std::vector<std::string>& paths) {
 }
 
 // The NVIDIA container toolkit's spec shape: one device a card, named by
-// its minor number (the name the device plugin's CDI strategy asks for,
-// nvidia.com/gpu=<N>), a composite "all", and global edits holding the
+// its minor number and, where NVML loads, once more by its NVML UUID (the
+// name the device plugin's CDI strategy asks for then,
+// nvidia.com/gpu=<UUID>), a composite "all", and global edits holding the
 // control nodes, the driver library mount and the workload env.
 std::string CdiSpecJson(const Options& opt,
-                        const std::vector<std::string>& devices,
+                        const std::vector<gpuop::GpuNode>& cards,
                         const std::string& libcudaHostPath) {
+  std::vector<std::string> devices;
+  for (const auto& c : cards) devices.push_back(c.path);
   std::ostringstream os;
   os << "{\n  \"cdiVersion\": \"0.6.0\",\n  \"kind\": \""
      << opt.resourceKind << "\",\n  \"devices\": [\n";
-  for (const auto& d : devices) {
-    os << "    {\"name\": \"" << gpuop::NodeNumber(d)
-       << "\", \"containerEdits\": {\"deviceNodes\": [" << DeviceNodes({d})
-       << "]}},\n";
+  for (const auto& c : cards) {
+    std::vector<std::string> names = {std::to_string(c.number)};
+    if (!c.uuid.empty()) names.push_back(c.uuid);
+    for (const auto& name : names) {
+      os << "    {\"name\": \"" << gpuop::JsonEscape(name)
+         << "\", \"containerEdits\": {\"deviceNodes\": ["
+         << DeviceNodes({c.path}) << "]}},\n";
+    }
   }
   os << "    {\"name\": \"all\", \"containerEdits\": {\"deviceNodes\": ["
      << DeviceNodes(devices) << "]}}\n";
@@ -390,7 +397,7 @@ std::string CdiSpecPath(const Options& opt) {
 }
 
 int RuntimeConfigure(const Options& opt) {
-  auto devices = gpuop::PresentGpuDevices(opt.devGlob, opt.nvml);
+  auto devices = gpuop::PresentGpuNodes(opt.devGlob, opt.nvml);
   if (devices.empty()) {
     std::cerr << "runtime-configure: no GPU devices match " << opt.devGlob
               << "\n";
@@ -430,7 +437,7 @@ int RuntimeConfigure(const Options& opt) {
   while (!g_stop) {
     for (int i = 0; i < opt.refreshSeconds && !g_stop; ++i) sleep(1);
     if (g_stop) break;
-    devices = gpuop::PresentGpuDevices(opt.devGlob, opt.nvml);
+    devices = gpuop::PresentGpuNodes(opt.devGlob, opt.nvml);
     if (devices.empty()) continue;  // transient /dev flap: keep last spec
     libcuda = opt.Libcuda();
     std::string next = CdiSpecJson(opt, devices, libcuda);
@@ -510,7 +517,7 @@ int main(int argc, char** argv) {
   if (cmd == "driver-install") return DriverInstall(opt);
   if (cmd == "runtime-configure") return RuntimeConfigure(opt);
   if (cmd == "cdi-generate") {
-    auto devices = gpuop::PresentGpuDevices(opt.devGlob, opt.nvml);
+    auto devices = gpuop::PresentGpuNodes(opt.devGlob, opt.nvml);
     std::cout << CdiSpecJson(opt, devices, opt.Libcuda());
     return devices.empty() ? 1 : 0;
   }

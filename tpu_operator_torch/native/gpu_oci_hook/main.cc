@@ -11,8 +11,10 @@
 // Activation contract (the NVIDIA toolkit's): the hook is a no-op unless
 // the container's process.env carries NVIDIA_VISIBLE_DEVICES (set by the
 // device plugin on allocation, or by the user) or the pod carries the
-// annotation nvidia.com/inject. Values: "all" or comma-separated card
-// numbers (the N of /dev/nvidiaN); "void" and "none" inject nothing.
+// annotation nvidia.com/inject. Values: "all" or comma-separated cards,
+// each the N of /dev/nvidiaN or the card's NVML UUID (GPU-..., the name the
+// device plugin gives where NVML loads; NVML resolves it to the card's
+// node); "void" and "none" inject nothing.
 //
 // Subcommands:
 //   create-runtime            hook mode — container state JSON on stdin
@@ -70,19 +72,20 @@ std::vector<std::string> Split(const std::string& s, char sep) {
 }
 
 // Card selection from an activation value: "all" (or "") selects every
-// present card, otherwise comma-separated card numbers.
+// present card, otherwise comma-separated cards, each a node number or an
+// NVML UUID.
 std::vector<std::string> SelectDevices(const Options& opt,
                                        const std::string& value) {
-  auto all = gpuop::PresentGpuDevices(opt.devGlob, opt.nvml);
-  if (value.empty() || value == "all") return all;
+  auto cards = gpuop::PresentGpuNodes(opt.devGlob, opt.nvml);
   std::vector<std::string> out;
-  for (const auto& idx : Split(value, ',')) {
-    for (const auto& dev : all) {
-      if (dev.size() > idx.size() + 6 &&
-          dev.compare(dev.size() - idx.size() - 7, std::string::npos,
-                      "/nvidia" + idx) == 0) {
-        out.push_back(dev);
-      }
+  if (value.empty() || value == "all") {
+    for (const auto& card : cards) out.push_back(card.path);
+    return out;
+  }
+  for (const auto& name : Split(value, ',')) {
+    for (const auto& card : cards) {
+      if (name == card.uuid || name == std::to_string(card.number))
+        out.push_back(card.path);
     }
   }
   return out;

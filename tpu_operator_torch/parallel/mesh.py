@@ -1,7 +1,9 @@
 """The (data, model) rank mesh, over virtual ranks on one card.
 
 The port of ``tpu_operator/parallel/mesh.py``. ``MeshPlan`` and
-``MeshPlan.auto`` are copied (that module imports jax). A :class:`Mesh` is a
+``MeshPlan.auto`` are copied (that module imports jax) into the torch-free
+``mesh_plan`` and re-exported here, so the validator and the operator's
+reshard planner share one factorization. A :class:`Mesh` is a
 grid of rank devices in row-major order, as the reference's naive layout
 (``np.array(devices).reshape(data, model)``), with the axis names and, for
 each axis, its rank groups: the ranks that differ only in that axis's
@@ -18,39 +20,11 @@ one card, so that is how the multi-device path runs there.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-
 import numpy as np
 import torch
 
+from tpu_operator_torch.parallel.mesh_plan import MeshPlan
 from tpu_operator_torch.utils.device import resolve_device
-
-
-@dataclass(frozen=True)
-class MeshPlan:
-    """How to factor an N-rank mesh into named parallelism axes.
-
-    data  — data parallelism (gradient sum; the outer axis)
-    model — tensor parallelism (activation sums; the inner axis)
-    """
-
-    data: int
-    model: int
-
-    @property
-    def n_devices(self) -> int:
-        return self.data * self.model
-
-    @staticmethod
-    def auto(n_devices: int, max_model: int = 8) -> "MeshPlan":
-        """Factor ``n_devices`` preferring a wide model axis, but no wider
-        than ``max_model``."""
-        model = 1
-        for cand in range(min(n_devices, max_model), 0, -1):
-            if n_devices % cand == 0:
-                model = cand
-                break
-        return MeshPlan(data=n_devices // model, model=model)
 
 
 class Mesh:

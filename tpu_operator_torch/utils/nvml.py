@@ -12,9 +12,10 @@ Two layers:
   code other than success raises ``NvmlError``.
 - ``NvmlSource``: one NVML session per call turned into per-device
   attribute dicts of strings, keyed by the card's minor number (the ``N``
-  of ``/dev/nvidiaN``, which the health file, the annotations and the
-  device plugin use; NVML's own index follows PCI order). The tests drive
-  it with a fake ``Library``.
+  of ``/dev/nvidiaN``, which the health file and the annotations use;
+  NVML's own index follows PCI order). ``uuids`` maps a minor number to
+  the card's UUID, the name the device plugin hands the NVIDIA container
+  toolkit. The tests drive it with a fake ``Library``.
 
 A missing ``libnvidia-ml.so.1`` means the platform does not expose these
 facts: ``NvmlSource`` then reports no devices, and the probes skip, as the
@@ -35,6 +36,7 @@ NVML_ERROR_NOT_SUPPORTED = 3
 NVML_NVLINK_MAX_LINKS = 18
 NVML_DEVICE_NAME_V2_BUFFER_SIZE = 96
 NVML_SYSTEM_DRIVER_VERSION_BUFFER_SIZE = 80
+NVML_DEVICE_UUID_V2_BUFFER_SIZE = 96
 NVML_FEATURE_ENABLED = 1
 NVML_MEMORY_ERROR_TYPE_CORRECTED = 0
 NVML_MEMORY_ERROR_TYPE_UNCORRECTED = 1
@@ -83,6 +85,7 @@ _PROTOTYPES = {
     "nvmlDeviceGetHandleByIndex_v2": (_uint, ctypes.POINTER(_handle)),
     "nvmlDeviceGetMinorNumber": (_handle, ctypes.POINTER(_uint)),
     "nvmlDeviceGetName": (_handle, ctypes.c_char_p, _uint),
+    "nvmlDeviceGetUUID": (_handle, ctypes.c_char_p, _uint),
     # nvmlEnableState_t is a C enum: an int
     "nvmlDeviceGetNvLinkState": (_handle, _uint,
                                  ctypes.POINTER(ctypes.c_int)),
@@ -142,6 +145,14 @@ class Library:
     def name(self, handle) -> str:
         buf = ctypes.create_string_buffer(NVML_DEVICE_NAME_V2_BUFFER_SIZE)
         self._call("nvmlDeviceGetName", handle, buf, len(buf))
+        return buf.value.decode(errors="replace")
+
+    def uuid(self, handle) -> str:
+        """The card's UUID (``GPU-…``): the name the NVIDIA container
+        toolkit reads in ``NVIDIA_VISIBLE_DEVICES`` and in a CDI device
+        name beside NVML's index."""
+        buf = ctypes.create_string_buffer(NVML_DEVICE_UUID_V2_BUFFER_SIZE)
+        self._call("nvmlDeviceGetUUID", handle, buf, len(buf))
         return buf.value.decode(errors="replace")
 
     def nvlink_state(self, handle, link: int) -> bool:
@@ -233,6 +244,18 @@ class NvmlSource:
                 for i in range(lib.device_count())})
         except NvmlError:
             return set()
+
+    def uuids(self) -> dict[int, str] | None:
+        """{minor number: UUID} for every card NVML lists; None where NVML
+        does not load, and no card where it loads but fails."""
+        if self.library() is None:
+            return None
+        try:
+            return self._session(lambda lib: {
+                lib.minor_number(h): lib.uuid(h) for h in
+                (lib.handle(i) for i in range(lib.device_count()))})
+        except NvmlError:
+            return {}
 
     def nvlink_peers(self) -> dict[int, set[int]] | None:
         """{minor number: the minor numbers it reaches over NVLink} for
