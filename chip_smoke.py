@@ -128,7 +128,15 @@ replica and never run; both commands serve on a free port with their
 federation harness (``e2e/federation.py --ci``) reports ok, and the tier
 harness (``e2e/relay_tier.py --ci``) reports only its scaling gate, an
 open fault (F13) it shares with the reference under the ``h100`` kind.
-Nothing is written outside temporary directories.
+Last, the static gate, which launches no kernel: the invariant analyzer
+(``python -m tpu_operator_torch.analysis --all``) must find nothing in
+the checkout, ``--list`` must name its eight passes, ``make -C
+tpu_operator_torch lint-compile`` must pass, and the CI case
+``scripts/cases/cdi-runtime.sh`` must render its two chart overrides and
+hand over (to a stub here: the e2e cycle is the other paths' work); each
+step's rc and seconds on the host clock go to a ``[lint]`` line.
+Nothing is written outside temporary directories but the byte-compiled
+files of the sweep.
 
 Output: progress lines, then the ``nvidia-smi`` name and power limit, then
 one JSON line with every kernel's launches on the main path, error, times
@@ -3469,6 +3477,76 @@ def phase_tier_harnesses() -> None:
         shutil.rmtree(TIER_RUN.pop("tmp"), ignore_errors=True)
 
 
+#: the analyzer's passes, as ``--list`` names them (and the reference's)
+LINT_PASSES = ("locks", "clocks", "errors", "randomness", "allocations",
+               "pump-alloc", "wiring", "metrics-docs")
+
+
+def lint_step(label: str, argv: list, env: dict, timeout: float = 300
+              ) -> subprocess.CompletedProcess:
+    """One static-gate command as a process from the checkout's root; it
+    must exit 0. Prints its rc and its seconds on the host clock."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    p = subprocess.run(argv, capture_output=True, text=True, timeout=timeout,
+                       env=env, cwd=root)
+    secs = time.perf_counter() - t0
+    print(f"[lint] {label}: rc {p.returncode}; {secs:.3f} s on the host "
+          f"clock")
+    check(p.returncode == 0, f"{label}: rc {p.returncode}: "
+          f"{(p.stdout + p.stderr)[-2000:]}")
+    return p
+
+
+def phase_static_gate() -> None:
+    """The port's static gate on this machine, each step as a process: the
+    invariant analyzer over the checkout (``--all``, 0 findings), its
+    ``--list`` (the eight passes), the byte-compile sweep (``make -C
+    tpu_operator_torch lint-compile``), and ``scripts/cases/cdi-runtime.sh``
+    up to its hand-over (its render check; ``CI_RUN`` points it at a stub,
+    so the e2e cycle the other paths cover does not run). Launches no
+    kernel."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        # the scripts call ``python``: this interpreter (a wrapper, since a
+        # link would leave a virtual environment behind)
+        wrapper = os.path.join(tmp, "python")
+        with open(wrapper, "w") as f:
+            f.write(f'#!/bin/sh\nexec "{sys.executable}" "$@"\n')
+        os.chmod(wrapper, 0o755)
+        env = dict(os.environ, PATH=f"{tmp}:{os.environ.get('PATH', '')}",
+                   PYTHONPATH=root)
+        p = lint_step("python -m tpu_operator_torch.analysis --all --format "
+                      "json", [sys.executable, "-m",
+                               "tpu_operator_torch.analysis", "--all",
+                               "--format", "json"], env)
+        findings = json.loads(p.stdout)["findings"]
+        print(f"[lint] gpucheck: {len(findings)} finding(s) from "
+              f"{len(LINT_PASSES)} passes ({p.stderr.strip()})")
+        check(findings == [], f"gpucheck findings: {findings}")
+        p = lint_step("python -m tpu_operator_torch.analysis --list",
+                      [sys.executable, "-m", "tpu_operator_torch.analysis",
+                       "--list"], env)
+        listed = tuple(line.split(":")[0] for line in p.stdout.splitlines())
+        print(f"[lint] passes: {', '.join(listed)}")
+        check(listed == LINT_PASSES, f"--list names {listed}")
+        lint_step("make -C tpu_operator_torch lint-compile",
+                  ["make", "-C", "tpu_operator_torch", "lint-compile"], env)
+        stub = os.path.join(tmp, "ci-run.sh")
+        with open(stub, "w") as f:
+            f.write('echo "[case] handed over with CHART_SET_OPTIONS='
+                    '${CHART_SET_OPTIONS}"\n')
+        p = lint_step("scripts/cases/cdi-runtime.sh (render check)",
+                      ["bash", "tpu_operator_torch/scripts/cases/"
+                       "cdi-runtime.sh"], dict(env, CI_RUN=stub))
+        for line in p.stdout.splitlines():
+            print(f"[lint]   {line}")
+        check("[case] render check OK" in p.stdout and "[case] handed over "
+              "with CHART_SET_OPTIONS=--set containerToolkit.cdiEnabled="
+              "true" in p.stdout, "cdi-runtime.sh's render check")
+        print("[lint] the static gate launches no kernel")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3536,6 +3614,9 @@ def main() -> int:
                         phase_tier_serve, phase_tier_harnesses),
          {"hbm_read": hbm_mod.read_sum,
           "flash_fwd": flash_mod.flash_attention}),
+        # the analyzer and the CI case's render check: AST and YAML work
+        # on the host, no kernel
+        ("static gate", (phase_static_gate,), {}),
     )
     # a kernel's launches: the sum over the paths that must reach it
     launches = {entry_["name"]: 0 for entry_ in kernels}
@@ -3547,7 +3628,8 @@ def main() -> int:
             phase()
         counts = {name: fn.launches for name, fn in counters.items()}
         print(f"[kernels] launches on the {path} path: {counts}; the path "
-              f"took {time.perf_counter() - t0:.3f} s on the host clock")
+              f"took {time.perf_counter() - t0:.3f} s on the host clock"
+              + ("" if counters else "; it launches no kernel"))
         for name, count in counts.items():
             check(count > 0, f"{name} never launched on the {path} path")
             launches[name] += count

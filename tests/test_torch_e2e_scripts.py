@@ -13,6 +13,8 @@ import os
 import subprocess
 import sys
 
+import pytest
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "tpu_operator_torch")
 SCRIPTS = os.path.join(PKG, "scripts")
@@ -113,10 +115,17 @@ def test_chart_overrides_reach_applied_release(tmp_path):
 
 
 def test_ci_run_lists_the_ported_modes():
-    """The CI entry point runs the scenario in both modes, the five
-    control-plane harnesses and the relay tier's twelve, the relay tier's
-    own last (fault F13); the static gates are named as waiting."""
+    """The CI entry point runs the static gates (``make lint``) first, then
+    the scenario in both modes, the five control-plane harnesses and the
+    relay tier's twelve, the relay tier's own last (fault F13)."""
     text = open(os.path.join(SCRIPTS, "ci-run-e2e.sh")).read()
+    steps = [line for line in text.splitlines()
+             if line and not line.startswith(("#", "echo", " ", "}"))]
+    lint = 'make -C "${ROOT}/tpu_operator_torch" lint'
+    first = steps.index(lint)
+    assert steps[first + 1].startswith('"${HERE}/e2e/end-to-end.sh"')
+    assert "mode 1/20: static gates" in text and "mode 20/20: relay tier" \
+        in text
     assert "E2E_APISERVER=1" in text
     modules = [line.split()[1] for line in text.splitlines()
                if line.startswith("harness ")]
@@ -128,9 +137,58 @@ def test_ci_run_lists_the_ported_modes():
     import importlib
     for m in modules:
         assert importlib.util.find_spec(f"tpu_operator_torch.e2e.{m}"), m
-    assert "ROADMAP item 20" in text and "analysis/" in text
-    assert "F13" in text
+    assert "wait" not in text and "F13" in text
     assert "tpu_operator." not in text.replace("tpu_operator_torch.", "")
+
+
+def _stub(tmp_path):
+    """A stand-in for the CI entry point a case script hands over to: it
+    prints its arguments and the chart options it was given."""
+    stub = tmp_path / "ci-run.sh"
+    stub.write_text('echo "[stub] args: $*"\n'
+                    'echo "[stub] CHART_SET_OPTIONS=${CHART_SET_OPTIONS:-}"\n')
+    return str(stub)
+
+
+@pytest.mark.parametrize("case", ["defaults", "cdi-runtime"])
+def test_case_scripts_check_the_render_and_hand_over(case, tmp_path):
+    """Each case script up to its ``exec`` of the CI entry point
+    (``CI_RUN`` points it at a stub): ``cdi-runtime.sh`` renders the chart
+    with its two overrides and checks they landed, then hands over with
+    them exported; ``defaults.sh`` hands over with stock values."""
+    p = subprocess.run(
+        ["bash", os.path.join(SCRIPTS, "cases", f"{case}.sh"), "--x"],
+        capture_output=True, text=True, timeout=120,
+        env=_env(CI_RUN=_stub(tmp_path)))
+    assert p.returncode == 0, f"stdout:\n{p.stdout}\nstderr:\n{p.stderr}"
+    assert "[stub] args: --x" in p.stdout
+    if case == "defaults":
+        assert "[stub] CHART_SET_OPTIONS=\n" in p.stdout
+    else:
+        assert "[case] render check OK" in p.stdout
+        assert ("[stub] CHART_SET_OPTIONS=--set containerToolkit.cdiEnabled="
+                "true --set devicePlugin.resourceName=nvidia.com/gpu-h100"
+                in p.stdout)
+
+
+def test_case_script_fails_when_an_override_does_not_render(tmp_path):
+    """The render check is a check: a copy of the script whose override
+    names another resource than the one it looks for fails before it
+    hands over."""
+    text = open(os.path.join(SCRIPTS, "cases", "cdi-runtime.sh")).read()
+    doctored = text.replace("--set devicePlugin.resourceName=nvidia.com/"
+                            "gpu-h100", "--set devicePlugin.resourceName="
+                            "nvidia.com/gpu-a100")
+    assert doctored != text
+    script = tmp_path / "cases" / "cdi-runtime.sh"
+    script.parent.mkdir()
+    script.write_text(doctored.replace('ROOT="$(cd "${HERE}/../../.." && pwd)"',
+                                       f'ROOT="{ROOT}"'))
+    p = subprocess.run(["bash", str(script)], capture_output=True,
+                       text=True, timeout=120, env=_env(CI_RUN=_stub(tmp_path)))
+    assert p.returncode == 1, p.stdout + p.stderr
+    assert "[case] FAIL: resourceName override missing" in p.stdout
+    assert "[stub]" not in p.stdout
 
 
 def test_the_workload_pod_runs_the_validator_image():

@@ -1,0 +1,24 @@
+"""The grid of K2's split schedule in plain PyTorch against the
+reference's Pallas kernel in interpret mode: bf16 at D = 256, full,
+T = 96 and 200, one head and three (and K2w's kv steps of 32 keys there).
+``tests/torch_flash_split.py`` holds the inputs and the check; the grid
+is spread over ``test_torch_flash_split_grid_*.py``, about a minute of
+one worker each."""
+
+import pytest
+
+from torch_flash_split import check_grid, check_steps_of_32
+
+
+@pytest.mark.parametrize("heads", [1, 3])
+@pytest.mark.parametrize("causal", [False])
+@pytest.mark.parametrize("t", [96, 200])
+@pytest.mark.parametrize("d", [256])
+def test_split_plain_at_any_shape_matches_the_reference(d, t, causal, heads):
+    check_grid("bfloat16", d, t, causal, heads)
+
+
+@pytest.mark.parametrize("causal", [False])
+@pytest.mark.parametrize("t", [200])
+def test_split_plain_in_steps_of_32_keys(t, causal):
+    check_steps_of_32(t, causal)

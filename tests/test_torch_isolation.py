@@ -104,7 +104,12 @@ def test_scan_covers_the_package():
             "tpu_operator_torch/packaging/__init__.py",
             "tpu_operator_torch/packaging/helm_lite.py",
             "tpu_operator_torch/packaging/images.py",
-            "tpu_operator_torch/cli/cfg.py"} <= rel
+            "tpu_operator_torch/cli/cfg.py",
+            "tpu_operator_torch/analysis/__main__.py",
+            "tpu_operator_torch/analysis/core.py",
+            *(f"tpu_operator_torch/analysis/passes/{p}.py" for p in (
+                "locks", "clocks", "errors", "randomness", "allocations",
+                "pump_alloc", "wiring", "metrics_docs"))} <= rel
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -363,19 +368,23 @@ def test_control_plane_loads_no_torch_and_no_grpc():
     stack with the wire apiserver and the simulated cluster, goodput, the
     torch-free ``MeshPlan``, the operator CLI, the kubectl shim, the e2e
     harnesses with the twelve of the relay tier, the cfg tool,
-    ``packaging/``, and the relay tier (the replica, the router, the
-    autoscaler, the federation) with its three CLIs — loads in a fresh
+    ``packaging/``, the relay tier (the replica, the router, the
+    autoscaler, the federation) with its three CLIs, and the invariant
+    analyzer (``analysis/``, its eight passes) — loads in a fresh
     interpreter without ``torch`` or ``grpc``, as the reference keeps jax
     out of its operator and its relay (the operator image installs
     neither); the CLIs' ``--help``, ``cfg validate crd`` and the three
     relay commands' ``--self-test`` run there too."""
     code = textwrap.dedent("""
         import contextlib, importlib, io, pkgutil, sys
+        import tpu_operator_torch.analysis as analysis
+        import tpu_operator_torch.analysis.passes as passes
         import tpu_operator_torch.controllers as controllers
         import tpu_operator_torch.e2e as e2e
         import tpu_operator_torch.kube as kube
         import tpu_operator_torch.relay as relay
-        names = [m.name for pkg in (controllers, kube, e2e, relay)
+        names = [m.name for pkg in (controllers, kube, e2e, relay, analysis,
+                                    passes)
                  for m in pkgutil.iter_modules(pkg.__path__,
                                                pkg.__name__ + ".")]
         assert {"tpu_operator_torch.kube.apiserver",
@@ -387,7 +396,11 @@ def test_control_plane_loads_no_torch_and_no_grpc():
                 "tpu_operator_torch.relay.sessions",
                 "tpu_operator_torch.relay.router",
                 "tpu_operator_torch.relay.autoscaler",
-                "tpu_operator_torch.relay.federation"} <= set(names), names
+                "tpu_operator_torch.relay.federation",
+                "tpu_operator_torch.analysis.core",
+                "tpu_operator_torch.analysis.passes.wiring",
+                "tpu_operator_torch.analysis.passes.metrics_docs"
+                } <= set(names), names
         names += ["tpu_operator_torch.observability",
                   "tpu_operator_torch.observability.goodput",
                   "tpu_operator_torch.parallel.mesh_plan",
@@ -430,7 +443,7 @@ def test_control_plane_loads_no_torch_and_no_grpc():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 65
+    assert int(out.stdout.strip().splitlines()[-1]) >= 76
 
 
 def _install_files():

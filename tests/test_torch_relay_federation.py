@@ -4,11 +4,11 @@ two 100-seed exactly-once properties), cache replication, the
 federation's metrics, operand and CLI; every value its assertions look
 at must be equal after the name map (``tests/torch_relay.py``). So does
 the ``--ci`` report of ``e2e/federation.py``. The wiring-pass scenario
-waits for ``analysis/`` (``WAITING``)."""
+runs the port's analyzer (``tpu_operator_torch/analysis``) on the port's
+chart, CRDs, transforms and CLIs."""
 
 import pytest
 
-import torch_relay
 from torch_relay import check_harness, ported_cases, run_case
 
 
@@ -20,11 +20,3 @@ def test_same_as_the_reference(name, fn, params, tmp_path):
 def test_the_harness_reports_what_the_reference_reports():
     check_harness("federation")
 
-
-@pytest.mark.parametrize("case", sorted(torch_relay.WAITING))
-def test_waiting_scenarios_need_analysis(case, tmp_path):
-    """Each scenario that waits reaches a module that is not ported yet;
-    once it is, the scenario joins its file's parity test."""
-    name, fn = case.split(".py::")
-    with pytest.raises(AssertionError, match="which is not ported"):
-        torch_relay.run_case(name, fn, {}, tmp_path)

@@ -10,7 +10,12 @@ twice:
 - the port's side: its imports taken from ``tpu_operator_torch``
   (``TPUClusterPolicy`` is ``GPUClusterPolicy``), and every string in it
   through ``torch_names.to_port`` with ``torch_sides.NODE_MAP``, as
-  ``torch_sides.Side.tr`` maps a scenario's inputs.
+  ``torch_sides.Side.tr`` maps a scenario's inputs, then through ``PATHS``
+  (the reference's package paths are the port's).
+
+A file with names of its own beyond these (the analyzer's,
+``tests/torch_analysis.py``) passes ``maps``: pairs applied before the
+name map and after it, to its strings and to the reference's record.
 
 In both, every ``assert`` also records the values it compares (each
 operand of a comparison, else the asserted value), in a canonical JSON
@@ -62,9 +67,9 @@ FILES = ("test_relay", "test_serving", "test_reqtrace", "test_arena",
          "test_qos", "test_pump", "test_utilization", "test_spmd",
          "test_sessions", "test_router", "test_federation")
 
-#: scenarios that go through a module that is still to be ported
-#: (``analysis/``, ROADMAP item 20): they wait for it
-WAITING = {"test_federation.py::test_wiring_pass_covers_federation_chain"}
+#: scenarios that go through a module that is still to be ported: they
+#: wait for it (none do)
+WAITING: set = set()
 
 #: the relay half of ``tests/test_reshard.py`` (its controller half is
 #: ``tests/test_torch_reshard.py``'s): the compile cache's generations, the
@@ -88,6 +93,8 @@ RESHARD_ROUTER = (
     "test_router_reshard_compiles_each_new_key_once_tierwide",
     "test_autoscaler_holds_during_active_reshard",
 )
+#: and the wiring pass over the resharding chain, which runs the analyzer
+RESHARD_WIRING = ("test_wiring_pass_covers_resharding_chain",)
 
 #: scenarios about the reference's TPU kind table or its default kind
 #: ``"tpu"``; the port's counterparts are in tests/test_torch_relay_port.py
@@ -107,6 +114,22 @@ TRANSLATED = {
 ASSERTIONS_ONLY = {"test_qos.py::test_crd_schema_includes_qos_block"}
 
 RENAMES = {"TPUClusterPolicy": "GPUClusterPolicy"}
+
+#: the reference's package paths → the port's, applied after the name map
+PATHS = ((r"\btpu_operator/", "tpu_operator_torch/"),)
+
+
+def _subs(text: str, pairs) -> str:
+    for pat, repl in pairs:
+        text = re.sub(pat, repl, text)
+    return text
+
+
+def port_string(text: str, maps=((), ())) -> str:
+    """A string of a reference test file, or of its record, in the
+    port's names."""
+    pre, post = maps
+    return _subs(to_port(text, (*pre, *NODE_MAP)), (*PATHS, *post))
 
 
 # -- the two compiled copies of a test file -----------------------------------
@@ -148,6 +171,9 @@ class _ToPort(ast.NodeTransformer):
     """The port's side of a test file: imports from the port, strings in
     the port's names."""
 
+    def __init__(self, maps):
+        self.maps = maps
+
     def visit_ImportFrom(self, node):
         if node.level or not (node.module == "tpu_operator"
                               or node.module.startswith("tpu_operator.")):
@@ -166,7 +192,7 @@ class _ToPort(ast.NodeTransformer):
 
     def visit_Constant(self, node):
         if isinstance(node.value, str):
-            node.value = to_port(node.value, NODE_MAP)
+            node.value = port_string(node.value, self.maps)
         return node
 
 
@@ -203,13 +229,13 @@ def _imp(module, name):
 class Copy:
     """One side's compiled copy of a reference test file."""
 
-    def __init__(self, name: str, side: str):
+    def __init__(self, name: str, side: str, maps=((), ())):
         path = os.path.join(TESTS, f"{name}.py")
         tree = ast.parse(open(path).read(), path)
         rec = _Record()
         tree = rec.visit(tree)
         if side == "p":
-            tree = _ToPort().visit(tree)
+            tree = _ToPort(maps).visit(tree)
         ast.fix_missing_locations(tree)
         self.fixtures = rec.fixtures
         self.log: list = []
@@ -272,9 +298,9 @@ class _Caplog(logging.Handler):
 _COPIES: dict = {}
 
 
-def copy_of(name: str, side: str) -> Copy:
+def copy_of(name: str, side: str, maps=((), ())) -> Copy:
     if (name, side) not in _COPIES:
-        _COPIES[name, side] = Copy(name, side)
+        _COPIES[name, side] = Copy(name, side, maps)
     return _COPIES[name, side]
 
 
@@ -295,8 +321,7 @@ def _plain(x, depth=0):
         return {json.dumps(_plain(k, depth + 1), sort_keys=True):
                 _plain(v, depth + 1) for k, v in x.items()}
     if isinstance(x, (set, frozenset)):
-        return sorted((_plain(v, depth + 1) for v in x),
-                      key=lambda v: json.dumps(v, sort_keys=True))
+        return {"set": _sorted(_plain(v, depth + 1) for v in x)}
     if isinstance(x, (list, tuple, deque)):
         return [_plain(v, depth + 1) for v in x]
     if isinstance(x, BaseException):
@@ -317,6 +342,32 @@ _ADDR = re.compile(r"0x[0-9a-f]{6,}")
 
 def canon(x) -> str:
     return _ADDR.sub("0x?", json.dumps(_plain(x), sort_keys=True))
+
+
+def _sorted(values) -> list:
+    return sorted(values, key=lambda v: json.dumps(v, sort_keys=True))
+
+
+def _resort(x):
+    """A canonical value after a name map, whose renames can change the
+    order of a set's members: each set sorted again."""
+    if isinstance(x, dict):
+        if list(x) == ["set"] and isinstance(x["set"], list):
+            return {"set": _sorted(_resort(v) for v in x["set"])}
+        return {k: _resort(v) for k, v in x.items()}
+    if isinstance(x, list):
+        return [_resort(v) for v in x]
+    return x
+
+
+def ref_to_port(entry: str, maps=((), ())) -> str:
+    """An entry of the reference's record in the port's names."""
+    if not (_MAPPED.search(entry) or any(maps)):
+        return entry
+    mapped = port_string(entry, maps)
+    if mapped == entry:
+        return entry
+    return json.dumps(_resort(json.loads(mapped)), sort_keys=True)
 
 
 #: substrings one of which a string must hold for the name map to change it
@@ -446,13 +497,16 @@ def _call(copy: Copy, fn_name: str, params: dict, tmp: str):
     return [e.replace(tmp, "<tmp>") for e in copy.log], error
 
 
-def run_case(name: str, fn_name: str, params: dict, tmp_path) -> int:
+def run_case(name: str, fn_name: str, params: dict, tmp_path,
+             maps=((), ()), assertions_only: bool = False) -> int:
     """Run one reference scenario on both sides and hold them equal; the
-    number of values compared."""
+    number of values compared. ``maps``: the file's own name pairs
+    (before the name map, after it); ``assertions_only``: hold the
+    assertions on the port, not the records."""
     with same_kinds():
         ref, ref_err = _call(copy_of(name, "r"), fn_name, params,
                              str(tmp_path / "r"))
-    port, port_err = _call(copy_of(name, "p"), fn_name, params,
+    port, port_err = _call(copy_of(name, "p", maps), fn_name, params,
                            str(tmp_path / "p"))
     if ref_err is not None:
         raise AssertionError(f"the reference's side failed under the "
@@ -460,11 +514,11 @@ def run_case(name: str, fn_name: str, params: dict, tmp_path) -> int:
     if isinstance(port_err, NotPorted):
         raise AssertionError(f"{fn_name} reaches {port_err}, which is not "
                              f"ported: list it in WAITING")
-    if f"{name}.py::{fn_name}" in ASSERTIONS_ONLY:
+    if assertions_only or f"{name}.py::{fn_name}" in ASSERTIONS_ONLY:
         if port_err is not None:
             raise port_err
         return 0
-    ref = [to_port(e, NODE_MAP) if _MAPPED.search(e) else e for e in ref]
+    ref = [ref_to_port(e, maps) for e in ref]
     for i, (r, p) in enumerate(zip(ref, port)):
         assert r == p, (f"value {i} of {len(ref)} differs:\n  reference "
                         f"{_short(r)}\n  port      {_short(p)}")

@@ -158,6 +158,7 @@ def library() -> ctypes.CDLL:
     global _library
     with _lock:
         if _library is None:
+            # gpucheck: ignore[lock-blocking-call] -- the first launch builds the library once; a second thread needs that library and must wait for it anyway
             lib = ctypes.CDLL(str(build()))
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(lib, name)

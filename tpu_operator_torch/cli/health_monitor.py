@@ -27,8 +27,6 @@ log = logging.getLogger("gpu-operator")
 def main(argv=None) -> int:
     from tpu_operator_torch.api.v1alpha1 import (DEFAULT_HEALTH_FILE,
                                                  HealthMonitorSpec)
-    from tpu_operator_torch.deviceplugin.discovery import HEALTH_FILE_ENV
-
     env = os.environ
     p = argparse.ArgumentParser(prog="gpu-health-monitor")
     p.add_argument("--client", default="incluster")
@@ -40,7 +38,7 @@ def main(argv=None) -> int:
     p.add_argument("--healthy-after", type=float,
                    default=float(env.get("HEALTH_HEALTHY_AFTER_S", "120")))
     p.add_argument("--health-file",
-                   default=env.get(HEALTH_FILE_ENV, DEFAULT_HEALTH_FILE))
+                   default=env.get("GPU_HEALTH_FILE", DEFAULT_HEALTH_FILE))
     p.add_argument("--dev-root", default="/dev")
     p.add_argument("--sysfs-root", default=env.get("GPU_SYSFS_ROOT", ""),
                    help="attribute files <root>/nvidia<N>/<attr> for the "
