@@ -191,6 +191,26 @@ def test_case_script_fails_when_an_override_does_not_render(tmp_path):
     assert "[stub]" not in p.stdout
 
 
+def test_case_script_render_check_holds_on_a_large_render(tmp_path):
+    """The render check reads the whole render without a pipe: a copy of
+    the script whose render carries 1 MiB after the overrides (grep -q
+    matches in its first lines and stops reading) still passes under
+    ``pipefail``."""
+    text = open(os.path.join(SCRIPTS, "cases", "cdi-runtime.sh")).read()
+    render = "render chart ${CHART_SET_OPTIONS})"
+    assert render in text
+    doctored = text.replace(render, render[:-1] + "; head -c 1048576 "
+                            "/dev/zero | tr '\\0' x)")
+    script = tmp_path / "cases" / "cdi-runtime.sh"
+    script.parent.mkdir()
+    script.write_text(doctored.replace('ROOT="$(cd "${HERE}/../../.." && pwd)"',
+                                       f'ROOT="{ROOT}"'))
+    p = subprocess.run(["bash", str(script)], capture_output=True,
+                       text=True, timeout=120, env=_env(CI_RUN=_stub(tmp_path)))
+    assert p.returncode == 0, p.stdout + p.stderr
+    assert "[case] render check OK" in p.stdout
+
+
 def test_the_workload_pod_runs_the_validator_image():
     """``gpu-pod.yaml`` asks for one ``nvidia.com/gpu`` under the
     ``nvidia`` runtime class, and its command resolves in its image to the

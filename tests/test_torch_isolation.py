@@ -42,6 +42,7 @@ def _forbidden(module):
 def test_scan_covers_the_package():
     rel = {os.path.relpath(p, ROOT) for p in _port_files()}
     assert {"chip_smoke.py", "tpu_operator_torch/_native.py",
+            "tpu_operator_torch/bench.py",
             "tpu_operator_torch/validator/components.py",
             "tpu_operator_torch/validator/driver_build.py",
             "tpu_operator_torch/validator/metrics.py",
@@ -184,13 +185,15 @@ def test_import_builds_nothing_and_loads_no_jax():
 def _entry_points():
     from tpu_operator_torch.entry import dryrun_multigpu, entry
     from tpu_operator_torch.ops.burnin import init_burnin
+    from tpu_operator_torch.ops.flash_attention import flash_vs_sdpa_tflops
     from tpu_operator_torch.ops.hbm import hbm_device_gbps, hbm_read_gbps
     from tpu_operator_torch.ops.matmul import matmul_tflops
     return {"entry": entry, "init_burnin": init_burnin,
             "dryrun_multigpu": lambda: dryrun_multigpu(4),
             "hbm_read_gbps": hbm_read_gbps,
             "hbm_device_gbps": hbm_device_gbps,
-            "matmul_tflops": matmul_tflops}
+            "matmul_tflops": matmul_tflops,
+            "flash_vs_sdpa_tflops": flash_vs_sdpa_tflops}
 
 
 @pytest.mark.parametrize("name", sorted(_entry_points()))

@@ -1,4 +1,4 @@
-"""``chip_smoke.py``'s thirteenth path, "static gate", on the CPU: the
+"""``chip_smoke.py``'s last path, "static gate", on the CPU: the
 analyzer over the checkout, its ``--list``, the byte-compile sweep and the
 CDI case's render check run here as processes, as they run on the card
 machine; and the path is the last one ``main`` drives, counting no

@@ -217,3 +217,15 @@ def port_render(raw: dict, extra=(), spec=None) -> dict:
         assert data["config.yaml"] == to_port(SLICE_PROFILES[0]), data
         data["config.yaml"] = SLICE_PROFILES[1]
     return out
+
+
+#: the bench's device lines, the reference's metric names → the port's:
+#: a card's figure never stands under a TPU's name (the harness lines,
+#: which measure no device, keep theirs)
+BENCH_METRIC_NAMES = {
+    "validator_burnin_matmul_bf16": "gpu_validator_burnin_matmul_bf16",
+    "hbm_read_gbps": "gpu_hbm_read_gbps",
+    "flash_attention_causal_bf16": "gpu_flash_attention_causal_bf16",
+    "ici_allreduce_busbw_gbps": "gpu_allreduce_busbw_gbps",
+    "tpu_smoke_pjrt": "gpu_smoke_cuda",
+}

@@ -53,6 +53,7 @@ import json
 import logging
 import os
 import re
+import sys
 from collections import deque
 
 import pytest
@@ -555,10 +556,33 @@ HOST_CLOCK_GATES = {"pump_speed": "vectorized pump speedup"}
 HARNESS_NAMES = ((r"\bv5-lite\b", "h100"),)
 
 
+#: the harnesses that count the process's allocated blocks
+#: (``sys.getallocatedblocks``), which another thread of the test process
+#: (pytest-xdist's I/O thread) moves when it runs during the count
+PROCESS_COUNTERS = ("pump_speed",)
+
+
+@contextlib.contextmanager
+def _alone(harness: str):
+    """For a harness of ``PROCESS_COUNTERS``, no other Python thread runs
+    while it measures unless it blocks: the interpreter's switch interval
+    is raised for the length of the block (a Python allocation needs the
+    interpreter lock, so only its own thread's allocations count)."""
+    if harness not in PROCESS_COUNTERS:
+        yield
+        return
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(600.0)
+    try:
+        yield
+    finally:
+        sys.setswitchinterval(interval)
+
+
 def _report(package: str, harness: str) -> dict:
     mod = importlib.import_module(f"{package}.e2e.{harness}")
     out = io.StringIO()
-    with contextlib.redirect_stdout(out):
+    with contextlib.redirect_stdout(out), _alone(harness):
         rc = mod.main(["--ci"])
     report = json.loads(out.getvalue())
     assert rc == (0 if report["ok"] else 1), (rc, report["ok"])
@@ -576,12 +600,19 @@ def _host_clock(report: dict, harness: str) -> dict:
             node = node[p]
         v = node[leaf]
         node[leaf] = isinstance(v, (int, float)) and 0 < v < float("inf")
-    gate = HOST_CLOCK_GATES.get(harness)
-    if gate:
-        report["problems"] = [p for p in report["problems"]
-                              if not p.startswith(gate)]
+    if harness in HOST_CLOCK_GATES:
+        report["problems"] = without_host_clock_gates(report["problems"],
+                                                      harness)
         report["ok"] = not report["problems"]
     return report
+
+
+def without_host_clock_gates(problems: list, harness: str) -> list:
+    """``problems`` without the harness's host-clock gates
+    (``HOST_CLOCK_GATES``): those are held by a test of their own, which
+    measures again when a loaded machine reads under the bar."""
+    gate = HOST_CLOCK_GATES.get(harness)
+    return [p for p in problems if not (gate and p.startswith(gate))]
 
 
 def harness_reports(harness: str) -> tuple:
@@ -604,11 +635,21 @@ OPEN_FAULTS = {"relay_tier": [
     "4-replica aggregate rps only 2.65x single-replica (< 3x)"]}
 
 
+def _differences(ref, port, path: str = "") -> list:
+    """The paths where two reports differ, each with both values."""
+    if isinstance(ref, dict) and isinstance(port, dict):
+        return [d for key in sorted(set(ref) | set(port), key=str)
+                for d in _differences(ref.get(key), port.get(key),
+                                      f"{path}.{key}")]
+    return [] if ref == port else [(path, ref, port)]
+
+
 def check_harness(harness: str):
     """A harness's ``--ci`` report on the port equals the reference's
     after the name map (virtual-clock figures exactly, host-clock figures
     on their invariant), and the port's report has no problem but an
-    open fault's."""
+    open fault's and its host-clock gates'."""
     ref, port, raw = harness_reports(harness)
-    assert ref == port
-    assert raw["problems"] == OPEN_FAULTS.get(harness, [])
+    assert ref == port, _differences(ref, port)
+    assert without_host_clock_gates(raw["problems"], harness) == \
+        OPEN_FAULTS.get(harness, [])

@@ -46,6 +46,8 @@ from tpu_operator_torch import _native
 from tpu_operator_torch.parallel.ring_attention import (_softmax_attention,
                                                         pinned_f32,
                                                         softmax_weights)
+from tpu_operator_torch.utils.device import resolve_device
+from tpu_operator_torch.utils.timing import measure_best, median_differential
 
 BLOCK = 64          # the kernels' q tile rows and the work list's kv tiles
 HEAD_DIM = 128      # K2's head dimension
@@ -431,3 +433,148 @@ def flash_attention(q, k, v, sm_scale: float | None = None,
 
 
 flash_attention.launches = 0
+
+
+# -- the bench: K2 against SDPA ---------------------------------------------
+
+#: the SDPA backends :func:`flash_vs_sdpa_tflops` tries on the card, as
+#: ``torch.nn.attention.SDPBackend`` names; the CPU has only the math one
+SDPA_BACKENDS = ("FLASH_ATTENTION", "CUDNN_ATTENTION", "EFFICIENT_ATTENTION",
+                 "MATH")
+
+
+def _sdpa(backend: str):
+    """Causal SDPA on one backend as a [T, D] → [T, D] function: the inputs
+    go in as [1, 1, T, D], the only form the fused backends take."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    def attend(q, k, v):
+        with sdpa_kernel(getattr(SDPBackend, backend)):
+            out = F.scaled_dot_product_attention(
+                q[None, None], k[None, None], v[None, None], is_causal=True)
+        return out[0, 0]
+    return attend
+
+
+def _chained(fn, q, k, v, reps: int):
+    """A function that runs ``reps`` calls of ``fn`` chained (each output
+    is the next call's q), sums the last output in f32 and fetches the sum,
+    the completion barrier. On the card the calls and the sum are one CUDA
+    graph, captured here after one uncaptured run sets up what the calls
+    cache, so a run is one replay and the host's time per call is not in
+    it."""
+    def body():
+        acc = q
+        for _ in range(reps):
+            acc = fn(acc, k, v)
+        return acc.float().sum()
+
+    if q.device.type != "cuda":
+        return lambda: body().item()
+    body().item()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        total = body()
+
+    def run():
+        graph.replay()
+        return total.item()
+    return run
+
+
+def _per_call_seconds(run_hi, run_lo, hi: int, lo: int, iters: int,
+                      repeats: int):
+    """Seconds a call by the two-point differential between ``hi`` and
+    ``lo`` chained calls, and the median sample's Δt; when timer noise
+    swamps every differential, the ``hi`` run's absolute time a call and
+    Δt None."""
+    last = {}
+
+    def t_hi():
+        last["secs"] = measure_best(run_hi, iters=iters, warmup=0)
+        return last["secs"]
+
+    def t_lo():
+        return measure_best(run_lo, iters=iters, warmup=0)
+
+    med = median_differential(t_hi, t_lo, hi - lo, repeats)
+    if med is None:
+        return last["secs"] / hi, None
+    return 1.0 / med[0], med[1]
+
+
+def flash_vs_sdpa_tflops(t: int = 16384, d: int = 128, reps_hi: int = 48,
+                         reps_lo: int = 12, iters: int = 2, repeats: int = 3,
+                         device="cuda") -> dict:
+    """Causal flash attention (:func:`flash_attention`: K2 at bf16, D = 128,
+    T % 64 = 0) against the fastest SDPA backend that takes the same
+    inputs, in the same process on the same payload.
+
+    The inputs are three [t, d] bf16 draws of a generator seeded 0. Each
+    side runs ``reps`` chained calls (:func:`_chained`), timed by the
+    two-point differential between ``reps_hi`` and ``reps_lo`` chains
+    (``median_differential`` over ``repeats``, each time the best of
+    ``iters`` runs), with the absolute time as the fallback. Both sides
+    run chains of equal length, so that their Δt are of the same order:
+    the reference lengthens its kernel's chains 8 times, for a kernel 4x
+    faster than its comparator; on an H100 K2 takes 1.25x cuDNN's time a
+    call at the defaults (``PERF.md``). The comparator is the backend
+    of :data:`SDPA_BACKENDS` whose ``reps_lo`` chain runs fastest; a
+    backend that refuses the inputs is passed over. FLOPs a call: 2·t²·d
+    (the causal half of the pairs).
+
+    On the CPU (tests) the flash side is the plain version and the
+    comparator SDPA's math backend: the numbers mean nothing there, as
+    ``note`` says.
+
+    Returns ``seq_len``, ``d``, ``flash_tflops``, ``sdpa_tflops``,
+    ``sdpa_backend``, ``speedup`` (SDPA's seconds a call over flash's),
+    ``checksum_rel_err`` (the flash output's sum against the comparator's)
+    and each side's Δt (None where the absolute time stood in).
+    """
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = (torch.randn((t, d), generator=gen, device=dev,
+                           dtype=torch.bfloat16) for _ in range(3))
+
+    def flash(a, b, c):
+        return flash_attention(a, b, c, causal=True)
+
+    # the comparator: the fastest backend that takes the inputs, by its
+    # short chain (reused below)
+    lo_runs = {}
+    for backend in SDPA_BACKENDS if dev.type == "cuda" else ("MATH",):
+        try:
+            run = _chained(_sdpa(backend), q, k, v, reps_lo)
+        except RuntimeError:
+            continue
+        lo_runs[backend] = (measure_best(run, iters=iters, warmup=1), run)
+    if not lo_runs:
+        raise RuntimeError(f"no SDPA backend takes bf16 [{t}, {d}] causal")
+    backend = min(lo_runs, key=lambda name: lo_runs[name][0])
+    sdpa, sdpa_lo = _sdpa(backend), lo_runs.pop(backend)[1]
+    del lo_runs  # the other backends' graphs and their memory pools
+
+    got = flash(q, k, v).float().sum().item()
+    want = sdpa(q, k, v).float().sum().item()
+    rel_err = abs(got - want) / max(abs(want), 1e-6)
+
+    s_flash, dt_flash = _per_call_seconds(
+        _chained(flash, q, k, v, reps_hi), _chained(flash, q, k, v, reps_lo),
+        reps_hi, reps_lo, iters, repeats)
+    s_sdpa, dt_sdpa = _per_call_seconds(
+        _chained(sdpa, q, k, v, reps_hi), sdpa_lo, reps_hi, reps_lo, iters,
+        repeats)
+    flops = 2 * t * t * d
+    rep = {"seq_len": t, "d": d,
+           "flash_tflops": flops / s_flash / 1e12,
+           "sdpa_tflops": flops / s_sdpa / 1e12,
+           "sdpa_backend": backend,
+           "speedup": s_sdpa / s_flash,
+           "checksum_rel_err": rel_err,
+           "flash_dt_s": dt_flash, "sdpa_dt_s": dt_sdpa}
+    if dev.type == "cpu":
+        rep["note"] = ("CPU: the plain version against SDPA's math "
+                       "backend; these times are not a card's")
+    return rep

@@ -31,8 +31,8 @@ of nccl-tests so that figures compare across fabrics:
   all_to_all     busbw = (n-1)/n * bytes_per_rank / t   (each rank keeps 1/n)
   ppermute ring  busbw = bytes / t            (each link carries the payload)
 
-On a CUDA mesh it also times the hand-scheduled ring all-reduces of
-``parallel/ring.py`` on the same payload: the pinned-schedule comparators
+On a mesh of virtual ranks of one card it also times the hand-scheduled
+ring all-reduces of ``parallel/ring.py`` on the same payload: the pinned-schedule comparators
 whose gap to the library sum separates a poor schedule from a slow link.
 On virtual ranks of one card nothing crosses a link: every figure is then a
 loopback through device memory (copies and adds of the card's own memory,
@@ -317,9 +317,11 @@ def run_collective_suite(mesh: Mesh, axis: str = "model", mbytes: int = 64,
         alltoall_bandwidth(mesh, axis, mbytes, iters),
         ppermute_ring_bandwidth(mesh, axis, mbytes, iters),
     ]
-    if mesh.device(0).type == "cuda":
-        # the hand-scheduled comparators are CUDA kernels; on a CPU mesh
-        # their plain versions would time a simulation, not a fabric
+    if mesh.device(0).type == "cuda" and len(
+            {mesh.device(r) for r in range(mesh.size)}) == 1:
+        # the hand-scheduled comparators are CUDA kernels over virtual
+        # ranks of one card; on a CPU mesh their plain versions would time
+        # a simulation, not a fabric, and they take no ranks across cards
         reports.append(ring_allreduce_bandwidth(mesh, axis, mbytes, iters))
         reports.append(ring_allreduce_bandwidth(mesh, axis, mbytes, iters,
                                                 bidir=True))

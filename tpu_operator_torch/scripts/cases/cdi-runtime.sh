@@ -14,9 +14,12 @@ export PYTHONPATH="${ROOT}${PYTHONPATH:+:$PYTHONPATH}"
 export CHART_SET_OPTIONS="--set containerToolkit.cdiEnabled=true --set devicePlugin.resourceName=nvidia.com/gpu-h100"
 
 rendered="$(python -m tpu_operator_torch.cli.cfg render chart ${CHART_SET_OPTIONS})"
-echo "${rendered}" | grep -q "cdiEnabled: true" \
+# a here-string, not `echo | grep -q`: grep -q stops at its first match,
+# and under pipefail the echo it leaves writing dies of SIGPIPE and fails
+# the check
+grep -q "cdiEnabled: true" <<< "${rendered}" \
   || { echo "[case] FAIL: cdiEnabled override missing from render"; exit 1; }
-echo "${rendered}" | grep -q "resourceName: nvidia.com/gpu-h100" \
+grep -q "resourceName: nvidia.com/gpu-h100" <<< "${rendered}" \
   || { echo "[case] FAIL: resourceName override missing from render"; exit 1; }
 echo "[case] render check OK: cdiEnabled and resourceName overrides rendered"
 
