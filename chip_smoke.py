@@ -26,8 +26,12 @@ not divide, through their own wrappers and through ``flash_attention``'s
 routing, and timed the same way (K2w also by the keys a kv step takes at
 D = 256). Then it holds the ring kernels (K3–K6) against their
 plain versions and the library sums for 2, 4 and 8 virtual ranks on the
-card, times them at 4 × 64 MiB (with the bytes their schedules move, a
-library call that fills all n outputs, and a sweep of piece sizes) and at
+card, in one launch and in a launch a rank on streams of their own (the
+protocol of ranks on distinct cards: epochs, the entry barrier between
+launches), with three back-to-back launches of one ring on fresh inputs
+in both, times them at 4 × 64 MiB (with the bytes their schedules move, a
+library call that fills all n outputs, and a sweep of piece sizes), a
+launch a rank at 2, 4 and 8 × 64 MiB, and at
 4 × 64 KiB (the per-hop handshake), prints the collective bandwidth
 suite's reports on 4 virtual ranks, and runs the multi-device dry run
 ``dryrun_multigpu(4)``, whose ring checks must go through those kernels.
@@ -137,9 +141,18 @@ the validator's efficiency gate, the HBM line (K1 at 256 MiB, 2048/512
 sweeps) and the flash line (K2 at bf16 [16384, 128] causal in CUDA graphs,
 against the fastest fused SDPA backend) must not be suspect, the smoke
 must score 1.0 through the machine's ``libcuda.so.1``, the collectives
-line must be the one-card N/A, and each harness line must be ok but for
+line must be the one-card N/A (on two or more cards the suite's seven
+collectives, the hand rings included), and each harness line must be ok but for
 two host-clock bars and F13 (``BENCH_ALLOWED``); K1 and K2 must launch,
 and each line's host-clock seconds are printed (``[bench]`` lines).
+Then K3–K6 run through their wrappers a launch a rank at n = 2, 4 and 8
+("ranks across launches", where each must launch), and, on a machine of
+two or more cards, "ranks across cards": the validator with its default
+ranks, one a card (``"fabric": "peer"``, the hand rings in its suite), the
+dry run over every card, and K3–K6 across cards at 64 MiB a rank with
+three back-to-back launches on fresh inputs and their time beside their
+NVLink bound; on one card that path prints that it was not measured and
+launches nothing.
 Last, the static gate, which launches no kernel: the invariant analyzer
 (``python -m tpu_operator_torch.analysis --all``) must find nothing in
 the checkout, ``--list`` must name its eight passes, ``make -C
@@ -786,7 +799,7 @@ def phase_ring(dev, kind) -> list[dict]:
     from tpu_operator_torch.parallel import ring
     from tpu_operator_torch.parallel.numerics import reduction_tolerance
     gen = torch.Generator(device=dev).manual_seed(5)
-    entries = {}
+    entries, per_rank_ms = {}, {}
     for n in (2, 4, 8):
         tol = reduction_tolerance(torch.float32, n)
         for name, wrapper, plain, line, step in RING_KERNELS:
@@ -824,18 +837,85 @@ def phase_ring(dev, kind) -> list[dict]:
                     check(ok, f"{name} n={n} {label}: max abs err "
                               f"{max(errs):.3e} against the library sum, "
                               f"beyond reduction_tolerance {tol:.3e}")
+                # a launch a rank, on streams of their own: the protocol
+                # of ranks on distinct cards, on this card
+                split = fn(xs, per_rank=True)
+                check(all(torch.equal(o, w) for o, w in zip(split, want)),
+                      f"{name} n={n} {label}: a launch a rank differs from "
+                      "the plain version")
+                del split
                 print(f"[{name}] n={n} {label} per rank ({rows}, {cols}) "
-                      f"f32: == plain (exact, both schedules); max abs err "
+                      f"f32: == plain (exact, both schedules, one launch "
+                      f"and a launch a rank); max abs err "
                       f"{max(errs):.3e} "
                       f"against the library (tolerance "
                       f"{0.0 if name == 'ring_all_gather' else tol:.3e})")
+                if label == "dry run":
+                    ring_epochs(name, xs, plain_fn)
+                else:
+                    per_rank_ms.setdefault(name, {})[n] = ring_per_rank_ms(
+                        name, xs, want, kind)
                 if n == 4 and label == "64 MiB":
                     entries[name] = ring_timing(
                         name, fn, plain_fn, xs, want, kind, line, max(errs))
                 del xs, outs, want, lib
+    for name, entry in entries.items():
+        entry["per_rank_ms"] = {n: t["per_rank"]
+                                for n, t in per_rank_ms[name].items()}
+        entry["one_launch_ms"] = {n: t["one_launch"]
+                                  for n, t in per_rank_ms[name].items()}
     ring_small(dev)
     ring_suite(dev)
     return [entries[name] for name, *_ in RING_KERNELS]
+
+
+def ring_epochs(name, xs, plain_fn) -> None:
+    """Three back-to-back launches of one ring, in one launch and a launch
+    a rank, new inputs written in place before each and the outputs copied
+    after each, with no synchronisation between: each must give the plain
+    version's bits on its own inputs (the signal words are zeroed once, and
+    each launch waits for its epoch's counts)."""
+    from tpu_operator_torch.parallel import ring
+    gen = torch.Generator(device=xs[0].device).manual_seed(len(xs))
+    for per_rank in (False, True):
+        launch = ring.RingLaunch(name.removeprefix("ring_"),
+                                 [x.clone() for x in xs], per_rank=per_rank)
+        runs = []
+        for _ in range(3):
+            fresh = [torch.randn(x.shape, generator=gen, device=x.device)
+                     for x in xs]
+            torch._foreach_copy_(launch.held[0], fresh)
+            launch.launch()
+            runs.append((fresh, [o.clone() for o in launch.outs]))
+        launch.raise_on_stall()
+        check(all(torch.equal(o, w) for fresh, outs in runs
+                  for o, w in zip(outs, plain_fn(fresh))),
+              f"{name} n={len(xs)}: three launches of one ring "
+              f"(per_rank={per_rank}) differ from the plain version")
+    print(f"[{name}] n={len(xs)}: three back-to-back launches of one ring, "
+          f"fresh inputs each, one launch and a launch a rank: == plain")
+
+
+def ring_per_rank_ms(name, xs, want, kind) -> dict:
+    """A ring kernel's time with a launch a rank on one card (each launch
+    takes 1/n of the card's resident blocks) beside one launch of all
+    ranks, each checked against the plain version after its launches."""
+    from tpu_operator_torch.parallel import ring
+    times = {}
+    for per_rank in (True, False):
+        launch = ring.RingLaunch(name.removeprefix("ring_"), xs,
+                                 per_rank=per_rank)
+        times[per_rank] = cuda_ms(launch.launch, iters=10)
+        launch.raise_on_stall()
+        check(all(torch.equal(o, w) for o, w in zip(launch.outs, want)),
+              f"{name} n={len(xs)} per_rank={per_rank}: repeated launches "
+              "differ from plain")
+    nbytes, _ = ring_bytes(name, len(xs), xs[0].numel() * 4)
+    bound_ms, _ = bound(0.0, nbytes, kind)
+    print(f"[{name}] n={len(xs)} x 64 MiB, a launch a rank on "
+          f"{len(xs)} streams: kernel {times[True]:.4f} ms; one launch "
+          f"{times[False]:.4f} ms (bound {bound_ms:.4f} ms, bytes)")
+    return {"per_rank": times[True], "one_launch": times[False]}
 
 
 def ring_timing(name, fn, plain_fn, xs, want, kind, line, lib_err) -> dict:
@@ -1039,8 +1119,11 @@ def phase_validate() -> dict:
           "status file does not hold the info")
     check(info["hbm_backend"] == "cuda" and info["platform"] == "cuda",
           f"validator ran off the card: {info}")
-    check(lines["fabric"]["nvlink"] == "skipped (single device)",
-          f"fabric on one card: {lines['fabric']}")
+    cards = torch.cuda.device_count()
+    check(lines["fabric"]["nvlink"] == ("skipped (single device)" if cards == 1
+                                        else f"ring round-trip ok over "
+                                             f"{cards} devices"),
+          f"fabric on {cards} card(s): {lines['fabric']}")
     check(lines["driver"]["devices"] and not lines["driver"]["skew"],
           f"driver: {lines['driver']}")
     print(f"[validate] driver {lines['driver']['build']} (library "
@@ -1069,9 +1152,171 @@ def phase_validate_ranks() -> None:
           and ring_check["max_abs_err"] <= ring_check["tolerance"],
           f"ring attention check {ring_check}")
     legs = info["leg_seconds"]
-    print(f"[validate ranks=4] collectives (loopback busbw, GB/s) "
+    print(f"[validate ranks=4] on {info['rank_devices']}: collectives "
+          f"({info['fabric']} busbw, GB/s) "
           f"{json.dumps(info['collectives'])}; ring attention "
           f"{json.dumps(ring_check)}; leg_seconds {json.dumps(legs)}")
+
+
+def phase_ranks_across_launches() -> None:
+    """Virtual ranks of this card cut into a launch each, on streams of
+    their own (``per_rank=True``): what ranks on distinct cards run (a
+    launch a rank, epochs, the entry barrier between launches), on the
+    one card. K3–K6 through their wrappers at n = 2, 4 and 8, on the dry
+    run's arrays and at 4 MiB a rank, each call's bits held against the
+    plain version and the single launch."""
+    from tpu_operator_torch.parallel import ring
+    gen = torch.Generator(device="cuda").manual_seed(40)
+    for n in (2, 4, 8):
+        for name, wrapper, plain, _, step in RING_KERNELS:
+            fn, plain_fn = getattr(ring, wrapper), getattr(ring, plain)
+            for rows, cols in ((2 * n, 128), (2048, 512)):
+                rows += -rows % (step * n)
+                xs = [torch.randn((rows, cols), generator=gen, device="cuda")
+                      for _ in range(n)]
+                split = fn(xs, per_rank=True)
+                # one launch of all ranks, beside the wrapper's count
+                single = ring.RingLaunch(name.removeprefix("ring_"), xs)
+                single.launch()
+                single.raise_on_stall()
+                check(all(torch.equal(a, w) and torch.equal(b, w)
+                          for a, b, w in zip(split, single.outs,
+                                             plain_fn(xs))),
+                      f"{name} n={n} ({rows}, {cols}): a launch a rank "
+                      "differs from plain or from one launch")
+        print(f"[ranks across launches] n={n}: K3–K6 a launch a rank on "
+              f"{n} streams == plain == one launch, at (2n, 128) and "
+              f"(2048, 512) a rank")
+
+
+#: NVLink on an H100 SXM: 900 GB/s to the other cards, 450 each way
+#: (``hopper-kernels`` guide, section 1)
+NVLINK_GBPS_EACH_WAY = 450.0
+
+
+def cards_ms(launch, iters: int) -> float:
+    """Mean milliseconds of a ring's launches across cards: CUDA events on
+    card 0's stream, which waits for every other card's before the end
+    event, around ``iters`` launches after one untimed."""
+    devices = sorted(set(launch.devices), key=lambda d: d.index)
+    launch.launch()
+    for d in devices:
+        torch.cuda.synchronize(d)
+    first = torch.cuda.current_stream(devices[0])
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record(first)
+    for _ in range(iters):
+        launch.launch()
+    for d in devices[1:]:
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(d))
+        first.wait_event(done)
+    end.record(first)
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def nvlink_bound_ms(name: str, n: int, per_rank: int, kind: str) -> float:
+    """Least time of a ring collective across n cards: the larger of the
+    bytes one card must send to the others over NVLink's 450 GB/s each way
+    and what one card must read and write of its own memory (each input
+    read once, each output written once)."""
+    from tpu_operator_torch.ops.hbm import chip_peak_hbm_gbps
+    sent = {"ring_all_gather": (n - 1) * per_rank,
+            "ring_reduce_scatter": (n - 1) * per_rank // n}.get(
+        name, 2 * (n - 1) * per_rank // n)
+    local, _ = ring_bytes(name, n, per_rank)
+    return max(sent / (NVLINK_GBPS_EACH_WAY * 1e9),
+               local / n / (chip_peak_hbm_gbps(kind) * 1e9)) * 1e3
+
+
+def ring_across_cards(kind: str) -> dict:
+    """K3–K6 with one rank a card on n = 2 .. every card, 64 MiB a rank:
+    each wrapper's bits against the plain version (on the ranks' tensors
+    gathered to the host), three back-to-back launches of one ring with
+    fresh inputs, and each kernel's time beside its NVLink bound."""
+    from tpu_operator_torch.parallel import ring
+    cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    out = {}
+    for n in range(2, len(cards) + 1):
+        for name, wrapper, plain, _, step in RING_KERNELS:
+            fn, plain_fn = getattr(ring, wrapper), getattr(ring, plain)
+            rows = PAYLOAD_MB * (1 << 20) // 4 // PAYLOAD_COLS
+            rows += -rows % (step * n)
+            gen = torch.Generator(device="cpu").manual_seed(50 + n)
+            host = [torch.randn((rows, PAYLOAD_COLS), generator=gen)
+                    for _ in range(n)]
+            xs = [h.to(d) for h, d in zip(host, cards)]
+            want = plain_fn(host)
+            outs = fn(xs)
+            check(all(torch.equal(o.cpu(), w) for o, w in zip(outs, want)),
+                  f"{name} across {n} cards differs from plain")
+            del outs
+            launch = ring.RingLaunch(name.removeprefix("ring_"), xs)
+            for _ in range(3):
+                fresh = [torch.randn(h.shape, generator=gen) for h in host]
+                for x, f in zip(xs, fresh):
+                    x.copy_(f)
+                launch.launch()
+                copies = [o.cpu() for o in launch.outs]
+                check(all(torch.equal(o, w)
+                          for o, w in zip(copies, plain_fn(fresh))),
+                      f"{name} across {n} cards: back-to-back launches "
+                      "differ from plain")
+            launch.raise_on_stall()
+            ms = cards_ms(launch, iters=10)
+            launch.raise_on_stall()
+            per_rank = rows * PAYLOAD_COLS * 4
+            bound_ms = nvlink_bound_ms(name, n, per_rank, kind)
+            _, factor = ring_bytes(name, n, per_rank)
+            busbw = factor * per_rank / ms / 1e6
+            print(f"[{name}] across {n} cards x 64 MiB, a launch a card "
+                  f"({launch.blocks} blocks): kernel {ms:.4f} ms; NVLink "
+                  f"bound {bound_ms:.4f} ms; busbw {busbw:.1f} GB/s")
+            out.setdefault(name, {})[n] = {"ms": ms, "bound_ms": bound_ms,
+                                           "busbw_gbps": busbw}
+            del xs, launch, host, want
+    return out
+
+
+#: filled by phase_ranks_across_cards on a machine of two or more cards
+ACROSS_CARDS: dict = {}
+
+
+def phase_ranks_across_cards() -> None:
+    """On a machine of two or more cards: the validator with its default
+    ranks (one a card, ``"fabric": "peer"``), the dry run over every card,
+    and K3–K6 across cards (``ring_across_cards``). On one card the
+    configuration is not there to measure, and it says so."""
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        print(f"[ranks across cards] not measured: this machine has "
+              f"{cards} card (ranks across cards need two or more)")
+        return
+    from tpu_operator_torch.entry import dryrun_multigpu
+    from tpu_operator_torch.validator.components import WorkloadComponent
+    kind = torch.cuda.get_device_name(0)
+    with tempfile.TemporaryDirectory() as vdir:
+        info = WorkloadComponent(device="cuda", validations_dir=vdir).run()
+    want = [f"cuda:{i}" for i in range(cards)]
+    check(info["fabric"] == "peer" and info["rank_devices"] == want,
+          f"validator ranks {info.get('rank_devices')} fabric "
+          f"{info.get('fabric')}")
+    check(tuple(info["collectives"]) == SUITE_OPS and all(
+        math.isfinite(bw) and bw > 0 for bw in info["collectives"].values()),
+        f"collective suite across cards {info['collectives']}")
+    check(info["ring_attention"]["ok"] is True, f"{info['ring_attention']}")
+    print(f"[ranks across cards] validator on {want}: collectives (peer "
+          f"busbw, GB/s) {json.dumps(info['collectives'])}; ring attention "
+          f"{json.dumps(info['ring_attention'])}; leg_seconds "
+          f"{json.dumps(info['leg_seconds'])}")
+    t0 = time.perf_counter()
+    loss = dryrun_multigpu(cards)
+    check(math.isfinite(loss), f"dry run across cards: loss {loss}")
+    print(f"[ranks across cards] dryrun_multigpu({cards}): "
+          f"{time.perf_counter() - t0:.3f} s on the host clock")
+    ACROSS_CARDS.update(ring_across_cards(kind))
 
 
 # (Dh, T, kernel): K2's head width, K2w's widest bucket and a width only
@@ -3627,16 +3872,10 @@ BENCH_ALLOWED = {
     "relay_pump_speed": pump_speedup_holds,
     "relay_tier_scaling": lambda p: p == BENCH_TIER_FAULT,
 }
-#: the suite's collectives across cards: the library's (the hand rings
-#: hold virtual ranks of one card and are not in the line there)
-CROSS_CARD_OPS = ("allreduce", "all_gather", "reduce_scatter", "all_to_all",
-                  "ppermute_ring")
-
-
 def check_collectives_line(co: dict, n: int) -> None:
     """The bench's collectives line on ``n`` cards: the one-card N/A, or
-    the suite's library collectives over every card with the all-reduce's
-    figure as the value."""
+    the suite's seven collectives over every card, the hand rings
+    included, with the all-reduce's figure as the value."""
     print(f"[bench] {co['metric']} on {n} card(s): {co['value']} "
           f"({co['detail']})")
     if n < 2:
@@ -3646,7 +3885,7 @@ def check_collectives_line(co: dict, n: int) -> None:
     d = co["detail"]
     check(co["value"] > 0 and co["vs_baseline"] == 1.0
           and d["n_devices"] == n and all(
-              d["busbw_gbps"].get(op, 0) > 0 for op in CROSS_CARD_OPS)
+              d["busbw_gbps"].get(op, 0) > 0 for op in SUITE_OPS)
           and d["busbw_gbps"]["allreduce"] == co["value"],
           f"collectives line {co}")
 
@@ -3672,7 +3911,8 @@ def phase_bench() -> None:
     the HBM and flash lines must not be suspect, the flash comparator must
     be a fused SDPA backend, the smoke must score 1.0 through the
     machine's ``libcuda.so.1``, the collectives line must be the one-card
-    N/A, nothing may have crashed, and each harness must report ok but for
+    N/A (on two or more cards: the suite's seven collectives, the hand rings
+    included), nothing may have crashed, and each harness must report ok but for
     the problems ``BENCH_ALLOWED`` names."""
     import io
     from tpu_operator_torch import bench
@@ -3783,13 +4023,13 @@ def main() -> int:
 
     # each path runs with its kernels' counts set to 0 just before it and
     # read just after
+    ring = {name: getattr(ring_mod, wrapper)
+            for name, wrapper, *_ in RING_KERNELS}
     paths = (
         ("single-GPU validation", (phase_entry, phase_validate),
          {"hbm_read": hbm_mod.read_sum,
           "flash_fwd": flash_mod.flash_attention}),
-        ("dry run", (phase_dryrun,),
-         {name: getattr(ring_mod, wrapper)
-          for name, wrapper, *_ in RING_KERNELS}),
+        ("dry run", (phase_dryrun,), ring),
         ("4-rank validation", (phase_validate_ranks,),
          {"hbm_read": hbm_mod.read_sum,
           "flash_fwd": flash_mod.flash_attention,
@@ -3840,6 +4080,12 @@ def main() -> int:
         ("bench", (phase_bench,),
          {"hbm_read": hbm_mod.read_sum,
           "flash_fwd": flash_mod.flash_attention}),
+        # virtual ranks of this card, a launch a rank: the cross-card
+        # protocol on one card
+        ("ranks across launches", (phase_ranks_across_launches,), ring),
+        # a configuration a one-card machine lacks: there it runs nothing
+        ("ranks across cards", (phase_ranks_across_cards,),
+         ring if torch.cuda.device_count() >= 2 else {}),
         # the analyzer and the CI case's render check: AST and YAML work
         # on the host, no kernel
         ("static gate", (phase_static_gate,), {}),
@@ -3861,6 +4107,9 @@ def main() -> int:
             launches[name] += count
     for entry_ in kernels:
         entry_["launches"] = launches[entry_["name"]]
+        if entry_["name"] in ring:
+            entry_["across_cards"] = ACROSS_CARDS.get(
+                entry_["name"], "not measured: one card")
         check(entry_["launches"] > 0,
               f"{entry_['name']} never launched on the main path")
     phase_ulysses_dense()

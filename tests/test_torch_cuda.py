@@ -7,7 +7,9 @@ imports no JAX, so it also runs where only PyTorch is installed:
 
 ``chip_smoke.py`` holds the same kernels against the same plain versions at
 the main path's full shapes. The ring kernels (K3–K6) hold n virtual ranks
-on the one card and must give their plain versions' bits exactly.
+on the one card, in one launch or a launch a rank, or ranks on distinct
+cards where the machine has two or more (those tests skip on one card), and
+must give their plain versions' bits exactly.
 """
 
 import math
@@ -288,8 +290,9 @@ def test_ring_kernel_equals_plain_over_many_blocks(cuda, name, blocks):
 
 @pytest.mark.parametrize("name", sorted(RING))
 def test_ring_launch_repeats_from_zeroed_signal_words(cuda, name):
-    """A launch set up once and made three times in a row, as a timing
-    loop makes it, ends with the plain version's result."""
+    """A launch set up once (its signal words zeroed then, and only then)
+    and made three times in a row, as a timing loop makes it, ends with
+    the plain version's result."""
     _, plain = RING[name]
     xs = _ranks(cuda, 4, 4096, 512, seed=5)
     launch = ring.RingLaunch(name, xs)
@@ -298,6 +301,166 @@ def test_ring_launch_repeats_from_zeroed_signal_words(cuda, name):
     launch.raise_on_stall()
     for got, exp in zip(launch.outs, plain(xs)):
         assert torch.equal(got, exp)
+
+
+@pytest.mark.parametrize("n", [2, 4, 8])
+@pytest.mark.parametrize("name", sorted(RING))
+def test_ring_kernel_a_launch_a_rank_equals_plain_and_one_launch(cuda, name,
+                                                                 n):
+    """Virtual ranks cut into a launch each, on streams of their own: the
+    protocol ranks on distinct cards run, on one card. The bits are the
+    plain version's and the single launch's."""
+    fn, plain = RING[name]
+    xs = _ranks(cuda, n, 2 * n * 64, 512, seed=10 + n)
+    before = fn.launches
+    outs = fn(xs, per_rank=True)
+    assert fn.launches == before + 1
+    for got, single, exp in zip(outs, fn(xs), plain(xs)):
+        assert torch.equal(got, exp) and torch.equal(got, single)
+
+
+@pytest.mark.parametrize("per_rank", [False, True])
+@pytest.mark.parametrize("name", sorted(RING))
+def test_ring_launch_takes_fresh_inputs_launch_after_launch(cuda, name,
+                                                            per_rank):
+    """Three back-to-back launches of one ``RingLaunch``, new inputs
+    written in place before each and the outputs copied after each, with
+    no synchronisation between them: every launch gives the plain
+    version's bits on its own inputs, so none waited for a count of its
+    predecessor's (the epochs) or read its data."""
+    _, plain = RING[name]
+    n = 4
+    xs = _ranks(cuda, n, 2 * n * 256, 512, seed=20)
+    launch = ring.RingLaunch(name, xs, per_rank=per_rank)
+    gen = torch.Generator(device=cuda).manual_seed(21)
+    inputs, outputs = [], []
+    for _ in range(3):
+        fresh = [torch.randn(x.shape, generator=gen, device=cuda) for x in xs]
+        for x, f in zip(xs, fresh):
+            x.copy_(f)
+        launch.launch()
+        inputs.append(fresh)
+        outputs.append([o.clone() for o in launch.outs])
+    launch.raise_on_stall()
+    assert launch.epoch == 3
+    for fresh, outs in zip(inputs, outputs):
+        for got, exp in zip(outs, plain(fresh)):
+            assert torch.equal(got, exp)
+
+
+@pytest.mark.parametrize("name", sorted(RING))
+def test_a_launch_a_rank_that_cannot_all_be_resident_stalls(cuda, name,
+                                                            monkeypatch):
+    """Two ranks of one card, each launch as large as the card holds at
+    once, the second held back on its stream behind a sleeping kernel:
+    the first rank's blocks wait at the entry barrier for blocks that
+    cannot be resident, and time out. The wrapper raises RingStall and
+    does not hang."""
+    monkeypatch.setattr(ring, "TIMEOUT_NS", 200_000_000)
+    xs = _ranks(cuda, 2, 2 * 2 * 4096, 512, seed=22)
+    blocks = ring.resident_blocks(cuda, name)
+    blocks -= blocks % (2 if name == "all_reduce_bidir" else 1)
+    launch = ring.RingLaunch(name, xs, blocks=blocks, per_rank=True)
+    launch.launches[1][3].wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(launch.launches[1][3]):
+        torch.cuda._sleep(2_000_000_000)    # about a second
+    launch.launch()
+    with pytest.raises(ring.RingStall, match="timed out"):
+        launch.raise_on_stall()
+    # the card is still usable, and the kernel still right
+    fn, plain = RING[name]
+    for got, exp in zip(fn(xs, per_rank=True), plain(xs)):
+        assert torch.equal(got, exp)
+
+
+@pytest.fixture
+def cards():
+    """The machine's cards, when it has two or more."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards: ranks on distinct cards")
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+@pytest.mark.parametrize("name", sorted(RING))
+def test_ring_kernel_across_cards_equals_plain(cards, name):
+    """One rank a card, on every count of cards from two up: a launch a
+    card over peer pointers, bit-equal to the plain version run on the
+    ranks' tensors gathered to one card, three calls and three
+    back-to-back launches of one ring with fresh inputs."""
+    fn, plain = RING[name]
+    for n in range(2, len(cards) + 1):
+        gen = torch.Generator(device="cpu").manual_seed(30 + n)
+        for _ in range(3):
+            host = [torch.randn((2 * n * 64, 512), generator=gen)
+                    for _ in range(n)]
+            xs = [h.to(d) for h, d in zip(host, cards)]
+            before = fn.launches
+            outs = fn(xs)
+            assert fn.launches == before + 1
+            assert [o.device for o in outs] == cards[:n]
+            for got, exp in zip(outs, plain(host)):
+                assert torch.equal(got.cpu(), exp)
+        xs = [torch.zeros((2 * n * 64, 512), device=d) for d in cards[:n]]
+        launch = ring.RingLaunch(name, xs)
+        for _ in range(3):
+            host = [torch.randn(x.shape, generator=gen) for x in xs]
+            for x, h in zip(xs, host):
+                x.copy_(h)
+            launch.launch()
+            copies = [o.cpu() for o in launch.outs]
+            for got, exp in zip(copies, plain(host)):
+                assert torch.equal(got, exp)
+        launch.raise_on_stall()
+
+
+def test_validator_default_ranks_go_on_the_cards(cards, tmp_path):
+    """With its default ranks (one a card), the validator's multi-device
+    leg runs over peer pointers, the hand rings included."""
+    from tpu_operator_torch.validator.components import WorkloadComponent
+    counters = [ring.ring_all_reduce, ring.ring_all_reduce_bidir]
+    before = [fn.launches for fn in counters]
+    info = WorkloadComponent(device="cuda", collective_mb=8,
+                             validations_dir=str(tmp_path)).validate()
+    assert info["fabric"] == "peer"
+    assert info["rank_devices"] == [str(d) for d in cards]
+    assert list(info["collectives"])[-2:] == ["ring_allreduce",
+                                              "ring_allreduce_bidir"]
+    assert len(info["collectives"]) == 7 and info["ring_attention"]["ok"]
+    assert all(fn.launches > b for fn, b in zip(counters, before))
+
+
+def test_ulysses_across_cards_keeps_each_rank_on_its_card(cards):
+    """One rank a card, 2·cards heads: each rank's heads run K2 on its own
+    card, and the result is held to K2's per-element limit against the
+    single-card computation."""
+    from tpu_operator_torch.parallel.mesh import MeshPlan, make_mesh
+    from tpu_operator_torch.parallel.ring_attention import ulysses_attention
+    n, t, d = len(cards), 512 * len(cards), 128
+    h = 2 * n
+    gen = torch.Generator(device=cards[0]).manual_seed(13)
+    q, k, v = (torch.randn((t, h, d), generator=gen, device=cards[0])
+               .to(torch.bfloat16) for _ in range(3))
+    mesh = make_mesh(n, MeshPlan(data=1, model=n), devices=cards)
+    before = flash_mod.flash_attention.launches
+    outs = ulysses_attention(*([c.to(dev) for c, dev in zip(x.chunk(n), cards)]
+                               for x in (q, k, v)), mesh, "model",
+                             causal=True)
+    assert flash_mod.flash_attention.launches == before + n
+    assert [o.device for o in outs] == cards
+    out = torch.cat([o.to(cards[0]) for o in outs])
+    ref, limit = flash_mod.kernel_error_limit(
+        *(x.permute(1, 0, 2) for x in (q, k, v)), causal=True)
+    assert bool(((out.permute(1, 0, 2).float() - ref).abs() <= limit).all())
+
+
+def test_dryrun_across_cards_goes_through_the_ring_kernels(cards, capsys):
+    from tpu_operator_torch.entry import dryrun_multigpu
+    counters = [fn for fn, _ in RING.values()]
+    before = [fn.launches for fn in counters]
+    assert math.isfinite(dryrun_multigpu(len(cards)))
+    assert all(fn.launches > b for fn, b in zip(counters, before))
+    printed = capsys.readouterr().out
+    assert all(str(d) in printed for d in cards)
 
 
 @pytest.mark.parametrize("name", sorted(RING))

@@ -37,8 +37,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # the build log beside the library
 COMPILE_FLAGS = ("-Xptxas", "-v")
 
-_P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                   ctypes.c_float)
+_P, _I, _U, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
+                       ctypes.c_longlong, ctypes.c_float)
+# the ring kernels: table, n, first rank, ranks in the launch, chunk4, blocks,
+# piece4, timeout, epoch, stream
+_RING = (_P, _I, _I, _I, _LL, _I, _LL, _LL, _U, _P)
 # argtypes of every C entry point; every pointer and the stream are c_void_p,
 # or ctypes would pass them as 32-bit ints and cut them
 _SIGNATURES = {
@@ -49,10 +52,11 @@ _SIGNATURES = {
                         _I, _I, _F, _I, _P),
     "flash_fwd_generic": (_P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I,
                           _I, _F, _I, _P),
-    "ring_all_gather_f32": (_P, _I, _LL, _I, _LL, _LL, _P),
-    "ring_reduce_scatter_f32": (_P, _I, _LL, _I, _LL, _LL, _P),
-    "ring_all_reduce_f32": (_P, _I, _LL, _I, _LL, _LL, _P),
-    "ring_all_reduce_bidir_f32": (_P, _I, _LL, _I, _LL, _LL, _P),
+    "ring_all_gather_f32": _RING,
+    "ring_reduce_scatter_f32": _RING,
+    "ring_all_reduce_f32": _RING,
+    "ring_all_reduce_bidir_f32": _RING,
+    "ring_enable_peers": (_P, _I),
     "ring_resident_blocks": (_I, _P),
 }
 

@@ -335,9 +335,10 @@ def _init_device(device: str = "cuda", timeout_s: float = 180.0):
 
 def _bench_collectives(dev, on_gpu: bool) -> dict:
     """All-reduce bus bandwidth across the machine's cards: the collective
-    suite over one mesh of every card. A one-card host has no fabric to
-    measure, recorded as an explicit N/A (value 0, reason in detail); the
-    validator's workload component runs the suite per node."""
+    suite over one mesh of every card, one rank a card, the hand rings
+    included. A one-card host has no fabric to measure, recorded as an
+    explicit N/A (value 0, reason in detail); the validator's workload
+    component runs the suite per node."""
     import torch
     n = torch.cuda.device_count() if on_gpu else 1
     out = {"metric": "gpu_allreduce_busbw_gbps", "value": 0.0,

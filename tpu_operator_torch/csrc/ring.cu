@@ -1,5 +1,6 @@
-// Ring collectives over virtual ranks: all-gather, reduce-scatter, all-reduce
-// and bidirectional all-reduce (f32), each one cooperative launch for all ranks.
+// Ring collectives: all-gather, reduce-scatter, all-reduce and bidirectional
+// all-reduce (f32), over ranks that are virtual ranks of one card or ranks on
+// distinct cards.
 //
 // Replaces the four Pallas kernels of tpu_operator/parallel/ring.py:
 //   _ring_all_gather_kernel (K3), _ring_reduce_scatter_kernel (K4),
@@ -9,24 +10,37 @@
 // same order. Nothing else is done to the data (no fast math, no multiply),
 // so each kernel also equals its plain versions in parallel/ring.py exactly.
 //
-// Ranks. blockIdx.y is the rank. A rank's code reads one RankPtrs entry and
-// reaches nothing but what it names: its own input, output and signal words,
-// its right neighbour's output (all four) and its left one's (K6), its own
-// and its right neighbour's staging area (K4), and its neighbours' signal
-// words. On one card these are separate allocations of virtual ranks; the
-// same code would run across cards with peer pointers in the table (and
-// epoch counters in place of the signal words that the wrapper zeroes
-// before each launch).
+// Ranks and launches. A launch holds a run of `count` ranks starting at rank
+// `first`: blockIdx.y is the rank's place in that run. One cooperative launch
+// holds all n ranks when they are virtual ranks of one card; a launch holds
+// one rank when the ranks lie on distinct cards (one launch a card, on that
+// card's stream), or when the wrapper cuts the ranks of one card into a
+// launch each on streams of their own. A rank's code reads one RankPtrs
+// entry and reaches nothing but what it names: its own input, output and
+// signal words, its right neighbour's output (all four) and its left one's
+// (K6), its own and its right neighbour's staging area (K4), and its
+// neighbours' signal words. On one card these are separate allocations; across
+// cards the neighbours' are peer pointers, which ring_enable_peers makes
+// valid. The code is the same in every placement: only the pointers and the
+// fabric under them differ.
+//
+// Epochs. The signal words are zeroed once, when the wrapper sets a ring up,
+// and never again: each launch of that ring passes its epoch k (0, 1, 2, ...)
+// and waits for targets offset by k times what one launch adds. Nothing
+// orders a zeroing on one card with a neighbour card's kernel, so counters
+// that only grow are what lets launches follow each other across cards. The
+// counts wrap at 2^32 and are compared by their signed difference.
 //
 // Independent rings per block. Each rank runs on gridDim.x blocks; block b of
 // a rank moves the b-th slice of every chunk and signals only block b of its
 // neighbours, so the launch holds gridDim.x independent rings and the blocks
 // of one rank never wait for each other.
 //
-// What bounds them on an H100: device-memory bytes. They only copy and add;
-// on one card every hop is a read and a write of device memory (the least
+// What bounds them on an H100: on one card, device-memory bytes. They only
+// copy and add; every hop is a read and a write of device memory (the least
 // time counts each rank's input read once and its output written once, over
-// 3.35 TB/s). Across cards the bound would be the NVLink rate instead.
+// 3.35 TB/s). Across cards, the bytes each card sends over NVLink (450 GB/s
+// each way).
 //
 // The design (all_gather_kernel, reduce_scatter_kernel, all_reduce_kernel,
 // all_reduce_bidir_kernel): the sender writes into memory of its neighbour,
@@ -61,7 +75,9 @@
 // few microseconds after it was written, and never again, so its owner
 // discards its lines from L2 (discard.global.L2) once it has forwarded
 // them: the partial sums need not reach device memory at all, and without
-// their write-back K4 is 6-7% faster (PERF.md).
+// their write-back K4 is 6-7% faster (PERF.md). Only the owner discards, and
+// only its own staging area: across cards a peer's lines sit in the peer's
+// L2, and a discard must never reach what another rank may still write.
 //
 // K6 is K5's schedule twice: the first half of a rank's blocks runs it
 // rightward over the top half of the tensor, the second half runs its
@@ -80,30 +96,51 @@
 // write and its forwarding read fit in the 50 MB L2, so that the forwarded
 // read is served from there (the hit rate is not measured). The neighbour that sends to a block walks the same (piece, hop)
 // order, so the counter stays monotone: the k-th arrival is always the same
-// piece and hop. A piece moves through registers (16-byte ld/st.global.cg,
+// piece and hop, and a launch adds (pieces of the block) x (arrivals a piece
+// brings) to it. A piece moves through registers (16-byte ld/st.global.cg,
 // kUnroll loads in flight per thread). Hopper's bulk copies (cp.async.bulk
 // through shared memory on an mbarrier) were timed against this loop on an
 // H100 and were no faster (PERF.md), so they are not used.
 //
-// Common to all: an entry barrier (signal both neighbours' barrier word
-// once, wait for 2), which across cards keeps a rank from writing into an
-// output or staging area that a previous collective still uses. Signalling
-// is __syncthreads, then a release add at system scope (red.release.sys) by
-// thread 0; waiting is thread 0 spinning on acquire loads at system scope,
-// then __syncthreads. The barrier also puts a system fence before the add
-// and after the wait; the hops do not (release() and acquire() below): the
-// fences are not needed for the ordering, and they make every hop's
-// handshake slower (PERF.md). Data written by a neighbour is
-// read with ld.global.cg so that no stale L1 line is used. A wait that sees
-// no progress for timeout_ns (the GPU's global timer) writes a code into the
-// rank's status word and ends the block; the wrapper reads the status words
-// after the launch and raises. Each block waits for its last arrival before
-// it ends, so a stalled neighbour is caught there too.
+// The entry barrier, common to all. Block b signals its right neighbour's
+// "from left" word and its left neighbour's "from right" word once, then
+// waits until each of its own two words counts epoch + 1. A neighbour
+// signals launch k only when it has ended launch k - 1 (launches of one rank
+// follow each other on its stream), so the barrier is what keeps a fast
+// rank from starting launch k + 1 while a neighbour still reads launch k's
+// data from the output or staging area that the new launch overwrites. The
+// neighbours have a word each: one word counting both would let a left
+// neighbour that ran ahead (ended launch k, signalled k + 1) stand in for a
+// right neighbour that has not signalled k yet.
 //
-// Residency. A rank spinning on a neighbour that never got an SM would hang,
-// so the launch is cooperative: cudaLaunchCooperativeKernel refuses a grid
-// that cannot be resident all at once. The wrapper sizes gridDim.x from
-// ring_resident_blocks() / n, for the kernel it launches.
+// Ordering. Signalling is __syncthreads, then a release add at system
+// scope (red.release.sys) by thread 0; waiting is thread 0 spinning on
+// acquire loads at system scope, then __syncthreads. The barrier also puts a
+// system fence before its adds and after its wait; the hops do not
+// (release() and acquire() below): the fences are not needed for the
+// ordering, and they make every hop's handshake slower (PERF.md). Across
+// cards the data goes by st.global.cg into the peer's memory over NVLink,
+// and the release add that follows it is at system scope: the PTX memory
+// model orders every earlier write of the block (made visible to thread 0
+// by __syncthreads, cumulativity) before the add for any observer in the
+// system, the peer card included, and the peer's acquire load at system
+// scope orders its later reads after it. So a neighbour that sees the count
+// sees the piece, over NVLink as within a card. Data written by a neighbour
+// is read with ld.global.cg so that no stale L1 line is used. A wait that
+// sees no progress for timeout_ns (the GPU's global timer) writes a code
+// into the rank's status word and ends the block; the wrapper reads the
+// status words after the launch and raises. Each block waits for its last
+// arrival before it ends, so a stalled neighbour is caught there too. A ring
+// whose launch timed out is spent: its counters are out of step.
+//
+// Residency. A rank spinning on a neighbour that never got an SM would hang
+// but for the timeout. A launch that holds several ranks is cooperative:
+// cudaLaunchCooperativeKernel refuses a grid that cannot be resident all at
+// once. A launch of one rank is a plain launch, since its blocks never wait
+// for each other; whether the launches of its neighbours run at the same
+// time is up to the wrapper, which sizes gridDim.x from
+// ring_resident_blocks() over the ranks that share a card, and the
+// timeout reports it when they do not.
 
 #include <cuda_runtime.h>
 
@@ -112,8 +149,9 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kUnroll = 4;     // float4s each thread loads before it stores
 constexpr int kSigWords = 16;  // per block: 64 bytes of signal words
-constexpr int kBarrier = 0;
+constexpr int kFromLeft = 0;   // entry signals from my left neighbour
 constexpr int kArrived = 1;    // pieces that arrived in my output or staging
+constexpr int kFromRight = 2;  // entry signals from my right neighbour
 constexpr int kStatus = 15;    // non-zero: a wait timed out (code below)
 
 enum Stall { kStallBarrier = 1, kStallArrival = 2 };
@@ -155,28 +193,15 @@ __device__ __forceinline__ unsigned long long now_ns() {
   return t;
 }
 
-// Wait until `word` >= target. False (after writing `code` into the status
-// word) if it did not get there within timeout_ns.
-__device__ __forceinline__ bool wait_for(const unsigned* word,
-                                         unsigned target, unsigned* status,
-                                         unsigned code, long long timeout_ns) {
-  __shared__ int ok;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int good = 1;
-    const unsigned long long start = now_ns();
-    while (load_acquire(word) < target) {
-      if (static_cast<long long>(now_ns() - start) > timeout_ns) {
-        good = 0;
-        *status = code;
-        break;
-      }
-    }
-    __threadfence_system();
-    ok = good;
+// Thread 0 only: spin until `word` has reached `target` (counts wrap, so by
+// their signed difference). False if it did not within timeout_ns.
+__device__ __forceinline__ bool spin(const unsigned* word, unsigned target,
+                                     long long timeout_ns) {
+  const unsigned long long start = now_ns();
+  while (static_cast<int>(load_acquire(word) - target) < 0) {
+    if (static_cast<long long>(now_ns() - start) > timeout_ns) return false;
   }
-  __syncthreads();
-  return ok != 0;
+  return true;
 }
 
 // The hops' lighter pair. The release at system scope alone orders every
@@ -193,30 +218,33 @@ __device__ __forceinline__ bool acquire(const unsigned* word, unsigned target,
                                         long long timeout_ns) {
   __shared__ int ok;
   if (threadIdx.x == 0) {
-    int good = 1;
-    const unsigned long long start = now_ns();
-    while (load_acquire(word) < target) {
-      if (static_cast<long long>(now_ns() - start) > timeout_ns) {
-        good = 0;
-        *status = code;
-        break;
-      }
-    }
+    const int good = spin(word, target, timeout_ns);
+    if (!good) *status = code;
     ok = good;
   }
   __syncthreads();
   return ok != 0;
 }
 
-// Signal both neighbours' barrier word for block b, wait for theirs.
+// The entry barrier of launch `epoch` for block b: signal both neighbours,
+// then wait until each has signalled launch `epoch` (see the note above).
 __device__ __forceinline__ bool barrier(const RankPtrs& p, int b, unsigned* my,
-                                        long long timeout_ns) {
+                                        unsigned epoch, long long timeout_ns) {
+  __shared__ int ok;
+  __syncthreads();
   if (threadIdx.x == 0) {
     __threadfence_system();
-    add_release(p.right_sig + b * kSigWords + kBarrier, 1u);
-    add_release(p.left_sig + b * kSigWords + kBarrier, 1u);
+    // I am my right neighbour's left neighbour, and my left one's right
+    add_release(p.right_sig + b * kSigWords + kFromLeft, 1u);
+    add_release(p.left_sig + b * kSigWords + kFromRight, 1u);
+    const int good = spin(my + kFromLeft, epoch + 1u, timeout_ns) &&
+                     spin(my + kFromRight, epoch + 1u, timeout_ns);
+    if (!good) my[kStatus] = kStallBarrier;
+    __threadfence_system();
+    ok = good;
   }
-  return wait_for(my + kBarrier, 2u, my + kStatus, kStallBarrier, timeout_ns);
+  __syncthreads();
+  return ok != 0;
 }
 
 __device__ __forceinline__ int wrap(int i, int n) { return ((i % n) + n) % n; }
@@ -266,7 +294,7 @@ struct Direct {
   long long chunk4, timeout_ns;
   unsigned* my;      // my signal words (this block)
   unsigned* to;      // the signal words of the rank I send to (this block)
-  unsigned awaited;  // arrivals counted so far
+  unsigned awaited;  // arrivals counted so far, earlier launches' included
 
   // float4 offset of chunk c (mod n); kMirror labels the chunks of the
   // leftward ring in the mirror image
@@ -298,28 +326,42 @@ struct Direct {
   }
 };
 
-// `to_sig`: the signal words of the rank this block sends to
+// Block b's slice [lo, hi) of `span` float4s cut over `slices` blocks.
+__device__ __forceinline__ void slice_of(long long span, int b, int slices,
+                                         long long* lo, long long* hi) {
+  *lo = span * b / slices;
+  *hi = span * (b + 1) / slices;
+}
+
+// `to_sig`: the signal words of the rank this block sends to. Launch `epoch`
+// of a ring starts from the arrivals of the launches before it: each brought
+// (pieces of the slice [lo, hi)) x per_piece.
 __device__ __forceinline__ Direct direct(const RankPtrs& p, unsigned* to_sig,
                                          int n, long long chunk4,
-                                         long long timeout_ns) {
+                                         long long timeout_ns, long long lo,
+                                         long long hi, long long piece4,
+                                         unsigned per_piece, unsigned epoch) {
   Direct r;
   r.n = n;
   r.chunk4 = chunk4;
   r.timeout_ns = timeout_ns;
   r.my = p.sig + blockIdx.x * kSigWords;
   r.to = to_sig + blockIdx.x * kSigWords;
-  r.awaited = 0;
+  const unsigned pieces =
+      static_cast<unsigned>(hi > lo ? (hi - lo + piece4 - 1) / piece4 : 0);
+  r.awaited = epoch * pieces * per_piece;
   return r;
 }
 
 // K3: out[c] = rank c's input, for every c, in n - 1 hops per piece.
 __global__ void __launch_bounds__(kThreads)
-all_gather_kernel(const RankPtrs* __restrict__ ranks, int n, long long chunk4,
-                  long long piece4, long long timeout_ns) {
-  const int d = blockIdx.y;
-  const RankPtrs p = ranks[d];
-  const long long lo = chunk4 * blockIdx.x / gridDim.x;
-  const long long hi = chunk4 * (blockIdx.x + 1) / gridDim.x;
+all_gather_kernel(const RankPtrs* __restrict__ ranks, int n, int first,
+                  long long chunk4, long long piece4, long long timeout_ns,
+                  unsigned epoch) {
+  const int d = first + blockIdx.y;
+  const RankPtrs p = ranks[blockIdx.y];
+  long long lo, hi;
+  slice_of(chunk4, blockIdx.x, gridDim.x, &lo, &hi);
   const float4* in = reinterpret_cast<const float4*>(p.in);
   float4* out = reinterpret_cast<float4*>(p.out);
   float4* right = reinterpret_cast<float4*>(p.right_out);
@@ -327,8 +369,10 @@ all_gather_kernel(const RankPtrs* __restrict__ ranks, int n, long long chunk4,
     forward(out, nullptr, in, nullptr, lo, hi);
     return;
   }
-  Direct r = direct(p, p.right_sig, n, chunk4, timeout_ns);
-  if (!barrier(p, blockIdx.x, r.my, timeout_ns)) return;
+  // a piece brings n - 1 arrivals: n - 2 forwarded, the last one not
+  Direct r = direct(p, p.right_sig, n, chunk4, timeout_ns, lo, hi, piece4,
+                    n - 1, epoch);
+  if (!barrier(p, blockIdx.x, r.my, epoch, timeout_ns)) return;
   for (long long s = lo; s < hi; s += piece4) {
     const long long e = s + piece4 < hi ? s + piece4 : hi;
     // hop 0: my chunk into my output and the right neighbour's
@@ -348,7 +392,7 @@ all_gather_kernel(const RankPtrs* __restrict__ ranks, int n, long long chunk4,
 // without writing them back to device memory. Only for data that nothing
 // reads again in this launch, after a block barrier that follows the
 // block's last load of it: the discard counts as a write of an unspecified
-// value.
+// value. Only ever the rank's own staging area.
 __device__ __forceinline__ void discard_lines(const float4* base, long long s,
                                               long long e) {
   unsigned long long lo = __cvta_generic_to_global(base + s);
@@ -364,13 +408,13 @@ __device__ __forceinline__ void discard_lines(const float4* base, long long s,
 // chunk c starts at rank c + 1 and ends at rank c; on its way it rests in
 // the staging areas, stage[t] holding what hop t delivered.
 __global__ void __launch_bounds__(kThreads)
-reduce_scatter_kernel(const RankPtrs* __restrict__ ranks, int n,
+reduce_scatter_kernel(const RankPtrs* __restrict__ ranks, int n, int first,
                       long long chunk4, long long piece4,
-                      long long timeout_ns) {
-  const int d = blockIdx.y;
-  const RankPtrs p = ranks[d];
-  const long long lo = chunk4 * blockIdx.x / gridDim.x;
-  const long long hi = chunk4 * (blockIdx.x + 1) / gridDim.x;
+                      long long timeout_ns, unsigned epoch) {
+  const int d = first + blockIdx.y;
+  const RankPtrs p = ranks[blockIdx.y];
+  long long lo, hi;
+  slice_of(chunk4, blockIdx.x, gridDim.x, &lo, &hi);
   const float4* in = reinterpret_cast<const float4*>(p.in);
   float4* out = reinterpret_cast<float4*>(p.out);
   const float4* stage = reinterpret_cast<const float4*>(p.stage);
@@ -380,8 +424,11 @@ reduce_scatter_kernel(const RankPtrs* __restrict__ ranks, int n,
     forward(out, nullptr, in, nullptr, lo, hi);
     return;
   }
-  Direct r = direct(p, p.right_sig, n, chunk4, timeout_ns);
-  if (!barrier(p, blockIdx.x, r.my, timeout_ns)) return;
+  // a piece brings n - 1 arrivals: n - 2 into staging, the last one into
+  // the output
+  Direct r = direct(p, p.right_sig, n, chunk4, timeout_ns, lo, hi, piece4,
+                    n - 1, epoch);
+  if (!barrier(p, blockIdx.x, r.my, epoch, timeout_ns)) return;
   for (long long s = lo; s < hi; s += piece4) {
     const long long e = s + piece4 < hi ? s + piece4 : hi;
     // hop 0: my addend of chunk d - 1 starts its way
@@ -438,12 +485,13 @@ __device__ __forceinline__ bool all_reduce_piece(Direct& r, const float4* in,
 
 // K5: all_reduce_piece rightward, piece by piece.
 __global__ void __launch_bounds__(kThreads)
-all_reduce_kernel(const RankPtrs* __restrict__ ranks, int n, long long chunk4,
-                  long long piece4, long long timeout_ns) {
-  const int d = blockIdx.y;
-  const RankPtrs p = ranks[d];
-  const long long lo = chunk4 * blockIdx.x / gridDim.x;
-  const long long hi = chunk4 * (blockIdx.x + 1) / gridDim.x;
+all_reduce_kernel(const RankPtrs* __restrict__ ranks, int n, int first,
+                  long long chunk4, long long piece4, long long timeout_ns,
+                  unsigned epoch) {
+  const int d = first + blockIdx.y;
+  const RankPtrs p = ranks[blockIdx.y];
+  long long lo, hi;
+  slice_of(chunk4, blockIdx.x, gridDim.x, &lo, &hi);
   const float4* in = reinterpret_cast<const float4*>(p.in);
   float4* out = reinterpret_cast<float4*>(p.out);
   float4* right = reinterpret_cast<float4*>(p.right_out);
@@ -451,8 +499,10 @@ all_reduce_kernel(const RankPtrs* __restrict__ ranks, int n, long long chunk4,
     forward(out, nullptr, in, nullptr, lo, hi);
     return;
   }
-  Direct r = direct(p, p.right_sig, n, chunk4, timeout_ns);
-  if (!barrier(p, blockIdx.x, r.my, timeout_ns)) return;
+  // a piece brings 2(n - 1) arrivals
+  Direct r = direct(p, p.right_sig, n, chunk4, timeout_ns, lo, hi, piece4,
+                    2 * (n - 1), epoch);
+  if (!barrier(p, blockIdx.x, r.my, epoch, timeout_ns)) return;
   for (long long s = lo; s < hi; s += piece4) {
     const long long e = s + piece4 < hi ? s + piece4 : hi;
     if (!all_reduce_piece<false>(r, in, out, right, d, s, e)) return;
@@ -464,16 +514,15 @@ all_reduce_kernel(const RankPtrs* __restrict__ ranks, int n, long long chunk4,
 // half of the tensor (n chunks), the second half its mirror image leftward
 // over the bottom half; chunk4 is a chunk of one half.
 __global__ void __launch_bounds__(kThreads)
-all_reduce_bidir_kernel(const RankPtrs* __restrict__ ranks, int n,
+all_reduce_bidir_kernel(const RankPtrs* __restrict__ ranks, int n, int first,
                         long long chunk4, long long piece4,
-                        long long timeout_ns) {
-  const int d = blockIdx.y;
-  const RankPtrs p = ranks[d];
+                        long long timeout_ns, unsigned epoch) {
+  const int d = first + blockIdx.y;
+  const RankPtrs p = ranks[blockIdx.y];
   const int rings = gridDim.x / 2;  // blocks per direction
   const bool left = blockIdx.x >= rings;
-  const int slice = blockIdx.x - (left ? rings : 0);
-  const long long lo = chunk4 * slice / rings;
-  const long long hi = chunk4 * (slice + 1) / rings;
+  long long lo, hi;
+  slice_of(chunk4, blockIdx.x - (left ? rings : 0), rings, &lo, &hi);
   const long long half = left ? n * chunk4 : 0;
   const float4* in = reinterpret_cast<const float4*>(p.in) + half;
   float4* out = reinterpret_cast<float4*>(p.out) + half;
@@ -484,8 +533,8 @@ all_reduce_bidir_kernel(const RankPtrs* __restrict__ ranks, int n,
     return;
   }
   Direct r = direct(p, left ? p.left_sig : p.right_sig, n, chunk4,
-                    timeout_ns);
-  if (!barrier(p, blockIdx.x, r.my, timeout_ns)) return;
+                    timeout_ns, lo, hi, piece4, 2 * (n - 1), epoch);
+  if (!barrier(p, blockIdx.x, r.my, epoch, timeout_ns)) return;
   for (long long s = lo; s < hi; s += piece4) {
     const long long e = s + piece4 < hi ? s + piece4 : hi;
     if (!(left ? all_reduce_piece<true>(r, in, out, to, wrap(-d, n), s, e)
@@ -505,55 +554,88 @@ const void* kernel_fn(int kernel) {
   return reinterpret_cast<const void*>(reduce_scatter_kernel);
 }
 
-int launch(int kernel, void** args, int n, int blocks, void* stream) {
-  const cudaError_t err = cudaLaunchCooperativeKernel(
-      kernel_fn(kernel), dim3(blocks, n), dim3(kThreads), args, 0,
-      static_cast<cudaStream_t>(stream));
+// One launch of `count` ranks from `first`: cooperative when it holds
+// several (they wait for each other), plain when it holds one.
+int launch_direct(int kernel, const void* ranks, int n, int first, int count,
+                  long long chunk4, int blocks, long long piece4,
+                  long long timeout_ns, unsigned epoch, void* stream) {
+  const RankPtrs* table = static_cast<const RankPtrs*>(ranks);
+  void* args[] = {&table, &n, &first, &chunk4, &piece4, &timeout_ns, &epoch};
+  const dim3 grid(blocks, count);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      count > 1 ? cudaLaunchCooperativeKernel(kernel_fn(kernel), grid,
+                                              dim3(kThreads), args, 0, s)
+                : cudaLaunchKernel(kernel_fn(kernel), grid, dim3(kThreads),
+                                   args, 0, s);
   cudaError_t last = cudaGetLastError();  // clears a non-sticky error
   return static_cast<int>(err != cudaSuccess ? err : last);
 }
 
-int launch_direct(int kernel, const void* ranks, int n, long long chunk4,
-                  int blocks, long long piece4, long long timeout_ns,
-                  void* stream) {
-  const RankPtrs* table = static_cast<const RankPtrs*>(ranks);
-  void* args[] = {&table, &n, &chunk4, &piece4, &timeout_ns};
-  return launch(kernel, args, n, blocks, stream);
-}
-
 }  // namespace
 
-// ranks: device array of n RankPtrs; chunk4: float4s per chunk (K6: of a
-// half); blocks: gridDim.x (even for bidir); piece4: float4s per piece. Runs
-// on `stream`; returns the launch's error.
-extern "C" int ring_all_gather_f32(const void* ranks, int n, long long chunk4,
-                                   int blocks, long long piece4,
-                                   long long timeout_ns, void* stream) {
-  return launch_direct(kAllGatherKernel, ranks, n, chunk4, blocks, piece4,
-                       timeout_ns, stream);
+// ranks: device array of the launch's `count` RankPtrs, ranks first ..
+// first + count - 1 of n, on the launch's card; chunk4: float4s per chunk
+// (K6: of a half); blocks: gridDim.x (even for bidir); piece4: float4s per
+// piece; epoch: how many launches of this ring came before (its signal words
+// were zeroed once, before the first). Runs on `stream`; returns the
+// launch's error.
+extern "C" int ring_all_gather_f32(const void* ranks, int n, int first,
+                                   int count, long long chunk4, int blocks,
+                                   long long piece4, long long timeout_ns,
+                                   unsigned epoch, void* stream) {
+  return launch_direct(kAllGatherKernel, ranks, n, first, count, chunk4,
+                       blocks, piece4, timeout_ns, epoch, stream);
 }
 
-extern "C" int ring_reduce_scatter_f32(const void* ranks, int n,
-                                       long long chunk4, int blocks,
-                                       long long piece4,
-                                       long long timeout_ns, void* stream) {
-  return launch_direct(kReduceScatterKernel, ranks, n, chunk4, blocks, piece4,
-                       timeout_ns, stream);
+extern "C" int ring_reduce_scatter_f32(const void* ranks, int n, int first,
+                                       int count, long long chunk4,
+                                       int blocks, long long piece4,
+                                       long long timeout_ns, unsigned epoch,
+                                       void* stream) {
+  return launch_direct(kReduceScatterKernel, ranks, n, first, count, chunk4,
+                       blocks, piece4, timeout_ns, epoch, stream);
 }
 
-extern "C" int ring_all_reduce_f32(const void* ranks, int n, long long chunk4,
-                                   int blocks, long long piece4,
-                                   long long timeout_ns, void* stream) {
-  return launch_direct(kAllReduceKernel, ranks, n, chunk4, blocks, piece4,
-                       timeout_ns, stream);
+extern "C" int ring_all_reduce_f32(const void* ranks, int n, int first,
+                                   int count, long long chunk4, int blocks,
+                                   long long piece4, long long timeout_ns,
+                                   unsigned epoch, void* stream) {
+  return launch_direct(kAllReduceKernel, ranks, n, first, count, chunk4,
+                       blocks, piece4, timeout_ns, epoch, stream);
 }
 
-extern "C" int ring_all_reduce_bidir_f32(const void* ranks, int n,
-                                         long long chunk4, int blocks,
-                                         long long piece4,
-                                         long long timeout_ns, void* stream) {
-  return launch_direct(kAllReduceBidirKernel, ranks, n, chunk4, blocks,
-                       piece4, timeout_ns, stream);
+extern "C" int ring_all_reduce_bidir_f32(const void* ranks, int n, int first,
+                                         int count, long long chunk4,
+                                         int blocks, long long piece4,
+                                         long long timeout_ns,
+                                         unsigned epoch, void* stream) {
+  return launch_direct(kAllReduceBidirKernel, ranks, n, first, count, chunk4,
+                       blocks, piece4, timeout_ns, epoch, stream);
+}
+
+// Peer access for a ring over the cards `devices[0..n)` in ring order: each
+// card is enabled to reach its right and left neighbours' memory, from its
+// own context (cudaDeviceEnablePeerAccess acts from the current device).
+// Access that is already enabled counts as success. The caller's current
+// device is restored. Returns the first other error.
+extern "C" int ring_enable_peers(const int* devices, int n) {
+  int saved = 0;
+  cudaError_t err = cudaGetDevice(&saved);
+  for (int i = 0; err == cudaSuccess && i < n; ++i) {
+    err = cudaSetDevice(devices[i]);
+    const int peers[2] = {devices[(i + 1) % n], devices[(i + n - 1) % n]};
+    for (int j = 0; err == cudaSuccess && j < 2; ++j) {
+      if (peers[j] == devices[i]) continue;
+      err = cudaDeviceEnablePeerAccess(peers[j], 0);
+      if (err == cudaErrorPeerAccessAlreadyEnabled) {
+        cudaGetLastError();  // clears it
+        err = cudaSuccess;
+      }
+    }
+  }
+  const cudaError_t restore = cudaSetDevice(saved);
+  return static_cast<int>(err != cudaSuccess ? err : restore);
 }
 
 // Blocks of one ring kernel that can be resident at once on the current

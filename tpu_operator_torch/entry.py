@@ -4,9 +4,12 @@ The port's counterparts of ``__graft_entry__.entry()`` and
 ``dryrun_multichip()``, at the model's full width (``BurninConfig()``
 defaults) rather than the reference's small compile-check size.
 
-The dry run's ranks are virtual ranks (``parallel/mesh.py``): on the card
-every rank lies on ``cuda:0``, with its own tensors, and each ring kernel is
-one launch that holds all of them.
+The dry run's ranks go on the machine's first cards when it has as many as
+the run asks for (``parallel/mesh.py::rank_devices``), and each ring kernel
+is then one launch a card over peer pointers, as the reference's rings run
+over ICI on a real mesh. Otherwise they are virtual ranks of one device,
+each with its own tensors, and each ring kernel is one launch that holds
+all of them.
 """
 
 from __future__ import annotations
@@ -19,7 +22,8 @@ import torch
 from tpu_operator_torch.ops.burnin import (BurninConfig, init_burnin,
                                            make_sharded_train_step)
 from tpu_operator_torch.parallel import collectives
-from tpu_operator_torch.parallel.mesh import Mesh, MeshPlan, make_mesh
+from tpu_operator_torch.parallel.mesh import (Mesh, MeshPlan, make_mesh,
+                                              rank_devices)
 from tpu_operator_torch.parallel.numerics import (attention_tolerance,
                                                   reduction_tolerance)
 from tpu_operator_torch.parallel.ring import (ring_all_gather_sharded,
@@ -82,7 +86,8 @@ def _allclose(got, want, tol: float, what: str) -> None:
 def _check_ring_kernels(mesh: Mesh) -> None:
     """Hold the ring kernels (K3–K6) against the library collectives on the
     same ranks, and ring attention against the oracle, at the reference's
-    inputs: rows, cols = 2n², 128 from ``np.random.default_rng(0)``."""
+    inputs: rows, cols = 2n², 128 from ``np.random.default_rng(0)``. On
+    ranks on distinct cards both sides move the data between the cards."""
     devices = list(mesh.devices.flat)
     n = len(devices)
     ring_mesh = Mesh(np.array(devices, dtype=object), ("ring",))
@@ -91,7 +96,7 @@ def _check_ring_kernels(mesh: Mesh) -> None:
     rows, cols = 2 * n * n, 128
     a = torch.from_numpy(np.random.default_rng(0).standard_normal(
         (rows, cols), dtype=np.float32)).to(devices[0])
-    shards = list(a.chunk(n))
+    shards = [s.to(d) for s, d in zip(a.chunk(n), devices)]
     lib_sum = collectives.psum(shards, ring_mesh, "ring")[0]
 
     _allclose(ring_all_reduce_sharded(a, ring_mesh, "ring"), lib_sum,
@@ -114,22 +119,25 @@ def _check_ring_kernels(mesh: Mesh) -> None:
     _require(torch.equal(ring_all_gather_sharded(a, ring_mesh, "ring"),
                          gathered), "ring all-gather differs from all_gather")
 
-    scattered = torch.cat(collectives.psum_scatter(shards, ring_mesh, "ring"))
+    scattered = torch.cat([s.to(devices[0]) for s in
+                           collectives.psum_scatter(shards, ring_mesh, "ring")])
     _allclose(ring_reduce_scatter_sharded(a, ring_mesh, "ring"), scattered,
               red_tol, "ring reduce-scatter")
 
 
 def dryrun_multigpu(n_devices: int, device="cuda") -> float:
-    """One full-width sharded train step over ``n_devices`` virtual ranks
-    on ``device``: the loss must be finite and the step's sums must run
-    over the data and model groups; then the ring kernels are held against
-    the library collectives. Prints ``DRYRUN OK`` and returns the loss.
+    """One full-width sharded train step over ``n_devices`` ranks: on the
+    machine's first ``n_devices`` cards when ``device`` is a card and the
+    machine has that many, else virtual ranks of ``device``. The loss must
+    be finite and the step's sums must run over the data and model groups;
+    then the ring kernels are held against the library collectives. Prints
+    ``DRYRUN OK`` with the ranks' devices and returns the loss.
 
     Mesh axes ("data", "model"): the plan prefers both axes > 1, so the run
     exercises data- and tensor-parallel sums."""
     dev = resolve_device(device)
     plan = MeshPlan.auto(n_devices, max_model=max(1, n_devices // 2))
-    mesh = make_mesh(n_devices, plan, device=dev)
+    mesh = make_mesh(n_devices, plan, devices=rank_devices(n_devices, dev))
     cfg = BurninConfig()
     with collectives.recording() as log:
         step, params, opt_state, x, y = make_sharded_train_step(cfg, mesh)

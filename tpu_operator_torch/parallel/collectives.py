@@ -31,12 +31,16 @@ of nccl-tests so that figures compare across fabrics:
   all_to_all     busbw = (n-1)/n * bytes_per_rank / t   (each rank keeps 1/n)
   ppermute ring  busbw = bytes / t            (each link carries the payload)
 
-On a mesh of virtual ranks of one card it also times the hand-scheduled
-ring all-reduces of ``parallel/ring.py`` on the same payload: the pinned-schedule comparators
-whose gap to the library sum separates a poor schedule from a slow link.
-On virtual ranks of one card nothing crosses a link: every figure is then a
-loopback through device memory (copies and adds of the card's own memory,
-with the host's time per call in it), not an NVLink rate.
+On a mesh of CUDA ranks it also times the hand-scheduled ring all-reduces
+of ``parallel/ring.py`` on the same payload: the pinned-schedule
+comparators whose gap to the library sum separates a poor schedule from a
+slow link. What the figures measure depends on the placement
+(``parallel/mesh.py``). On ranks on distinct cards the collectives cross
+the cards' links: the library ops as PyTorch's copies between cards, the
+hand rings as the kernels' own stores into peer memory. On virtual ranks of
+one card nothing crosses a link: every figure is then a loopback through
+device memory (copies and adds of the card's own memory, with the host's
+time per call in it), not an NVLink rate.
 """
 
 from __future__ import annotations
@@ -282,21 +286,22 @@ def ring_allreduce_bandwidth(mesh: Mesh, axis: str = "model",
                              mbytes: int = 64, iters: int = 5,
                              bidir: bool = False) -> CollectiveReport:
     """Time the hand-scheduled ring all-reduce (``parallel/ring.py``) on
-    the same payload as :func:`allreduce_bandwidth`; ``bidir`` times the
-    bidirectional kernel (both directions loaded)."""
-    from tpu_operator_torch.parallel.ring import (
-        ring_all_reduce_bidir_sharded, ring_all_reduce_sharded)
+    the same payload as :func:`allreduce_bandwidth`, each rank's addend
+    placed on its device before the timing, as the library ops' are;
+    ``bidir`` times the bidirectional kernel (both directions loaded)."""
+    from tpu_operator_torch.parallel.ring import (ring_all_reduce,
+                                                  ring_all_reduce_bidir)
     n = mesh.shape[axis]
-    # per-rank addend (rows/n, cols); the kernels chunk rows/n by n (2n for
+    # per-rank addend (rows, cols); the kernels chunk the rows by n (2n for
     # bidir), so round the row count up to the next multiple
     cols = 512
     per_rank_rows = max(1, mbytes * (1 << 20) // 4 // cols)
     per_rank_rows += -per_rank_rows % (2 * n if bidir else n)
-    x = torch.zeros((n * per_rank_rows, cols), dtype=torch.float32,
-                    device=mesh.device(0))
-    kernel = ring_all_reduce_bidir_sharded if bidir \
-        else ring_all_reduce_sharded
-    t = _timed(lambda: kernel(x, mesh, axis), iters)
+    xs = _zeros(mesh, (per_rank_rows, cols))
+    kernel = ring_all_reduce_bidir if bidir else ring_all_reduce
+    groups = mesh.groups(axis)
+    t = _timed(lambda: [y for group in groups
+                        for y in kernel([xs[r] for r in group])], iters)
     per_rank_bytes = per_rank_rows * cols * 4
     busbw = 2 * (n - 1) / n * per_rank_bytes / t / 1e9
     return CollectiveReport(
@@ -317,11 +322,10 @@ def run_collective_suite(mesh: Mesh, axis: str = "model", mbytes: int = 64,
         alltoall_bandwidth(mesh, axis, mbytes, iters),
         ppermute_ring_bandwidth(mesh, axis, mbytes, iters),
     ]
-    if mesh.device(0).type == "cuda" and len(
-            {mesh.device(r) for r in range(mesh.size)}) == 1:
-        # the hand-scheduled comparators are CUDA kernels over virtual
-        # ranks of one card; on a CPU mesh their plain versions would time
-        # a simulation, not a fabric, and they take no ranks across cards
+    if mesh.device(0).type == "cuda":
+        # the hand-scheduled comparators are CUDA kernels, over virtual
+        # ranks of one card or ranks on distinct cards; on a CPU mesh their
+        # plain versions would time a simulation, not a fabric
         reports.append(ring_allreduce_bandwidth(mesh, axis, mbytes, iters))
         reports.append(ring_allreduce_bandwidth(mesh, axis, mbytes, iters,
                                                 bidir=True))

@@ -1,4 +1,5 @@
-"""The (data, model) rank mesh, over virtual ranks on one card.
+"""The (data, model) rank mesh, over virtual ranks of one card or over
+distinct cards.
 
 The port of ``tpu_operator/parallel/mesh.py``. ``MeshPlan`` and
 ``MeshPlan.auto`` are copied (that module imports jax) into the torch-free
@@ -11,11 +12,14 @@ coordinate. On a (data, model) mesh the model groups are contiguous and the
 data groups strided by ``plan.model``, as ``__graft_entry__._assert_collectives``
 expects.
 
-A rank is a flat index into the grid. Without ``devices``, ``make_mesh``
-puts every rank on one device: n *virtual ranks*, each with its own tensors,
-that the port's collectives and ring kernels treat as separate ranks. NCCL
-refuses two ranks on one GPU, and the machine the port is measured on has
-one card, so that is how the multi-device path runs there.
+A rank is a flat index into the grid, and its device is one of two
+placements. :func:`rank_devices` puts n ranks on the machine's first n
+cards when it has that many (the reference's mesh over ``jax.devices()``);
+the ring kernels then reach a neighbour card's memory by peer pointers.
+Otherwise, and always off the card, the n ranks are *virtual ranks* of one
+device, each with its own tensors, that the port's collectives and ring
+kernels treat as separate ranks (NCCL refuses two ranks on one GPU), as
+``make_mesh`` makes them when it is given no ``devices``.
 """
 
 from __future__ import annotations
@@ -69,11 +73,29 @@ class Mesh:
         return frozenset(frozenset(g) for g in self.groups(axis))
 
 
+def rank_devices(n: int, device="cuda") -> list[torch.device]:
+    """Where n ranks go: the machine's cards 0 .. n - 1 when ``device`` is a
+    card and the machine has at least n of them (and n > 1), else n virtual
+    ranks of ``device``."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and 1 < n <= torch.cuda.device_count():
+        return [torch.device("cuda", i) for i in range(n)]
+    return [dev] * n
+
+
+def fabric(devices) -> str:
+    """What carries the ranks' exchanges: ``"peer"`` for ranks on distinct
+    cards (NVLink, or whatever joins the cards), ``"loopback"`` for virtual
+    ranks of one device."""
+    return "peer" if len(set(devices)) > 1 else "loopback"
+
+
 def make_mesh(n_devices: int, plan: MeshPlan | None = None, devices=None,
               device="cuda") -> Mesh:
     """A 2-axis ("data", "model") mesh of ``n_devices`` ranks, laid out
     row-major. With no ``devices``, all ranks are virtual ranks on
-    ``device``."""
+    ``device``; :func:`rank_devices` gives the machine's cards where it
+    has enough."""
     if plan is None:
         plan = MeshPlan.auto(n_devices)
     if plan.n_devices != n_devices:

@@ -102,7 +102,8 @@ def ring_attention_shard(qs, ks, vs, mesh: Mesh, axis_name: str,
                          causal: bool = False):
     """Attention for every rank's query block (``qs[r]``: [Tq_local, D]),
     with the global K/V distributed around ``axis_name`` (``ks[r]``,
-    ``vs[r]``: [Tkv_local, D]). Returns each rank's [Tq_local, D] block of
+    ``vs[r]``: [Tkv_local, D]), each on its rank's device, where the
+    rank's softmax state and masks stay. Returns each rank's [Tq_local, D] block of
     softmax(q·Kᵀ)·V over the full sequence. ``causal`` masks keys at global
     positions after each query's own, the diagonal kept; block b covers
     positions [b·Tkv, (b+1)·Tkv)."""
@@ -148,8 +149,9 @@ def ring_attention(q, k, v, mesh: Mesh, axis_name: str = "model",
                    sm_scale: float | None = None, causal: bool = False):
     """Sequence-parallel attention: ``q``, ``k``, ``v`` are whole [T, D]
     tensors, split on axis 0 over ``axis_name`` (replicated over the other
-    axes); returns the whole output, assembled from the first group. T must
-    divide evenly across the axis."""
+    axes), each shard on its rank's device; returns the whole output,
+    assembled from the first group on ``q``'s device. T must divide evenly
+    across the axis."""
     n = mesh.shape[axis_name]
     if q.shape[0] % n or k.shape[0] % n:
         raise ValueError(f"sequence {q.shape[0]} not divisible by {n}")
@@ -161,14 +163,16 @@ def ring_attention(q, k, v, mesh: Mesh, axis_name: str = "model",
 
     outs = ring_attention_shard(shards(q), shards(k), shards(v), mesh,
                                 axis_name, sm_scale, causal)
-    return torch.cat([outs[r] for r in mesh.groups(axis_name)[0]])
+    return torch.cat([outs[r].to(q.device)
+                      for r in mesh.groups(axis_name)[0]])
 
 
 def ulysses_attention(q, k, v, mesh: Mesh, axis_name: str = "model",
                       causal: bool = False):
     """Ulysses-style sequence parallelism. ``q``, ``k``, ``v`` hold one
-    [Tl, H, Dh] tensor per rank: the rank's contiguous block of the
-    sequence (in order of its position along ``axis_name``), all heads.
+    [Tl, H, Dh] tensor per rank, on the rank's device: the rank's
+    contiguous block of the sequence (in order of its position along
+    ``axis_name``), all heads.
     Returns the same: each rank's [Tl, H, Dh] block of the attention over
     the whole sequence. H must divide by the axis size.
 

@@ -28,12 +28,17 @@ become their GPU counterparts:
 3. one causal flash-attention pass on the CUDA attention kernel, checked
    against the pinned-precision oracle under a derived tolerance.
 
-With more than one rank it goes on with the multi-device leg, on virtual
-ranks of its device (``parallel/mesh.py``), and says so in the status
-(``"fabric": "loopback"`` and ``ranks_device``):
+With more than one rank it goes on with the multi-device leg. The ranks go
+on the machine's first cards when it has as many as there are ranks, as the
+reference's mesh spans ``len(devices)``: the status then says
+``"fabric": "peer"``, after the fabric component's own check of peer access
+and a ring round trip over those cards. Otherwise they are virtual ranks of
+its device (``parallel/mesh.py``), and the status says ``"loopback"``.
+``rank_devices`` lists where each rank ran.
 
 4. the collective bandwidth suite over a (1, ranks) mesh's model axis,
-   which on the card includes the hand-scheduled ring all-reduces;
+   which on the card includes the hand-scheduled ring all-reduces (across
+   cards: the kernels' stores into peer memory);
 5. one causal ring-attention pass over the same mesh, checked against the
    oracle on one device under the same derived tolerance.
 
@@ -327,8 +332,10 @@ class WorkloadComponent(Component):
     """The device workload on the local card: matmul probe, HBM probe and
     flash-attention check, plus the collective suite and a ring-attention
     check when it runs over more than one rank. ``ranks`` defaults to the
-    number of cards (1 on the CPU); the ranks are virtual ranks of
-    ``device``."""
+    number of cards (1 on the CPU). Ranks go one a card on the machine's
+    first cards when it has that many, and are virtual ranks of ``device``
+    otherwise (on the CPU, or when more ranks are asked for than there are
+    cards)."""
 
     name = "workload"
 
@@ -482,16 +489,24 @@ class WorkloadComponent(Component):
         if ranks > 1:
             from tpu_operator_torch.parallel.collectives import \
                 run_collective_suite
-            from tpu_operator_torch.parallel.mesh import MeshPlan, make_mesh
+            from tpu_operator_torch.parallel.mesh import (MeshPlan, fabric,
+                                                          make_mesh,
+                                                          rank_devices)
             t0 = time.perf_counter()
-            mesh = make_mesh(ranks, MeshPlan(data=1, model=ranks), device=dev)
+            devices = rank_devices(ranks, dev)
+            if fabric(devices) == "peer":
+                FabricComponent(validations_dir=self.dir,
+                                require_gpu=self.require_gpu).check_nvlink(
+                                    devices)
+            mesh = make_mesh(ranks, MeshPlan(data=1, model=ranks),
+                             devices=devices)
             reports = run_collective_suite(mesh, "model",
                                            mbytes=self.collective_mb, iters=3)
             info["collectives"] = {r.op: _significant(r.busbw_gbps)
                                    for r in reports}
-            # every rank lies on one device: the figures cross no link
-            info["fabric"] = "loopback"
-            info["ranks_device"] = str(dev)
+            # "loopback": every rank on one device, the figures cross no link
+            info["fabric"] = fabric(devices)
+            info["rank_devices"] = [str(d) for d in devices]
             legs["collectives"] = time.perf_counter() - t0
             t0 = time.perf_counter()
             info["ring_attention"] = self._check_ring_attention(mesh, dev)
