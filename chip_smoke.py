@@ -17,32 +17,36 @@ most kv tiles a unit of its work takes, and beside every SDPA backend
 (flash, cuDNN, memory-efficient, math) on the 4-D form of the same inputs;
 the fastest is its library time; it is also held and timed at the
 bench's shape, bf16 [16384, 128] causal. K2w (K2's kernel template at
-every other f16 or bf16 input with D ≤ 256, D % 8 = 0) and K2s (the
+every other f16 or bf16 input with D ≤ 256, D % 8 = 0), K2s (the
 register-tiled CUDA-core kernel: f32, and 16-bit inputs K2w does not take,
-D ≤ 512) are
-held against the plain version over f32, f16 and bf16, head dims 64, 96,
-128, 256, 384 and 512, causal and full, and sequence lengths that 64 does
-not divide, through their own wrappers and through ``flash_attention``'s
-routing, and timed the same way (K2w also by the keys a kv step takes at
-D = 256). Then it holds the ring kernels (K3–K6) against their
-plain versions and the library sums for 2, 4 and 8 virtual ranks on the
-card, in one launch and in a launch a rank on streams of their own (the
-protocol of ranks on distinct cards: epochs, the entry barrier between
-launches), with three back-to-back launches of one ring on fresh inputs
-in both, times them at 4 × 64 MiB (with the bytes their schedules move, a
-library call that fills all n outputs, and a sweep of piece sizes), a
-launch a rank at 2, 4 and 8 × 64 MiB, and at
-4 × 64 KiB (the per-hop handshake), prints the collective bandwidth
-suite's reports on 4 virtual ranks, and runs the multi-device dry run
-``dryrun_multigpu(4)``, whose ring checks must go through those kernels.
-Then ``WorkloadComponent(ranks=4)`` runs the validator's multi-device leg
-on 4 virtual ranks, whose collective suite must launch K5 and K6 at its 64
-MiB payload, and Ulysses attention runs with 8 heads over 4 virtual ranks,
-causal and not, at T = 4096 with Dh = 128, where K2 must launch once per
-rank, Dh = 256, where K2w must, and Dh = 384, where K2s must; the result is
-held to the per-element limit against the single-device computation; at
-Dh = 384 it is also timed beside the same call with each rank's attention
-dense (``attention_plain``), outside the counted run. The build phase prints ptxas's registers and spills for every flash kernel.
+D ≤ 512) and K2d (the D-chunked CUDA-core kernel: every input with D >
+512) are held against the plain version over f32, f16 and bf16, head dims
+64, 96, 128, 256, 384, 512, 520, 640, 1000, 1024 and 2048, causal and
+full, and sequence lengths that 64 does not divide, through their own
+wrappers and through ``flash_attention``'s routing (K2d also against K2s at
+D = 512), and timed the same way (K2w also by the keys a kv step takes at
+D = 256; K2d at bf16 [2, 4096, 1024], its shape on the main path, causal
+and full). Then it holds the ring kernels (K3–K6) against their plain
+versions and the library sums for 2, 4 and 8 virtual ranks on the card, in
+one launch and in a launch a rank on streams of their own (the protocol of
+ranks on distinct cards: epochs, the entry barrier between launches), with three
+back-to-back launches of one ring on fresh inputs in both, times them at 4
+× 64 MiB (with the bytes their schedules move, a library call that fills
+all n outputs, and a sweep of piece sizes), a launch a rank at 2, 4 and 8
+× 64 MiB, and at 4 × 64 KiB (the per-hop handshake), prints the collective
+bandwidth suite's reports on 4 virtual ranks, and runs the multi-device
+dry run ``dryrun_multigpu(4)``, whose ring checks must go through those
+kernels. Then ``WorkloadComponent(ranks=4)`` runs the validator's
+multi-device leg on 4 virtual ranks, whose collective suite must launch K5
+and K6 at its 64 MiB payload, and Ulysses attention runs with 8 heads over
+4 virtual ranks, causal and not, at T = 4096 with Dh = 128, where K2 must
+launch once per rank, Dh = 256, where K2w must, Dh = 384, where K2s must,
+and Dh = 1024, where K2d must; the result is held to the per-element limit
+against the single-device computation; at Dh = 384 and 1024 it is also
+timed beside the same call with each rank's attention dense
+(``attention_plain``), outside the counted run. The build phase prints
+ptxas's registers and spills for every kernel (a flash kernel that spills
+fails).
 Last, the node health monitor's CLI runs once as its DaemonSet would, on
 the machine's ``/dev`` and NVML with the HBM sweep on K1 at 256 MiB, and
 must publish the node healthy; then each probe is called directly
@@ -282,20 +286,21 @@ def demangle(names: list[str]) -> list[str]:
 
 def phase_build() -> None:
     """Builds the kernels, and prints ptxas's registers and spills for each
-    flash-attention kernel; a flash kernel that spills fails."""
+    kernel; a flash-attention kernel that spills fails."""
     from tpu_operator_torch import _native
     t0 = time.perf_counter()
     _native.library()
     print(f"[build] {len(_native.sources())} sources -> "
           f"{_native.library_path().name} in "
           f"{time.perf_counter() - t0:.1f} s")
-    res = {name: r for name, r in _native.kernel_resources().items()
-           if "flash" in name}
+    res = _native.kernel_resources()
     for pretty, (regs, spill) in zip(demangle(list(res)), res.values()):
         print(f"[build] {pretty.replace('(anonymous namespace)::', '')}: "
               f"{regs} registers, {spill} bytes spilled")
-    spilled = [name for name, (_, spill) in res.items() if spill]
-    check(bool(res) and not spilled, f"flash kernels spill: {spilled}")
+    flash = {name: spill for name, (_, spill) in res.items()
+             if "flash" in name}
+    spilled = [name for name, spill in flash.items() if spill]
+    check(bool(flash) and not spilled, f"flash kernels spill: {spilled}")
 
 
 def phase_hbm(dev, kind) -> dict:
@@ -544,24 +549,32 @@ def phase_flash(dev, kind) -> dict:
     return main
 
 
-# K2w's and K2s's grid: each dtype, the head-dim buckets both kernels take
-# and one D off them (96), the buckets only K2s takes, causal and full, at T
-# = 1024 and at T that 64 does not divide (with the blocks the reference
-# would take for them), over 2 heads
+# K2w's, K2s's and K2d's grid: each dtype, the head-dim buckets both K2w
+# and K2s take and one D off them (96), the buckets only K2s takes, and
+# heads past 512 on K2d (multiples of 128 and of 256, 520 and 1000 off
+# them), causal and full, at T = 1024 and at T that 64 does not divide
+# (with the blocks the reference would take for them), over 2 heads
 GRID_DTYPES = (torch.float32, torch.float16, torch.bfloat16)
-GRID_DIMS = (64, 96, 128, 256, 384, 512)
+GRID_DIMS = (64, 96, 128, 256, 384, 512, 520, 640, 1000, 1024, 2048)
 GRID_T = ((1024, (None, None)), (96, (32, 96)), (200, (40, 200)))
-# the shapes timed: the main path's first on each kernel (Ulysses' head
-# widths, 256 on K2w and 384 on K2s), then two others on K2w and f32 at K2's
-# shape on K2s
-TIMED = ((torch.bfloat16, 4096, 256), (torch.float16, 4096, 128),
-         (torch.bfloat16, 4096, 64), (torch.bfloat16, 4096, 384),
-         (torch.float32, 4096, 128))
+# the shapes timed, (dtype, T, D, heads, causal): the main path's first on
+# each kernel (Ulysses' head widths, 256 on K2w, 384 on K2s, and a rank's
+# two heads of 1024 on K2d), then two others on K2w, f32 at K2's shape on
+# K2s, one head of 1024 on K2d and the main path's K2d shape at full
+# attention (Ulysses runs both)
+TIMED = ((torch.bfloat16, 4096, 256, None, True),
+         (torch.float16, 4096, 128, None, True),
+         (torch.bfloat16, 4096, 64, None, True),
+         (torch.bfloat16, 4096, 384, None, True),
+         (torch.float32, 4096, 128, None, True),
+         (torch.bfloat16, 4096, 1024, 2, True),
+         (torch.bfloat16, 4096, 1024, None, True),
+         (torch.bfloat16, 4096, 1024, 2, False))
 # K2w's keys a kv step at DP = 256
 SWEEP_BLOCK_K = (32, 64)
 # the wrapper that counts each kernel's launches
 WRAPPERS = {"K2": "flash_attention", "K2w": "flash_wgmma",
-            "K2s": "flash_generic"}
+            "K2s": "flash_generic", "K2d": "flash_wide"}
 
 
 def flash_within(out, q, k, v, causal) -> tuple[float, str]:
@@ -579,30 +592,33 @@ def flash_within(out, q, k, v, causal) -> tuple[float, str]:
     return limit_ratio(out, ref32, limit), "of the per-element limit"
 
 
-def time_flash(label, run, q, k, v, kind) -> dict:
-    """One timed shape (causal): the kernel in a CUDA graph beside the
-    plain version, every SDPA backend and the bound."""
+def time_flash(label, run, q, k, v, kind, causal=True) -> dict:
+    """One timed shape: the kernel in a CUDA graph beside the plain
+    version, every SDPA backend and the bound."""
     from tpu_operator_torch.ops import flash_attention as flash
     t, d = q.shape[-2:]
+    heads = q.shape[0] if q.dim() == 3 else 1
     ref32 = flash.attention_plain(q.float(), k.float(), v.float(),
-                                  causal=True)
+                                  causal=causal)
     out = run()
-    ratio, of = flash_within(out, q, k, v, True)
+    ratio, of = flash_within(out, q, k, v, causal)
     check(ratio <= 1.0, f"{label} timed shape: error {ratio:.3f} {of}")
     err = (out.float() - ref32).abs().max().item()
     ms = graph_ms(run, iters=20)
-    plain_ms = cuda_ms(lambda: flash.attention_plain(q, k, v, causal=True),
-                       iters=5)
-    sdpa = sdpa_times(q, k, v, True, ref32, tag=label)
+    plain_ms = cuda_ms(
+        lambda: flash.attention_plain(q, k, v, causal=causal), iters=5)
+    sdpa = sdpa_times(q, k, v, causal, ref32, tag=label)
     ran = {name: ms_ for name, ms_ in sdpa.items() if ms_ is not None}
     check(bool(ran), f"no SDPA backend took {label}'s inputs")
     backend = min(ran, key=ran.get)
-    flops = 4.0 * d * t * (t + 1) / 2
-    nbytes = 4 * t * d * q.element_size()
+    flops = 4.0 * d * (t * (t + 1) / 2 if causal else t * t) * heads
+    nbytes = 4 * heads * t * d * q.element_size()
     bound_ms, bound_by = bound(
         flops, nbytes, kind,
         F32_PEAK_TFLOPS if q.dtype == torch.float32 else None)
-    shape = f"{str(q.dtype).removeprefix('torch.')} [{t}, {d}] causal"
+    shape = (f"{str(q.dtype).removeprefix('torch.')} "
+             f"[{', '.join(str(n) for n in q.shape)}] "
+             f"{'causal' if causal else 'full'}")
     print(f"[{label}] {shape}: kernel {ms:.4f} ms in a graph "
           f"({flops / ms / 1e9:.1f} TFLOP/s); plain {plain_ms:.4f} ms; "
           f"fastest sdpa {backend} {ran[backend]:.4f} ms; bound "
@@ -616,11 +632,13 @@ def time_flash(label, run, q, k, v, kind) -> dict:
 
 def phase_flash_generic(dev, kind) -> list[dict]:
     """K2w (``csrc/flash_fwd.cu``'s template at any 16-bit input with D ≤
-    256, D % 8 = 0) and K2s (``csrc/flash_fwd_generic.cu``) against the
-    plain version over the grid, through their own wrappers and through
-    ``flash_attention``'s routing, with no CUDA call reaching the plain
-    version; the refused head dim; their times beside every SDPA backend at
-    ``TIMED``, and K2w's sweep of kv-step keys at DP = 256."""
+    256, D % 8 = 0), K2s (``csrc/flash_fwd_generic.cu``) and K2d
+    (``csrc/flash_fwd_wide.cu``, D > 512) against the plain version over
+    the grid, through their own wrappers and through ``flash_attention``'s
+    routing, with no CUDA call reaching the plain version, and K2d against
+    K2s at D = 512; the head dim K2s refuses and K2d takes; their times
+    beside every SDPA backend at ``TIMED``, and K2w's sweep of kv-step keys
+    at DP = 256."""
     from tpu_operator_torch.ops import flash_attention as flash
     plain = flash.attention_plain
     plain_calls = []
@@ -630,7 +648,8 @@ def phase_flash_generic(dev, kind) -> list[dict]:
         return plain(*a, **kw)
     counters = {name: getattr(flash, fn) for name, fn in WRAPPERS.items()}
     gen = torch.Generator(device=dev).manual_seed(13)
-    worst = {"K2w": 0.0, "K2s": 0.0}
+    worst = {"K2w": 0.0, "K2s": 0.0, "K2d": 0.0}
+    vs_k2s = 0.0   # K2d against K2s at D = 512: max abs difference
     n_cases = 0
     for dtype in GRID_DTYPES:
         for d in GRID_DIMS:
@@ -641,9 +660,12 @@ def phase_flash_generic(dev, kind) -> list[dict]:
                                for _ in range(3))
                     route = flash.kernel_for(dtype, d, t)
                     # each kernel that takes the input, by its own wrapper
-                    own = [("K2s", flash.flash_generic)]
+                    own = ([] if route == "K2d"
+                           else [("K2s", flash.flash_generic)])
                     if route in ("K2", "K2w"):
                         own.append(("K2w", flash.flash_wgmma))
+                    if d >= flash.MAX_HEAD_DIM:
+                        own.append(("K2d", flash.flash_wide))
                     before = {n: fn.launches for n, fn in counters.items()}
                     flash.attention_plain = counted_plain
                     try:
@@ -672,33 +694,52 @@ def phase_flash_generic(dev, kind) -> list[dict]:
                         if name in worst:
                             worst[name] = max(worst[name], ratio)
                         shares.append(f"{name} {ratio:.3f}")
+                    against = ""
+                    if d == flash.MAX_HEAD_DIM:
+                        by = dict(outs)
+                        diff = (by["K2d"].float()
+                                - by["K2s"].float()).abs().max().item()
+                        vs_k2s = max(vs_k2s, diff)
+                        against = f"; |K2d - K2s| at most {diff:.3e}"
                     n_cases += 1
-                    print(f"[K2w/K2s] {label} blocks {bq or 'default'}: "
+                    print(f"[K2w/K2s/K2d] {label} blocks {bq or 'default'}: "
                           f"routed to {route}; error "
-                          + ", ".join(shares) + f" {of}")
+                          + ", ".join(shares) + f" {of}{against}")
     check(not plain_calls, f"{len(plain_calls)} CUDA calls reached the "
                            "plain version")
-    wide = torch.zeros((64, 640), device=dev)
-    for fn in (flash.flash_attention, flash.flash_generic):
-        try:
-            fn(wide, wide, wide)
-        except ValueError as exc:
-            check("at most 512" in str(exc), f"D=640: {exc}")
-        else:
-            raise SmokeFailure(f"{fn.__name__} took D=640")
-    print(f"[K2w/K2s] {n_cases} cases: within their limits (worst share "
-          f"K2w {worst['K2w']:.3f}, K2s {worst['K2s']:.3f}); no CUDA call "
-          "reached the plain version; D=640 raises")
+    # K2s's own wrapper refuses D = 640; flash_attention takes it on K2d
+    wide = torch.randn((64, 640), generator=gen, device=dev)
+    try:
+        flash.flash_generic(wide, wide, wide)
+    except ValueError as exc:
+        check("at most 512" in str(exc), f"K2s at D=640: {exc}")
+    else:
+        raise SmokeFailure("flash_generic took D=640")
+    before = {n: fn.launches for n, fn in counters.items()}
+    out = flash.flash_attention(wide, wide, wide, causal=True)
+    got = {n: fn.launches - before[n] for n, fn in counters.items()}
+    check(got == {n: int(n == "K2d") for n in counters},
+          f"flash_attention at D=640 launched {got}, expected K2d once")
+    ratio, of = flash_within(out, wide, wide, wide, True)
+    check(ratio <= 1.0, f"flash_attention at D=640: error {ratio:.3f} {of}")
+    print(f"[K2w/K2s/K2d] {n_cases} cases: within their limits (worst share "
+          f"K2w {worst['K2w']:.3f}, K2s {worst['K2s']:.3f}, K2d "
+          f"{worst['K2d']:.3f}); K2d against K2s at D=512: max abs "
+          f"difference {vs_k2s:.3e}; no CUDA call reached the plain "
+          f"version; K2s refuses D=640, flash_attention takes it on K2d "
+          f"(error {ratio:.3f} {of})")
 
-    timed = {"K2w": [], "K2s": []}
+    timed = {"K2w": [], "K2s": [], "K2d": []}
     sweep = {}
-    for dtype, t, d in TIMED:
-        q, k, v = (torch.randn((t, d), generator=gen, device=dev).to(dtype)
+    for dtype, t, d, heads, causal in TIMED:
+        shape = (t, d) if heads is None else (heads, t, d)
+        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
                    for _ in range(3))
         route = flash.kernel_for(dtype, d, t)
         run = getattr(flash, WRAPPERS[route])
         timed[route].append(time_flash(
-            route, lambda: run(q, k, v, causal=True), q, k, v, kind))
+            route, lambda: run(q, k, v, causal=causal), q, k, v, kind,
+            causal))
         if route == "K2w" and d == 256:
             for block_k in SWEEP_BLOCK_K:
                 def launch():
@@ -712,7 +753,7 @@ def phase_flash_generic(dev, kind) -> list[dict]:
                       f"{block_k} keys a step: {sweep[block_k]:.4f} ms "
                       f"(error {ratio:.3f} {of})")
         del q, k, v
-    kw, ks = timed["K2w"], timed["K2s"]
+    kw, ks, kd = timed["K2w"], timed["K2s"], timed["K2d"]
     return [{"name": "flash_fwd_wgmma", "route": "cuda",
              "source": "tpu_operator_torch/csrc/flash_fwd.cu",
              "replaces": "tpu_operator/ops/flash_attention.py:48",
@@ -722,7 +763,13 @@ def phase_flash_generic(dev, kind) -> list[dict]:
              "source": "tpu_operator_torch/csrc/flash_fwd_generic.cu",
              "replaces": "tpu_operator/ops/flash_attention.py:48",
              **ks[0], "other_shapes": ks[1:],
-             "grid_worst_share": worst["K2s"]}]
+             "grid_worst_share": worst["K2s"]},
+            {"name": "flash_fwd_wide", "route": "cuda",
+             "source": "tpu_operator_torch/csrc/flash_fwd_wide.cu",
+             "replaces": "tpu_operator/ops/flash_attention.py:48",
+             **kd[0], "other_shapes": kd[1:],
+             "grid_worst_share": worst["K2d"],
+             "vs_k2s_at_512_max_abs": vs_k2s}]
 
 
 # (name, wrapper, plain version, TPU kernel it replaces, rows per rank
@@ -1319,16 +1366,17 @@ def phase_ranks_across_cards() -> None:
     ACROSS_CARDS.update(ring_across_cards(kind))
 
 
-# (Dh, T, kernel): K2's head width, K2w's widest bucket and a width only
-# K2s takes, each at the full sequence
-ULYSSES_SHAPES = ((128, 4096, "K2"), (256, 4096, "K2w"), (384, 4096, "K2s"))
+# (Dh, T, kernel): K2's head width, K2w's widest bucket, a width only K2s
+# takes and one past 512 (K2d), each at the full sequence
+ULYSSES_SHAPES = ((128, 4096, "K2"), (256, 4096, "K2w"), (384, 4096, "K2s"),
+                  (1024, 4096, "K2d"))
 
 
 def phase_ulysses() -> None:
     """Ulysses attention on 4 virtual ranks, 8 heads, bf16, causal and not:
-    each rank's [2, T, Dh] goes through K2 at Dh = 128, K2w at 256 and K2s
-    at 384, once per rank; the result is held to the per-element limit
-    against the single-device computation."""
+    each rank's [2, T, Dh] goes through K2 at Dh = 128, K2w at 256, K2s at
+    384 and K2d at 1024, once per rank; the result is held to the
+    per-element limit against the single-device computation."""
     from tpu_operator_torch.ops import flash_attention as flash
     from tpu_operator_torch.parallel.mesh import MeshPlan, make_mesh
     from tpu_operator_torch.parallel.numerics import attention_tolerance
@@ -1379,36 +1427,44 @@ def phase_ulysses() -> None:
         del q, k, v
 
 
-def phase_ulysses_dense() -> None:
-    """Ulysses at Dh = 384 (K2s's width on the main path) beside the same
-    call with each rank's attention dense (``attention_plain``, the port's
-    path at that width before K2s took it): mean ms a call by CUDA events
-    over 5 back-to-back calls after one warm-up, host time included."""
+def phase_ulysses_dense() -> dict:
+    """Ulysses at Dh = 384 (K2s's width on the main path) and 1024 (K2d's)
+    beside the same call with each rank's attention dense
+    (``attention_plain``, the port's path at those widths before K2s and
+    K2d took them): mean ms a call by CUDA events over 5 back-to-back calls
+    after one warm-up, host time included. Returns {kernel: {"causal" |
+    "full": {kernel: ms, "dense": ms}}}."""
     from tpu_operator_torch.ops import flash_attention as flash
     from tpu_operator_torch.parallel.mesh import MeshPlan, make_mesh
     from tpu_operator_torch.parallel.ring_attention import ulysses_attention
-    n, h, t, d = 4, 8, 4096, 384
+    n, h, t = 4, 8, 4096
     dev = torch.device("cuda", 0)
     mesh = make_mesh(n, MeshPlan(data=1, model=n), device=dev)
     gen = torch.Generator(device=dev).manual_seed(17)
-    shards = [list(torch.randn((t, h, d), generator=gen, device=dev)
-                   .to(torch.bfloat16).chunk(n)) for _ in range(3)]
     routed = flash.flash_attention
 
     def dense(q, k, v, causal=False):
         return flash.attention_plain(q, k, v, causal=causal)
-    for causal in (True, False):
-        times = {}
-        for name, fn in (("K2s", routed), ("dense", dense)):
-            flash.flash_attention = fn
-            try:
-                times[name] = cuda_ms(lambda: ulysses_attention(
-                    *shards, mesh, "model", causal=causal), iters=5)
-            finally:
-                flash.flash_attention = routed
-        print(f"[ulysses] n={n} T={t} H={h} Dh={d} bf16 causal={causal}: "
-              f"on K2s {times['K2s']:.3f} ms a call, dense (attention_plain "
-              f"a rank) {times['dense']:.3f} ms a call")
+    report = {}
+    for d, kernel in ((384, "K2s"), (1024, "K2d")):
+        shards = [list(torch.randn((t, h, d), generator=gen, device=dev)
+                       .to(torch.bfloat16).chunk(n)) for _ in range(3)]
+        for causal in (True, False):
+            times = {}
+            for name, fn in ((kernel, routed), ("dense", dense)):
+                flash.flash_attention = fn
+                try:
+                    times[name] = cuda_ms(lambda: ulysses_attention(
+                        *shards, mesh, "model", causal=causal), iters=5)
+                finally:
+                    flash.flash_attention = routed
+            report.setdefault(kernel, {})[
+                "causal" if causal else "full"] = times
+            print(f"[ulysses] n={n} T={t} H={h} Dh={d} bf16 causal={causal}: "
+                  f"on {kernel} {times[kernel]:.3f} ms a call, dense "
+                  f"(attention_plain a rank) {times['dense']:.3f} ms a call")
+        del shards
+    return report
 
 
 HEALTH_NODE = "gpu-node-0"
@@ -4038,7 +4094,8 @@ def main() -> int:
         ("Ulysses", (phase_ulysses,),
          {"flash_fwd": flash_mod.flash_attention,
           "flash_fwd_wgmma": flash_mod.flash_wgmma,
-          "flash_fwd_generic": flash_mod.flash_generic}),
+          "flash_fwd_generic": flash_mod.flash_generic,
+          "flash_fwd_wide": flash_mod.flash_wide}),
         ("health monitor", (phase_health_monitor, phase_health_probes),
          {"hbm_read": hbm_mod.read_sum}),
         # the node agents launch no TPU kernel's port: gpu-smoke's PTX add
@@ -4112,7 +4169,12 @@ def main() -> int:
                 entry_["name"], "not measured: one card")
         check(entry_["launches"] > 0,
               f"{entry_['name']} never launched on the main path")
-    phase_ulysses_dense()
+    ulysses = phase_ulysses_dense()
+    for entry_ in kernels:
+        kernel = {"flash_fwd_generic": "K2s",
+                  "flash_fwd_wide": "K2d"}.get(entry_["name"])
+        if kernel:
+            entry_["ulysses_vs_dense_ms"] = ulysses[kernel]
 
     print(smi_line)
     print(json.dumps({"kernels": kernels}))

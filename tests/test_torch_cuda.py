@@ -104,10 +104,11 @@ def test_flash_kernel_gives_the_same_bits_twice(cuda):
 
 
 def test_flash_kernel_rejects_what_it_cannot_take(cuda, monkeypatch):
-    """Only a dtype outside f32, f16 and bf16, or a head dim above 512, is
-    refused; every other CUDA input goes to K2, K2w or K2s, never to the
-    plain version. bf16 with D = 128 and T a multiple of 64 keeps K2,
-    whatever blocks were asked for."""
+    """Only a dtype outside f32, f16 and bf16 is refused; every other CUDA
+    input goes to K2, K2w, K2s or (a head dim above 512) K2d, never to the
+    plain version. K2s's and K2w's own wrappers refuse heads wider than
+    theirs. bf16 with D = 128 and T a multiple of 64 keeps K2, whatever
+    blocks were asked for."""
     def refuse(*a, **kw):
         raise AssertionError("a CUDA input reached the plain version")
     monkeypatch.setattr(flash_mod, "attention_plain", refuse)
@@ -117,24 +118,25 @@ def test_flash_kernel_rejects_what_it_cannot_take(cuda, monkeypatch):
         flash_mod.flash_attention(xd, xd, xd)
     wide = torch.zeros((256, 640), device=cuda)
     with pytest.raises(ValueError, match="head dim at most 512"):
-        flash_mod.flash_attention(wide, wide, wide)
-    with pytest.raises(ValueError, match="head dim at most 512"):
         flash_mod.flash_generic(wide, wide, wide)
     wide16 = wide.to(torch.bfloat16)
     with pytest.raises(ValueError, match="at most 256, got 640"):
         flash_mod.flash_wgmma(wide16, wide16, wide16)
     xb = x.to(torch.bfloat16)
     counters = (flash_mod.flash_attention, flash_mod.flash_wgmma,
-                flash_mod.flash_generic)
+                flash_mod.flash_generic, flash_mod.flash_wide)
     counts = [fn.launches for fn in counters]
     flash_mod.flash_attention(xb, xb, xb, block_q=128, block_k=128)
     flash_mod.flash_attention(x, x, x)
     odd = torch.zeros((256, 96), device=cuda, dtype=torch.bfloat16)
     flash_mod.flash_attention(odd, odd, odd)
+    flash_mod.flash_attention(wide, wide, wide)
+    flash_mod.flash_attention(wide16, wide16, wide16)
     torch.cuda.synchronize()
     assert [fn.launches for fn in counters] == [counts[0] + 1,
                                                 counts[1] + 1,
-                                                counts[2] + 1]
+                                                counts[2] + 1,
+                                                counts[3] + 2]
 
 
 def _within(out, q, k, v, causal):
@@ -168,6 +170,64 @@ def test_generic_kernel_matches_plain(cuda, dtype, d, causal):
 
 
 @pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [520, 640, 1000, 1024, 2048, 512, 3, 100])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
+def test_wide_kernel_matches_plain(cuda, dtype, d, causal):
+    """K2d over heads past 512 (multiples of its 256-column chunks and D
+    off them), and at D = 512 and below, where its wrapper takes what the
+    routing does not send it, at a T its 64-row tiles divide and ones they
+    do not, with two heads; the same bits on a second call."""
+    gen = torch.Generator(device=cuda).manual_seed(d + 2)
+    for t in (1024, 200, 96, 1):
+        q, k, v = (torch.randn((2, t, d), generator=gen, device=cuda)
+                   .to(dtype) for _ in range(3))
+        before = flash_mod.flash_wide.launches
+        out = flash_mod.flash_wide(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        assert flash_mod.flash_wide.launches == before + 1
+        assert out.dtype == dtype and out.shape == q.shape
+        assert _within(out, q, k, v, causal), t
+        assert torch.equal(out, flash_mod.flash_wide(q, k, v, causal=causal))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
+def test_wide_kernel_against_the_generic_kernel_at_512(cuda, dtype):
+    """At D = 512, where both take the input, K2d and K2s agree within
+    the limit each is held to against the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v = (torch.randn((2, 1024, 512), generator=gen, device=cuda)
+               .to(dtype) for _ in range(3))
+    wide = flash_mod.flash_wide(q, k, v, causal=True)
+    generic = flash_mod.flash_generic(q, k, v, causal=True)
+    assert _within(wide, q, k, v, True) and _within(generic, q, k, v, True)
+    if dtype == torch.float32:
+        tol = attention_tolerance(dtype, 512, "cuda")
+        assert (wide - generic).abs().max().item() <= tol
+    else:
+        _, limit = flash_mod.kernel_error_limit(q, k, v, causal=True)
+        assert bool(((wide.float() - generic.float()).abs()
+                     <= 2 * limit).all())
+
+
+@pytest.mark.parametrize("cols", [768, 1026])
+def test_wide_kernel_refuses_a_narrow_workspace(cuda, cols):
+    """K2d's C entry refuses a partials workspace whose rows are narrower
+    than D rounded up to its 256-column chunks, or not a multiple of 4
+    floats, with cudaErrorInvalidValue and no launch."""
+    from tpu_operator_torch import _native
+    q = torch.randn((1, 256, 1000), device=cuda).to(torch.bfloat16)
+    out, heads, work, _workspace = flash_mod._schedule(
+        q, True, flash_mod.SPLIT, 1024)
+    err = _native.library().flash_fwd_wide(
+        q.data_ptr(), q.data_ptr(), q.data_ptr(), out.data_ptr(), *work, cols,
+        flash_mod.DTYPE_CODES[q.dtype], heads, 256, 1000, 1000 ** -0.5, 1,
+        torch.cuda.current_stream().cuda_stream)
+    assert err == 1   # cudaErrorInvalidValue
+
+
+@pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("d", [64, 96, 128, 256, 8, 40])
 @pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
 def test_wgmma_kernel_matches_plain(cuda, dtype, d, causal):
@@ -196,7 +256,9 @@ def test_wgmma_kernel_matches_plain(cuda, dtype, d, causal):
     (torch.bfloat16, 128, 512, "K2"), (torch.bfloat16, 128, 200, "K2w"),
     (torch.float16, 128, 512, "K2w"), (torch.bfloat16, 256, 512, "K2w"),
     (torch.float16, 100, 512, "K2s"), (torch.bfloat16, 384, 256, "K2s"),
-    (torch.float32, 128, 512, "K2s"), (torch.float32, 512, 96, "K2s")])
+    (torch.float32, 128, 512, "K2s"), (torch.float32, 512, 96, "K2s"),
+    (torch.bfloat16, 640, 256, "K2d"), (torch.float16, 1000, 200, "K2d"),
+    (torch.float32, 1024, 96, "K2d")])
 def test_flash_attention_launches_the_kernel_the_routing_names(
         cuda, monkeypatch, dtype, d, t, kernel):
     def refuse(*a, **kw):
@@ -208,7 +270,8 @@ def test_flash_attention_launches_the_kernel_the_routing_names(
                for _ in range(3))
     counters = {"K2": flash_mod.flash_attention,
                 "K2w": flash_mod.flash_wgmma,
-                "K2s": flash_mod.flash_generic}
+                "K2s": flash_mod.flash_generic,
+                "K2d": flash_mod.flash_wide}
     before = {name: fn.launches for name, fn in counters.items()}
     out = flash_mod.flash_attention(q, k, v, causal=True, block_q=t,
                                     block_k=t)
@@ -618,11 +681,13 @@ def test_validator_on_four_ranks_runs_the_hand_rings(cuda, tmp_path):
 
 
 @pytest.mark.parametrize("d,kernel", [(256, "flash_wgmma"),
-                                      (384, "flash_generic")])
+                                      (384, "flash_generic"),
+                                      (1024, "flash_wide")])
 def test_ulysses_head_dim_256_goes_through_the_generic_kernel(cuda, d,
                                                               kernel):
     """Dh = 256 goes through K2w (the tensor-core kernel that replaced the
-    generic one there), Dh = 384 through K2s, once per rank."""
+    generic one there), Dh = 384 through K2s, Dh = 1024 through K2d, once
+    per rank."""
     from tpu_operator_torch.parallel.mesh import MeshPlan, make_mesh
     from tpu_operator_torch.parallel.ring_attention import ulysses_attention
     n, t, h = 4, 256, 8
@@ -631,7 +696,8 @@ def test_ulysses_head_dim_256_goes_through_the_generic_kernel(cuda, d,
                .to(torch.bfloat16) for _ in range(3))
     mesh = make_mesh(n, MeshPlan(data=1, model=n), device=cuda)
     counters = {name: getattr(flash_mod, name) for name in
-                ("flash_attention", "flash_wgmma", "flash_generic")}
+                ("flash_attention", "flash_wgmma", "flash_generic",
+                 "flash_wide")}
     before = {name: fn.launches for name, fn in counters.items()}
     out = torch.cat(ulysses_attention(
         *(list(x.chunk(n)) for x in (q, k, v)), mesh, "model", causal=True))

@@ -2,8 +2,10 @@
 through the port's ``flash_attention`` (on the CPU, its plain version)
 against the reference's Pallas kernel in interpret mode on the same numpy
 inputs; which CUDA inputs go to K2, which to K2w and which to K2s; what
-still raises; and Ulysses at Dh = 256, 384 and 512, which take the flash
-route as the reference does."""
+each wrapper refuses; and Ulysses at Dh = 256, 384, 512, 640 and 1024,
+which take the flash route as the reference does, and at a Dh off the
+multiples of 128, which runs dense as the reference does. Heads past 512
+(K2d) are held in ``tests/test_torch_flash_wide.py``."""
 
 import jax
 import jax.numpy as jnp
@@ -121,12 +123,16 @@ def test_head_dim_buckets(d, bucket):
     (torch.float32, 256, "unsupported device"),
 ])
 def test_what_the_kernels_refuse_raises(dtype, d, match):
-    """Off the CPU, only a dtype outside f32/f16/bf16 or D > 512 is refused
-    for what it is; a meta tensor, which no kernel takes, is refused for its
-    device."""
+    """Off the CPU, only a dtype outside f32/f16/bf16 is refused for what it
+    is, and by K2s's own wrapper a head dim past 512 (``flash_attention``
+    takes those on K2d); a meta tensor, which no kernel takes, is refused
+    for its device."""
     x = torch.empty((64, d), dtype=dtype, device="meta")
+    wide = d > port.MAX_HEAD_DIM
     for fn in (port.flash_attention, port.flash_generic):
-        with pytest.raises(ValueError, match=match):
+        refused = match if fn is port.flash_generic or not wide \
+            else "unsupported device"
+        with pytest.raises(ValueError, match=refused):
             fn(x, x, x)
 
 
@@ -217,10 +223,32 @@ def test_ulysses_wide_heads_take_flash_as_the_reference(dh, causal,
     _ulysses_takes_flash(dh, causal, monkeypatch)
 
 
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dh", [640, 1024])
+def test_ulysses_heads_past_512_take_flash_as_the_reference(dh, causal,
+                                                            monkeypatch):
+    """Dh = 640 and 1024: multiples of 128 past K2s's widest head, which
+    K2d takes on the card; the reference takes its flash kernel for them
+    too."""
+    _ulysses_takes_flash(dh, causal, monkeypatch)
+
+
 def test_ulysses_past_the_widest_kernel_head_runs_dense(monkeypatch):
+    """Dh = 600, past K2s's widest head but not a multiple of 128: dense,
+    by the reference's rule (K2d would take it, but the rule does not send
+    it), and equal to the reference's dense Ulysses."""
     def refuse(*a, **kw):
         raise AssertionError("flash path taken")
-    monkeypatch.setattr(port, "flash_attention", refuse)
-    q, k, v = np.random.default_rng(4).standard_normal((3, 16, 2, 640),
+    n, t, h, dh = 2, 16, 2, 600
+    q, k, v = np.random.default_rng(4).standard_normal((3, t, h, dh),
                                                        dtype=np.float32)
-    assert _ulysses_port(q, k, v, 2, True).shape == (16, 2, 640)
+    jmesh = JaxMesh(np.array(jax.devices()[:n]), ("model",))
+    shard = NamedSharding(jmesh, P("model", None, None))
+    want = np.asarray(jax_ulysses(
+        *(jax.device_put(a, shard) for a in (q, k, v)), jmesh, causal=True,
+        interpret=True))
+    monkeypatch.setattr(port, "flash_attention", refuse)
+    got = _ulysses_port(q, k, v, n, True)
+    assert got.shape == (t, h, dh)
+    tol = attention_tolerance(torch.float32, dh)
+    np.testing.assert_allclose(got.numpy(), want, rtol=tol, atol=tol)

@@ -1,0 +1,218 @@
+"""Flash attention past K2s's widest head (D > 512): K2d's routing, its
+wrapper on the CPU, and its schedule in plain PyTorch.
+
+On the card K2d cuts the output's head dim into chunks of ``WIDE_CHUNK``
+columns, one block a (unit, chunk), and every block forms the scores from
+all of D again. ``flash_chunked_plain`` runs that schedule with the
+kernel's roundings. Both it and the port's ``flash_attention`` (on the CPU,
+its plain version) are held to the reference's Pallas kernel in interpret
+mode on the same numpy inputs, within the attention tolerance, and the
+schedule, for 16-bit inputs, to the per-element limit of the f32 oracle
+that the kernel is held to on the card; a chunk that forms its scores from
+its own columns only, or a chunk never written, must fail that limit.
+"""
+
+import functools
+import math
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from chip_smoke import limit_ratio
+from tpu_operator.ops.flash_attention import flash_attention as jax_flash
+from tpu_operator_torch.ops import flash_attention as port
+from tpu_operator_torch.parallel.numerics import attention_tolerance
+
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "float16": (jnp.float16, torch.float16),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+@functools.lru_cache(maxsize=None)
+def _case(dtype, shape, causal, blocks):
+    """Numpy inputs of ``shape`` ([T, D]) and the reference's Pallas kernel
+    on them in interpret mode, in ``dtype``."""
+    t, d = shape
+    rng = np.random.default_rng(d * 3 + t)
+    arrays = [rng.standard_normal(shape, dtype=np.float32) for _ in range(3)]
+    jdt = DTYPES[dtype][0]
+    want = jax_flash(*(jnp.asarray(a, jdt) for a in arrays), causal=causal,
+                     block_q=blocks[0], block_k=blocks[1], interpret=True)
+    return arrays, np.asarray(want, np.float32)
+
+
+def _torch(arrays, dtype):
+    return [torch.from_numpy(a).to(DTYPES[dtype][1]) for a in arrays]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("t,d,blocks", [(96, 520, (32, 96)),
+                                        (128, 640, (64, 64)),
+                                        (64, 1000, (64, 32)),
+                                        (128, 1024, (128, 64))])
+def test_flash_attention_past_512_matches_the_pallas_kernel(t, d, blocks,
+                                                            dtype, causal):
+    arrays, want = _case(dtype, (t, d), causal, blocks)
+    q, k, v = _torch(arrays, dtype)
+    got = port.flash_attention(q, k, v, causal=causal, block_q=blocks[0],
+                               block_k=blocks[1])
+    assert got.dtype == q.dtype and got.shape == q.shape
+    tol = attention_tolerance(q.dtype, d)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=tol, atol=tol)
+    # K2d's own wrapper computes the same on the CPU
+    torch.testing.assert_close(port.flash_wide(q, k, v, causal=causal), got,
+                               rtol=0, atol=0)
+
+
+# T = 200: four q tiles, the last one short; blocks the reference takes
+RAGGED = (200, 1000)
+RAGGED_BLOCKS = (40, 200)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("split", [1, 2, 8])
+@pytest.mark.parametrize("chunk", [128, 256])
+def test_chunked_schedule_matches_the_reference(chunk, split, causal):
+    """bf16 at T = 200, D = 1000 (a last chunk of 232 or 104 columns):
+    within the per-element limit and the reference's tolerance."""
+    arrays, want = _case("bfloat16", RAGGED, causal, RAGGED_BLOCKS)
+    q, k, v = _torch(arrays, "bfloat16")
+    got = port.flash_chunked_plain(q, k, v, causal, split=split, chunk=chunk)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    ref, limit = port.kernel_error_limit(q, k, v, causal=causal)
+    assert limit_ratio(got, ref, limit) <= 1.0
+    tol = attention_tolerance(q.dtype, RAGGED[1])
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype,chunk,split", [("float16", 256, 8),
+                                               ("float16", 128, 1),
+                                               ("float32", 256, 2),
+                                               ("float32", 128, 8)])
+def test_chunked_schedule_in_f16_and_f32(dtype, chunk, split, causal):
+    """f16 within the per-element limit at its own unit roundoff; f32 (no
+    rounding of P) within the attention tolerance of the reference."""
+    arrays, want = _case(dtype, RAGGED, causal, RAGGED_BLOCKS)
+    q, k, v = _torch(arrays, dtype)
+    got = port.flash_chunked_plain(q, k, v, causal, split=split, chunk=chunk)
+    if q.dtype == torch.float16:
+        ref, limit = port.kernel_error_limit(q, k, v, causal=causal)
+        assert limit_ratio(got, ref, limit) <= 1.0
+    tol = attention_tolerance(q.dtype, RAGGED[1])
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_chunked_schedule_on_heads(causal):
+    """Three heads of [128, 640] at the kernel's chunk and split: the
+    chunks of one head do not mix with another's."""
+    rng = np.random.default_rng(31)
+    q, k, v = (torch.from_numpy(rng.standard_normal((3, 128, 640),
+                                                    dtype=np.float32))
+               .to(torch.bfloat16) for _ in range(3))
+    got = port.flash_chunked_plain(q, k, v, causal)
+    ref, limit = port.kernel_error_limit(q, k, v, causal=causal)
+    assert limit_ratio(got, ref, limit) <= 1.0
+    for h in range(3):
+        torch.testing.assert_close(
+            port.flash_chunked_plain(q[h], k[h], v[h], causal), got[h],
+            rtol=0, atol=0)
+
+
+def test_one_chunk_is_the_split_schedule():
+    """A chunk as wide as D leaves one block a unit: the schedule is K2s's
+    (``flash_split_plain``) bit for bit."""
+    arrays, _ = _case("bfloat16", RAGGED, True, RAGGED_BLOCKS)
+    q, k, v = _torch(arrays, "bfloat16")
+    torch.testing.assert_close(
+        port.flash_chunked_plain(q, k, v, True, split=2, chunk=RAGGED[1]),
+        port.flash_split_plain(q, k, v, True, split=2), rtol=0, atol=0)
+    with pytest.raises(ValueError, match="chunk"):
+        port.flash_chunked_plain(q, k, v, True, chunk=0)
+
+
+def _own_columns_only(q, k, v, causal, chunk):
+    """The planted fault: each chunk forms its scores from its own columns
+    of Q and K, at the scale of the whole head."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    outs = []
+    for c0 in range(0, q.shape[-1], chunk):
+        cols = slice(c0, c0 + chunk)
+        parts = port.split_partials(q[..., cols], k[..., cols], v[..., cols],
+                                    causal, port.SPLIT, scale)
+        outs.append(torch.cat([port.combine_partials(parts[row])
+                               for row in range(len(parts))], dim=-2))
+    return torch.cat(outs, dim=-1).to(q.dtype)
+
+
+def _dropped_chunk(q, k, v, causal, chunk):
+    """The planted fault: the second chunk's columns never written (zeros
+    in place of the block's output)."""
+    out = port.flash_chunked_plain(q, k, v, causal, chunk=chunk)
+    out[..., chunk:2 * chunk] = 0
+    return out
+
+
+@pytest.mark.parametrize("fault", [_own_columns_only, _dropped_chunk])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_a_wrong_chunk_is_rejected_by_the_limit(dtype, causal, fault):
+    arrays, _ = _case(dtype, (128, 640), causal, (64, 64))
+    q, k, v = _torch(arrays, dtype)
+    ref, limit = port.kernel_error_limit(q, k, v, causal=causal)
+    chunk = port.WIDE_CHUNK
+    assert limit_ratio(port.flash_chunked_plain(q, k, v, causal, chunk=chunk),
+                       ref, limit) <= 1.0
+    assert limit_ratio(fault(q, k, v, causal, chunk), ref, limit) > 1.0
+
+
+@pytest.mark.parametrize("t", [1, 4096])
+@pytest.mark.parametrize("d", [513, 600, 1024, 2048])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
+def test_kernel_for_sends_every_head_past_512_to_k2d(dtype, d, t):
+    assert port.kernel_for(dtype, d, t) == "K2d"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
+def test_kernel_for_keeps_512_and_below_where_they_were(dtype):
+    """K2, K2w and K2s keep exactly the inputs they took before K2d."""
+    assert port.kernel_for(dtype, 512, 4096) == "K2s"
+    assert port.kernel_for(dtype, 384, 4096) == "K2s"
+    assert port.kernel_for(dtype, 256, 4096) == (
+        "K2s" if dtype == torch.float32 else "K2w")
+
+
+def test_wide_wrapper_on_the_cpu_launches_nothing():
+    counters = (port.flash_attention, port.flash_wgmma, port.flash_generic,
+                port.flash_wide)
+    before = [fn.launches for fn in counters]
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 64, 640),
+                                                    dtype=np.float32))
+               .to(torch.float16) for _ in range(3))
+    got = port.flash_wide(q, k, v, sm_scale=0.05, causal=True)
+    torch.testing.assert_close(
+        got, port.attention_plain(q, k, v, 0.05, causal=True), rtol=0,
+        atol=0)
+    port.flash_attention(q, k, v, causal=True)
+    # K2d's wrapper takes any head dim, so the card can hold it against K2s
+    small = q[..., :40].contiguous()
+    assert port.flash_wide(small, small, small).shape == small.shape
+    assert [fn.launches for fn in counters] == before
+
+
+def test_wide_wrapper_refuses_what_no_kernel_takes():
+    x = torch.empty((64, 640), dtype=torch.float64, device="meta")
+    with pytest.raises(ValueError, match="take float32, float16 and bfloat16"):
+        port.flash_wide(x, x, x)
+    y = torch.empty((64, 640), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        port.flash_wide(y, y, y)
+    with pytest.raises(ValueError, match="share a"):
+        port.flash_wide(y, y[:32], y)

@@ -667,8 +667,8 @@ int launch(const Args& a) {
       tq, tk, tv, static_cast<T*>(a.o), static_cast<const int4*>(a.units),
       static_cast<float*>(a.part_acc), static_cast<float*>(a.part_ml),
       a.t_len, a.d, a.scale * kLog2e, a.causal);
-  flash::launch_combine<T, DP>(a.merges, a.n_merges, a.part_acc, a.part_ml,
-                               a.o, a.t_len, a.d, a.stream);
+  flash::launch_combine<T>(a.merges, a.n_merges, a.part_acc, a.part_ml,
+                           a.o, a.t_len, a.d, DP, a.stream);
   return static_cast<int>(cudaGetLastError());
 }
 

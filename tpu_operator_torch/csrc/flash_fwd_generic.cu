@@ -66,6 +66,10 @@
 
 namespace {
 
+using flash::cp_async16;
+using flash::cp_async_commit;
+using flash::cp_async_wait_all;
+using flash::dot4;
 using flash::kBlockQ;
 using flash::kLog2e;
 using flash::kMaskFill;
@@ -91,19 +95,6 @@ struct Layout {
       sizeof(T) == 2 && stage * 4 + stage_bytes <= kMaxSmem;
   static constexpr int bytes = stage * 4 + (staged ? stage_bytes : 0);
 };
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
-               :: "r"(d), "l"(src), "r"(valid ? 16 : 0) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;" ::: "memory");
-}
 
 // Rows [row0, row0 + rows) of one head's [T, D] into a [rows][DP + 4] f32
 // tile, zeros past T and D. f32 with D % 4 == 0 goes by cp.async (in shared
@@ -176,13 +167,6 @@ __device__ __forceinline__ void convert_stage(float* dst, const T* src,
     out[1] = make_float4(to_float(h[4]), to_float(h[5]), to_float(h[6]),
                          to_float(h[7]));
   }
-}
-
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
 }
 
 // A unit (flash_common.cuh) covers kv tiles [unit.y, unit.z) of 64 keys: kv
@@ -402,8 +386,8 @@ int launch(const void* q, const void* k, const void* v, void* o,
       static_cast<const T*>(v), static_cast<T*>(o),
       static_cast<const int4*>(units), static_cast<float*>(part_acc),
       static_cast<float*>(part_ml), t_len, d, scale * kLog2e, causal);
-  flash::launch_combine<T, DP>(merges, n_merges, part_acc, part_ml, o, t_len,
-                               d, s);
+  flash::launch_combine<T>(merges, n_merges, part_acc, part_ml, o, t_len, d,
+                           DP, s);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -22,7 +22,7 @@ second kernel merges them by the log-sum-exp rule in a fixed order (no
 atomics: the same bits on every run). :func:`flash_split_plain` is that
 schedule in plain PyTorch.
 
-Three kernels run that schedule (:func:`kernel_for` routes a CUDA input):
+Four kernels run that schedule (:func:`kernel_for` routes a CUDA input):
 
 - K2 (``csrc/flash_fwd.cu``, the instance the node validator runs): bf16,
   D = 128, T a multiple of 64; wgmma and TMA.
@@ -31,7 +31,13 @@ Three kernels run that schedule (:func:`kernel_for` routes a CUDA input):
 - K2s (:func:`flash_generic`, ``csrc/flash_fwd_generic.cu``): f32, and
   16-bit inputs K2w does not take, D ≤ :data:`MAX_HEAD_DIM`, any T; CUDA
   cores, register-tiled.
+- K2d (:func:`flash_wide`, ``csrc/flash_fwd_wide.cu``): f32, f16 and bf16
+  with D > :data:`MAX_HEAD_DIM`, any T; CUDA cores. The output's head dim
+  is cut into chunks of :data:`WIDE_CHUNK` columns, one block a (unit,
+  chunk), and each block forms the scores from all of D again;
+  :func:`flash_chunked_plain` is that schedule in plain PyTorch.
 
+So every head dim the reference's Pallas kernel takes has a kernel.
 :func:`flash_attention` runs the plain PyTorch version,
 :func:`attention_plain`, only for CPU tensors.
 """
@@ -53,8 +59,11 @@ BLOCK = 64          # the kernels' q tile rows and the work list's kv tiles
 HEAD_DIM = 128      # K2's head dimension
 SPLIT = 8           # kv tiles per unit at most, from chip_smoke.py's sweep
 MASK_FILL = -1e30   # the causal mask's fill, as in the reference
-MAX_HEAD_DIM = 512  # the largest D any kernel (K2s) takes
+MAX_HEAD_DIM = 512  # the largest D K2s takes; K2d takes every D above it
 WGMMA_MAX_HEAD_DIM = 256  # the largest D K2w takes
+# K2d's output columns a block (``kDC`` in ``csrc/flash_fwd_wide.cu``, whose
+# C entry refuses a workspace narrower than D rounded up to it)
+WIDE_CHUNK = 256
 # the kernels' element types, by the code their C entry points take
 DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 # K2w's keys a kv step by head-dim bucket (chip_smoke.py sweeps DP = 256)
@@ -72,9 +81,11 @@ def head_bucket(d: int, widest: int = MAX_HEAD_DIM) -> int:
 
 def kernel_for(dtype: torch.dtype, d: int, t: int) -> str:
     """Which kernel a CUDA input of ``dtype`` and shape [.., t, d] goes to:
-    "K2" (bf16, D = 128, T a multiple of 64), "K2w" (f16 or bf16, D ≤ 256,
-    D % 8 = 0) or "K2s" (every other input of :data:`DTYPE_CODES` with D ≤
-    :data:`MAX_HEAD_DIM`)."""
+    "K2d" (D > :data:`MAX_HEAD_DIM`), "K2" (bf16, D = 128, T a multiple of
+    64), "K2w" (f16 or bf16, D ≤ 256, D % 8 = 0) or "K2s" (every other
+    input of :data:`DTYPE_CODES`)."""
+    if d > MAX_HEAD_DIM:
+        return "K2d"
     if dtype == torch.bfloat16 and d == HEAD_DIM and t % BLOCK == 0:
         return "K2"
     if (dtype in (torch.float16, torch.bfloat16)
@@ -163,19 +174,22 @@ def work_list(heads: int, t: int, causal: bool, split: int):
 
 
 def split_partials(q, k, v, causal: bool, split: int,
-                   sm_scale: float | None = None, block_k: int = BLOCK):
+                   sm_scale: float | None = None, block_k: int = BLOCK,
+                   v_cols: slice = slice(None)):
     """Each unit's softmax state as the kernels leave it, for q, k, v of
     shape [T, D] or [H, T, D], any T and D: {q tile: [(m, l, acc), ...] in
-    kv order}, each of shape [H, rows], [H, rows], [H, rows, D] in f32
-    (rows: the tile's rows inside T). A unit walks its keys in steps of
-    ``block_k`` (a divisor of BLOCK; the last step cut at T). Per step the
-    online update rounds P = exp(s − m) to the input dtype before P·V, and
-    sums the unrounded P into l."""
+    kv order}, each of shape [H, rows], [H, rows], [H, rows, C] in f32
+    (rows: the tile's rows inside T; C: the columns of V that ``v_cols``
+    picks, all of D by default; the scores always come from all of D). A
+    unit walks its keys in steps of ``block_k`` (a divisor of BLOCK; the
+    last step cut at T). Per step the online update rounds P = exp(s − m)
+    to the input dtype before P·V, and sums the unrounded P into l."""
     if BLOCK % block_k:
         raise ValueError(f"block_k {block_k} must divide {BLOCK}")
     q3, k3, v3 = (x.reshape(-1, *x.shape[-2:]).float() for x in (q, k, v))
     heads, t, d = q3.shape
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
+    v3 = v3[..., v_cols]
     keys = torch.arange(t, device=q3.device)
     parts = {}
     with pinned_f32():
@@ -186,7 +200,8 @@ def split_partials(q, k, v, causal: bool, split: int,
             m = torch.full((heads, len(rows)), float("-inf"),
                            device=q3.device)
             l = torch.zeros((heads, len(rows)), device=q3.device)
-            acc = torch.zeros((heads, len(rows), d), device=q3.device)
+            acc = torch.zeros((heads, len(rows), v3.shape[-1]),
+                              device=q3.device)
             for k0 in range(j0 * BLOCK, min(j1 * BLOCK, t), block_k):
                 cols = keys[k0:k0 + block_k]
                 s = torch.matmul(qt, k3[:, cols].transpose(-1, -2)) * scale
@@ -230,6 +245,27 @@ def flash_split_plain(q, k, v, causal: bool = False, split: int = SPLIT,
     parts = split_partials(q, k, v, causal, split, sm_scale, block_k)
     out = torch.cat([combine_partials(parts[row])
                      for row in range(len(parts))], dim=-2)
+    return out.reshape(q.shape).to(q.dtype)
+
+
+def flash_chunked_plain(q, k, v, causal: bool = False, split: int = SPLIT,
+                        chunk: int = WIDE_CHUNK,
+                        sm_scale: float | None = None):
+    """K2d's schedule in plain PyTorch: for each chunk of ``chunk`` output
+    columns, every unit's (m, l, acc) with the scores from all of D and
+    P·V over the chunk's columns of V (:func:`split_partials`), merged per
+    q tile (:func:`combine_partials`); the chunks side by side, rounded
+    once to the input dtype. Any T and D, 16-bit or f32 inputs."""
+    if chunk < 1:
+        raise ValueError(f"chunk {chunk} must be at least 1")
+    d = q.shape[-1]
+    chunks = []
+    for c0 in range(0, d, chunk):
+        parts = split_partials(q, k, v, causal, split, sm_scale,
+                               v_cols=slice(c0, c0 + chunk))
+        chunks.append(torch.cat([combine_partials(parts[row])
+                                 for row in range(len(parts))], dim=-2))
+    out = torch.cat(chunks, dim=-1)
     return out.reshape(q.shape).to(q.dtype)
 
 
@@ -338,9 +374,12 @@ def flash_generic(q, k, v, sm_scale: float | None = None,
     [H, T, D], f32, f16 or bf16, D ≤ :data:`MAX_HEAD_DIM`, any T. Launches
     ``csrc/flash_fwd_generic.cu`` for CUDA tensors and runs
     :func:`attention_plain` for CPU tensors; the output has the input
-    dtype."""
+    dtype. A wider head is refused on any device (K2d takes it)."""
     _check_shapes(q, k, v)
     d = q.shape[-1]
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"K2s takes head dim at most {MAX_HEAD_DIM}, got "
+                         f"{d}")
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
     if q.device.type == "cpu":
         return attention_plain(q, k, v, scale, causal)
@@ -353,18 +392,55 @@ flash_generic.launches = 0
 def _generic_launch(q, k, v, scale: float, causal: bool):
     """Launch K2s on inputs :func:`_cuda_inputs` checked; the output, not
     yet synchronised."""
-    out, heads, work, _workspace = _schedule(q, causal, SPLIT,
-                                             head_bucket(q.shape[-1]))
+    return _cores_launch("flash_fwd_generic", flash_generic, q, k, v, scale,
+                         causal, head_bucket(q.shape[-1]))
+
+
+def _cores_launch(entry: str, wrapper, q, k, v, scale: float, causal: bool,
+                  dp: int, pass_cols: bool = False):
+    """Launch the CUDA-core kernel behind the C entry point ``entry`` (K2s
+    or K2d, which take the same arguments, K2d with the workspace's row
+    stride as well: ``pass_cols``) with a workspace of ``dp`` columns, and
+    count it on ``wrapper``; the output, not yet synchronised."""
+    out, heads, work, _workspace = _schedule(q, causal, SPLIT, dp)
+    cols = (dp,) if pass_cols else ()
     lib = _native.library()
     with torch.cuda.device(q.device):
-        err = lib.flash_fwd_generic(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                    out.data_ptr(), *work,
-                                    DTYPE_CODES[q.dtype], heads, q.shape[-2],
-                                    q.shape[-1], scale, int(causal),
-                                    torch.cuda.current_stream().cuda_stream)
-    _native.check(err, "flash_fwd_generic")
-    flash_generic.launches += 1
+        err = getattr(lib, entry)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                  out.data_ptr(), *work, *cols,
+                                  DTYPE_CODES[q.dtype], heads, q.shape[-2],
+                                  q.shape[-1], scale, int(causal),
+                                  torch.cuda.current_stream().cuda_stream)
+    _native.check(err, entry)
+    wrapper.launches += 1
     return out
+
+
+def flash_wide(q, k, v, sm_scale: float | None = None,
+               causal: bool = False):
+    """K2d's wrapper: softmax(q·Kᵀ·scale)·V for q, k, v of shape [T, D] or
+    [H, T, D], f32, f16 or bf16, any D ≥ 1 (``flash_attention`` sends it D
+    > :data:`MAX_HEAD_DIM`), any T. Launches ``csrc/flash_fwd_wide.cu`` for
+    CUDA tensors and runs :func:`attention_plain` for CPU tensors; the
+    output has the input dtype."""
+    _check_shapes(q, k, v)
+    d = q.shape[-1]
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v, scale, causal)
+    return _wide_launch(*_cuda_inputs(q, k, v), scale, causal)
+
+
+flash_wide.launches = 0
+
+
+def _wide_launch(q, k, v, scale: float, causal: bool):
+    """Launch K2d on inputs :func:`_cuda_inputs` checked; the output, not
+    yet synchronised. The workspace's rows are D rounded up to
+    :data:`WIDE_CHUNK`, and the C entry refuses a narrower one."""
+    return _cores_launch("flash_fwd_wide", flash_wide, q, k, v, scale, causal,
+                         -(-q.shape[-1] // WIDE_CHUNK) * WIDE_CHUNK,
+                         pass_cols=True)
 
 
 def _check_shapes(q, k, v):
@@ -376,13 +452,11 @@ def _check_shapes(q, k, v):
 
 def _cuda_inputs(q, k, v):
     """q, k, v checked for the kernels and made contiguous: one dtype of
-    :data:`DTYPE_CODES`, D ≤ :data:`MAX_HEAD_DIM`, one CUDA device."""
+    :data:`DTYPE_CODES`, one CUDA device. Each wrapper checks the head dims
+    its own kernel takes."""
     if q.dtype not in DTYPE_CODES:
         raise ValueError(f"the CUDA kernels take float32, float16 and "
                          f"bfloat16, got {q.dtype}")
-    if q.shape[-1] > MAX_HEAD_DIM:
-        raise ValueError(f"the CUDA kernels take head dim at most "
-                         f"{MAX_HEAD_DIM}, got {q.shape[-1]}")
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     for name, x in (("k", k), ("v", v)):
@@ -407,9 +481,9 @@ def flash_attention(q, k, v, sm_scale: float | None = None,
     checks it; ``sm_scale`` defaults to 1/√D; the output has the input
     dtype. On the card the blocks are a tiling hint only: each kernel tiles
     by its own rows. A CUDA input goes to the kernel :func:`kernel_for`
-    names: K2 (counted here), K2w (:func:`flash_wgmma`) or K2s
-    (:func:`flash_generic`); other dtypes and heads wider than
-    :data:`MAX_HEAD_DIM` raise.
+    names: K2 (counted here), K2w (:func:`flash_wgmma`), K2s
+    (:func:`flash_generic`) or, for heads wider than :data:`MAX_HEAD_DIM`,
+    K2d (:func:`flash_wide`); other dtypes raise.
     """
     _check_shapes(q, k, v)
     t, d = q.shape[-2:]
@@ -427,6 +501,8 @@ def flash_attention(q, k, v, sm_scale: float | None = None,
         return _wgmma_launch(q, k, v, scale, causal)
     if kernel == "K2s":
         return _generic_launch(q, k, v, scale, causal)
+    if kernel == "K2d":
+        return _wide_launch(q, k, v, scale, causal)
     out = flash_launch(q, k, v, scale, causal)
     flash_attention.launches += 1
     return out

@@ -183,11 +183,10 @@ def ulysses_attention(q, k, v, mesh: Mesh, axis_name: str = "model",
     K/V rotations. The per-head attention runs at platform precision, not the
     oracle's pin: on flash attention ([H/n, T, Dh], made contiguous for it)
     by the reference's rule, a Dh that is a multiple of 128 and a full T
-    that the blocks divide, as far as the CUDA kernels' widest head
-    (``MAX_HEAD_DIM``) reaches; else dense."""
+    that the blocks divide, at any Dh (K2d takes the heads wider than
+    K2s's); else dense."""
     # here, not at the top: ops.flash_attention imports this module
-    from tpu_operator_torch.ops.flash_attention import (BLOCK, MAX_HEAD_DIM,
-                                                        flash_attention)
+    from tpu_operator_torch.ops.flash_attention import BLOCK, flash_attention
     n = mesh.shape[axis_name]
     tl, h, dh = q[0].shape
     if h % n:
@@ -208,8 +207,7 @@ def ulysses_attention(q, k, v, mesh: Mesh, axis_name: str = "model",
                 for got in all_to_all(blocks, mesh, axis_name)]
 
     t_full = n * tl
-    flash = (dh % 128 == 0 and dh <= MAX_HEAD_DIM
-             and t_full % min(BLOCK, t_full) == 0)
+    flash = dh % 128 == 0 and t_full % min(BLOCK, t_full) == 0
     outs = []
     for qh, kh, vh in zip(*(seq_to_heads(xs) for xs in (q, k, v))):
         # heads first: [H/n, T, Dh], one attention per head
