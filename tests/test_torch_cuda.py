@@ -105,9 +105,9 @@ def test_flash_kernel_gives_the_same_bits_twice(cuda):
 
 def test_flash_kernel_rejects_what_it_cannot_take(cuda, monkeypatch):
     """Only a dtype outside f32, f16 and bf16 is refused; every other CUDA
-    input goes to K2, K2w, K2s or (a head dim above 512) K2d, never to the
-    plain version. K2s's and K2w's own wrappers refuse heads wider than
-    theirs. bf16 with D = 128 and T a multiple of 64 keeps K2, whatever
+    input goes to K2, K2w, K2s or (a head dim above 512) K2dw or K2d, never
+    to the plain version. K2s's and K2w's own wrappers refuse heads wider
+    than theirs. bf16 with D = 128 and T a multiple of 64 keeps K2, whatever
     blocks were asked for."""
     def refuse(*a, **kw):
         raise AssertionError("a CUDA input reached the plain version")
@@ -124,7 +124,8 @@ def test_flash_kernel_rejects_what_it_cannot_take(cuda, monkeypatch):
         flash_mod.flash_wgmma(wide16, wide16, wide16)
     xb = x.to(torch.bfloat16)
     counters = (flash_mod.flash_attention, flash_mod.flash_wgmma,
-                flash_mod.flash_generic, flash_mod.flash_wide)
+                flash_mod.flash_generic, flash_mod.flash_wide,
+                flash_mod.flash_wide_wgmma)
     counts = [fn.launches for fn in counters]
     flash_mod.flash_attention(xb, xb, xb, block_q=128, block_k=128)
     flash_mod.flash_attention(x, x, x)
@@ -136,7 +137,8 @@ def test_flash_kernel_rejects_what_it_cannot_take(cuda, monkeypatch):
     assert [fn.launches for fn in counters] == [counts[0] + 1,
                                                 counts[1] + 1,
                                                 counts[2] + 1,
-                                                counts[3] + 2]
+                                                counts[3] + 1,
+                                                counts[4] + 1]
 
 
 def _within(out, q, k, v, causal):
@@ -211,6 +213,71 @@ def test_wide_kernel_against_the_generic_kernel_at_512(cuda, dtype):
                      <= 2 * limit).all())
 
 
+WIDE_COUNTERS = ("flash_attention", "flash_wgmma", "flash_generic",
+                 "flash_wide", "flash_wide_wgmma")
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [520, 640, 1000, 1024, 2048, 2304])
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
+def test_wide_wgmma_kernel_matches_plain(cuda, monkeypatch, dtype, d, causal):
+    """K2dw over 16-bit heads past 512 (multiples of its 256-column chunks
+    and D off them: a last chunk of 8, 128 or 232 columns, and 2304's nine
+    chunks), at a T its 64-row tiles divide and ones they do not, two heads:
+    within the per-element limit, through K2dw alone (its wrapper and the
+    routing), and the same bits on a second call."""
+    def refuse(*a, **kw):
+        raise AssertionError("a CUDA input reached the plain version")
+    plain = flash_mod.attention_plain
+    gen = torch.Generator(device=cuda).manual_seed(d + 3)
+    for t in (1024, 96, 200):
+        q, k, v = (torch.randn((2, t, d), generator=gen, device=cuda)
+                   .to(dtype) for _ in range(3))
+        before = {n: getattr(flash_mod, n).launches for n in WIDE_COUNTERS}
+        monkeypatch.setattr(flash_mod, "attention_plain", refuse)
+        out = flash_mod.flash_wide_wgmma(q, k, v, causal=causal)
+        routed = flash_mod.flash_attention(q, k, v, causal=causal,
+                                           block_q=t, block_k=t)
+        torch.cuda.synchronize()
+        monkeypatch.setattr(flash_mod, "attention_plain", plain)
+        assert {n: getattr(flash_mod, n).launches - before[n]
+                for n in WIDE_COUNTERS} == {
+            n: 2 * (n == "flash_wide_wgmma") for n in WIDE_COUNTERS}, t
+        assert out.dtype == dtype and out.shape == q.shape
+        assert _within(out, q, k, v, causal), t
+        assert torch.equal(out, routed), t
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
+def test_wide_wgmma_kernel_against_the_wide_kernel_at_1024(cuda, dtype):
+    """At D = 1024 K2dw and K2d (its CUDA-core kernel, called directly)
+    agree within the limit each is held to against the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    q, k, v = (torch.randn((2, 1024, 1024), generator=gen, device=cuda)
+               .to(dtype) for _ in range(3))
+    for causal in (True, False):
+        tensor = flash_mod.flash_wide_wgmma(q, k, v, causal=causal)
+        cores = flash_mod.flash_wide(q, k, v, causal=causal)
+        assert _within(tensor, q, k, v, causal)
+        assert _within(cores, q, k, v, causal)
+        _, limit = flash_mod.kernel_error_limit(q, k, v, causal=causal)
+        assert bool(((tensor.float() - cores.float()).abs()
+                     <= 2 * limit).all())
+
+
+def test_wide_wgmma_wrapper_refuses_what_it_does_not_take(cuda):
+    """On the card K2dw's wrapper refuses f32, D = 512 and D = 1001 and
+    launches nothing; nothing falls back to K2d or the plain version."""
+    before = {n: getattr(flash_mod, n).launches for n in WIDE_COUNTERS}
+    for dtype, d in ((torch.float32, 1024), (torch.bfloat16, 512),
+                     (torch.float16, 1001)):
+        x = torch.zeros((128, d), device=cuda, dtype=dtype)
+        with pytest.raises(ValueError, match="K2dw takes"):
+            flash_mod.flash_wide_wgmma(x, x, x)
+    assert {n: getattr(flash_mod, n).launches for n in WIDE_COUNTERS} == \
+        before
+
+
 @pytest.mark.parametrize("cols", [768, 1026])
 def test_wide_kernel_refuses_a_narrow_workspace(cuda, cols):
     """K2d's C entry refuses a partials workspace whose rows are narrower
@@ -225,6 +292,24 @@ def test_wide_kernel_refuses_a_narrow_workspace(cuda, cols):
         flash_mod.DTYPE_CODES[q.dtype], heads, 256, 1000, 1000 ** -0.5, 1,
         torch.cuda.current_stream().cuda_stream)
     assert err == 1   # cudaErrorInvalidValue
+
+
+@pytest.mark.parametrize("cols", [768, 1026])
+def test_wide_wgmma_kernel_refuses_a_narrow_workspace(cuda, cols):
+    """K2dw's C entry, like K2d's, refuses a partials workspace whose rows
+    are narrower than D rounded up to its 256-column chunks, or not a
+    multiple of 4 floats, with cudaErrorInvalidValue and no launch."""
+    from tpu_operator_torch import _native
+    q = torch.randn((1, 256, 1000), device=cuda).to(torch.bfloat16)
+    out, heads, work, _workspace = flash_mod._schedule(
+        q, True, flash_mod.SPLIT, 1024)
+    before = flash_mod.flash_wide_wgmma.launches
+    err = _native.library().flash_fwd_wide_wgmma(
+        q.data_ptr(), q.data_ptr(), q.data_ptr(), out.data_ptr(), *work, cols,
+        flash_mod.DTYPE_CODES[q.dtype], heads, 256, 1000, 1000 ** -0.5, 1,
+        torch.cuda.current_stream().cuda_stream)
+    assert err == 1   # cudaErrorInvalidValue
+    assert flash_mod.flash_wide_wgmma.launches == before
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -257,7 +342,8 @@ def test_wgmma_kernel_matches_plain(cuda, dtype, d, causal):
     (torch.float16, 128, 512, "K2w"), (torch.bfloat16, 256, 512, "K2w"),
     (torch.float16, 100, 512, "K2s"), (torch.bfloat16, 384, 256, "K2s"),
     (torch.float32, 128, 512, "K2s"), (torch.float32, 512, 96, "K2s"),
-    (torch.bfloat16, 640, 256, "K2d"), (torch.float16, 1000, 200, "K2d"),
+    (torch.bfloat16, 640, 256, "K2dw"), (torch.float16, 1000, 200, "K2dw"),
+    (torch.float16, 1001, 200, "K2d"), (torch.bfloat16, 1001, 96, "K2d"),
     (torch.float32, 1024, 96, "K2d")])
 def test_flash_attention_launches_the_kernel_the_routing_names(
         cuda, monkeypatch, dtype, d, t, kernel):
@@ -271,7 +357,8 @@ def test_flash_attention_launches_the_kernel_the_routing_names(
     counters = {"K2": flash_mod.flash_attention,
                 "K2w": flash_mod.flash_wgmma,
                 "K2s": flash_mod.flash_generic,
-                "K2d": flash_mod.flash_wide}
+                "K2d": flash_mod.flash_wide,
+                "K2dw": flash_mod.flash_wide_wgmma}
     before = {name: fn.launches for name, fn in counters.items()}
     out = flash_mod.flash_attention(q, k, v, causal=True, block_q=t,
                                     block_k=t)
@@ -680,33 +767,32 @@ def test_validator_on_four_ranks_runs_the_hand_rings(cuda, tmp_path):
     assert all(fn.launches > b for fn, b in zip(counters, before))
 
 
-@pytest.mark.parametrize("d,kernel", [(256, "flash_wgmma"),
-                                      (384, "flash_generic"),
-                                      (1024, "flash_wide")])
+@pytest.mark.parametrize("d,kernel,dtype", [
+    (256, "flash_wgmma", torch.bfloat16),
+    (384, "flash_generic", torch.bfloat16),
+    (1024, "flash_wide_wgmma", torch.bfloat16),
+    (1024, "flash_wide", torch.float32)])
 def test_ulysses_head_dim_256_goes_through_the_generic_kernel(cuda, d,
-                                                              kernel):
+                                                              kernel, dtype):
     """Dh = 256 goes through K2w (the tensor-core kernel that replaced the
-    generic one there), Dh = 384 through K2s, Dh = 1024 through K2d, once
-    per rank."""
+    generic one there), Dh = 384 through K2s, Dh = 1024 through K2dw in
+    bf16 and K2d in f32, once per rank."""
     from tpu_operator_torch.parallel.mesh import MeshPlan, make_mesh
     from tpu_operator_torch.parallel.ring_attention import ulysses_attention
     n, t, h = 4, 256, 8
     gen = torch.Generator(device=cuda).manual_seed(14)
     q, k, v = (torch.randn((t, h, d), generator=gen, device=cuda)
-               .to(torch.bfloat16) for _ in range(3))
+               .to(dtype) for _ in range(3))
     mesh = make_mesh(n, MeshPlan(data=1, model=n), device=cuda)
-    counters = {name: getattr(flash_mod, name) for name in
-                ("flash_attention", "flash_wgmma", "flash_generic",
-                 "flash_wide")}
+    counters = {name: getattr(flash_mod, name) for name in WIDE_COUNTERS}
     before = {name: fn.launches for name, fn in counters.items()}
     out = torch.cat(ulysses_attention(
         *(list(x.chunk(n)) for x in (q, k, v)), mesh, "model", causal=True))
     assert {name: fn.launches - before[name]
             for name, fn in counters.items()} == {
         name: n if name == kernel else 0 for name in counters}
-    ref, limit = flash_mod.kernel_error_limit(
-        *(x.permute(1, 0, 2) for x in (q, k, v)), causal=True)
-    assert bool(((out.permute(1, 0, 2).float() - ref).abs() <= limit).all())
+    assert _within(out.permute(1, 0, 2),
+                   *(x.permute(1, 0, 2) for x in (q, k, v)), True)
 
 
 def test_driver_component_passes_on_the_machine(cuda, tmp_path):

@@ -1,10 +1,12 @@
-"""Flash attention past K2s's widest head (D > 512): K2d's routing, its
-wrapper on the CPU, and its schedule in plain PyTorch.
+"""Flash attention past K2s's widest head (D > 512): the routing between
+K2dw (16-bit, D % 8 = 0) and K2d (the rest), their wrappers on the CPU,
+the workspace row they share, and the schedule both run, in plain
+PyTorch.
 
-On the card K2d cuts the output's head dim into chunks of ``WIDE_CHUNK``
-columns, one block a (unit, chunk), and every block forms the scores from
-all of D again. ``flash_chunked_plain`` runs that schedule with the
-kernel's roundings. Both it and the port's ``flash_attention`` (on the CPU,
+On the card K2d and K2dw cut the output's head dim into chunks of
+``WIDE_CHUNK`` columns, one block a (unit, chunk), and every block forms
+the scores from all of D again. ``flash_chunked_plain`` runs that schedule
+with the kernels' roundings. Both it and the port's ``flash_attention`` (on the CPU,
 its plain version) are held to the reference's Pallas kernel in interpret
 mode on the same numpy inputs, within the attention tolerance, and the
 schedule, for 16-bit inputs, to the per-element limit of the f32 oracle
@@ -62,9 +64,14 @@ def test_flash_attention_past_512_matches_the_pallas_kernel(t, d, blocks,
     assert got.dtype == q.dtype and got.shape == q.shape
     tol = attention_tolerance(q.dtype, d)
     np.testing.assert_allclose(got.float().numpy(), want, rtol=tol, atol=tol)
-    # K2d's own wrapper computes the same on the CPU
+    # K2d's own wrapper computes the same on the CPU, and K2dw's where it
+    # takes the input (16-bit, D % 8 = 0)
     torch.testing.assert_close(port.flash_wide(q, k, v, causal=causal), got,
                                rtol=0, atol=0)
+    if port.kernel_for(q.dtype, d, t) == "K2dw":
+        torch.testing.assert_close(
+            port.flash_wide_wgmma(q, k, v, causal=causal), got, rtol=0,
+            atol=0)
 
 
 # T = 200: four q tiles, the last one short; blocks the reference takes
@@ -175,7 +182,10 @@ def test_a_wrong_chunk_is_rejected_by_the_limit(dtype, causal, fault):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
                                    torch.bfloat16])
 def test_kernel_for_sends_every_head_past_512_to_k2d(dtype, d, t):
-    assert port.kernel_for(dtype, d, t) == "K2d"
+    """Past 512, 16-bit heads with D % 8 = 0 go to K2dw (the tensor-core
+    kernel); f32 and D = 513 stay on K2d."""
+    want = ("K2dw" if dtype != torch.float32 and d % 8 == 0 else "K2d")
+    assert port.kernel_for(dtype, d, t) == want
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
@@ -190,7 +200,7 @@ def test_kernel_for_keeps_512_and_below_where_they_were(dtype):
 
 def test_wide_wrapper_on_the_cpu_launches_nothing():
     counters = (port.flash_attention, port.flash_wgmma, port.flash_generic,
-                port.flash_wide)
+                port.flash_wide, port.flash_wide_wgmma)
     before = [fn.launches for fn in counters]
     rng = np.random.default_rng(5)
     q, k, v = (torch.from_numpy(rng.standard_normal((2, 64, 640),
@@ -216,3 +226,62 @@ def test_wide_wrapper_refuses_what_no_kernel_takes():
         port.flash_wide(y, y, y)
     with pytest.raises(ValueError, match="share a"):
         port.flash_wide(y, y[:32], y)
+
+
+def test_wide_wgmma_wrapper_on_the_cpu_runs_the_plain_version():
+    """K2dw's wrapper on CPU tensors is the plain version, bit for bit, and
+    launches no kernel."""
+    counters = (port.flash_attention, port.flash_wgmma, port.flash_generic,
+                port.flash_wide, port.flash_wide_wgmma)
+    before = [fn.launches for fn in counters]
+    rng = np.random.default_rng(6)
+    for dtype in (torch.float16, torch.bfloat16):
+        q, k, v = (torch.from_numpy(rng.standard_normal((2, 96, 1024),
+                                                        dtype=np.float32))
+                   .to(dtype) for _ in range(3))
+        for causal in (False, True):
+            got = port.flash_wide_wgmma(q, k, v, sm_scale=0.04, causal=causal)
+            assert got.dtype == dtype and got.shape == q.shape
+            torch.testing.assert_close(
+                got, port.attention_plain(q, k, v, 0.04, causal=causal),
+                rtol=0, atol=0)
+    assert [fn.launches for fn in counters] == before
+
+
+@pytest.mark.parametrize("dtype,d,match", [
+    (torch.float32, 1024, "takes float16 and bfloat16"),
+    (torch.bfloat16, 512, "above 512 that is a multiple of 8, got 512"),
+    (torch.float16, 1001, "above 512 that is a multiple of 8, got 1001")])
+def test_wide_wgmma_wrapper_refuses_what_it_does_not_take(dtype, d, match):
+    """f32, D = 512 and D = 1001 are refused before any device is asked:
+    K2d or K2s takes them, never K2dw."""
+    x = torch.empty((64, d), dtype=dtype, device="meta")
+    with pytest.raises(ValueError, match=match):
+        port.flash_wide_wgmma(x, x, x)
+
+
+def test_wide_columns_hold_every_chunk_block():
+    """For every D from 513 to 4096 the workspace row is D rounded up to
+    ``WIDE_CHUNK``: room for all of a unit's chunk blocks, a multiple of 4
+    (the C entries refuse anything else) and no chunk more."""
+    for d in range(513, 4097):
+        cols = port.wide_columns(d)
+        assert cols % port.WIDE_CHUNK == 0 and cols % 4 == 0, d
+        assert d <= cols < d + port.WIDE_CHUNK, d
+        assert cols // port.WIDE_CHUNK == math.ceil(d / port.WIDE_CHUNK), d
+    assert port.wide_columns(1001) == 1024 and port.wide_columns(1024) == 1024
+
+
+def test_wide_wgmma_wrapper_takes_what_the_routing_sends_it():
+    """For every D from 513 to 4096 and every dtype, K2dw's wrapper takes
+    an input (and then asks for its device) exactly where ``kernel_for``
+    names K2dw, and refuses it where ``kernel_for`` names K2d."""
+    for dtype in (torch.float32, torch.float16, torch.bfloat16):
+        for d in range(513, 4097):
+            x = torch.empty((64, d), dtype=dtype, device="meta")
+            kernel = port.kernel_for(dtype, d, 64)
+            assert kernel in ("K2dw", "K2d"), (dtype, d)
+            match = ("unsupported device" if kernel == "K2dw"
+                     else "K2dw takes")
+            with pytest.raises(ValueError, match=match):
+                port.flash_wide_wgmma(x, x, x)

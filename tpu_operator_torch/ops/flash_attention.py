@@ -22,7 +22,7 @@ second kernel merges them by the log-sum-exp rule in a fixed order (no
 atomics: the same bits on every run). :func:`flash_split_plain` is that
 schedule in plain PyTorch.
 
-Four kernels run that schedule (:func:`kernel_for` routes a CUDA input):
+Five kernels run that schedule (:func:`kernel_for` routes a CUDA input):
 
 - K2 (``csrc/flash_fwd.cu``, the instance the node validator runs): bf16,
   D = 128, T a multiple of 64; wgmma and TMA.
@@ -31,11 +31,15 @@ Four kernels run that schedule (:func:`kernel_for` routes a CUDA input):
 - K2s (:func:`flash_generic`, ``csrc/flash_fwd_generic.cu``): f32, and
   16-bit inputs K2w does not take, D ≤ :data:`MAX_HEAD_DIM`, any T; CUDA
   cores, register-tiled.
-- K2d (:func:`flash_wide`, ``csrc/flash_fwd_wide.cu``): f32, f16 and bf16
-  with D > :data:`MAX_HEAD_DIM`, any T; CUDA cores. The output's head dim
-  is cut into chunks of :data:`WIDE_CHUNK` columns, one block a (unit,
-  chunk), and each block forms the scores from all of D again;
-  :func:`flash_chunked_plain` is that schedule in plain PyTorch.
+- K2dw (:func:`flash_wide_wgmma`, ``csrc/flash_fwd_wide_wgmma.cu``): f16
+  and bf16 with D > :data:`MAX_HEAD_DIM` and D % 8 = 0, any T; wgmma and
+  TMA. The output's head dim is cut into chunks of :data:`WIDE_CHUNK`
+  columns, one block a (unit, chunk), and each block forms the scores from
+  all of D again; :func:`flash_chunked_plain` is that schedule in plain
+  PyTorch.
+- K2d (:func:`flash_wide`, ``csrc/flash_fwd_wide.cu``): the same schedule
+  on CUDA cores, for f32 (exact f32, no TF32) and 16-bit inputs with D %
+  8 ≠ 0, D > :data:`MAX_HEAD_DIM`, any T.
 
 So every head dim the reference's Pallas kernel takes has a kernel.
 :func:`flash_attention` runs the plain PyTorch version,
@@ -59,10 +63,11 @@ BLOCK = 64          # the kernels' q tile rows and the work list's kv tiles
 HEAD_DIM = 128      # K2's head dimension
 SPLIT = 8           # kv tiles per unit at most, from chip_smoke.py's sweep
 MASK_FILL = -1e30   # the causal mask's fill, as in the reference
-MAX_HEAD_DIM = 512  # the largest D K2s takes; K2d takes every D above it
+MAX_HEAD_DIM = 512  # the largest D K2s takes; K2d and K2dw take every D above it
 WGMMA_MAX_HEAD_DIM = 256  # the largest D K2w takes
-# K2d's output columns a block (``kDC`` in ``csrc/flash_fwd_wide.cu``, whose
-# C entry refuses a workspace narrower than D rounded up to it)
+# K2d's and K2dw's output columns a block (``kDC`` in
+# ``csrc/flash_fwd_wide.cu`` and ``csrc/flash_fwd_wide_wgmma.cu``, whose C
+# entries refuse a workspace narrower than D rounded up to it)
 WIDE_CHUNK = 256
 # the kernels' element types, by the code their C entry points take
 DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
@@ -81,17 +86,24 @@ def head_bucket(d: int, widest: int = MAX_HEAD_DIM) -> int:
 
 def kernel_for(dtype: torch.dtype, d: int, t: int) -> str:
     """Which kernel a CUDA input of ``dtype`` and shape [.., t, d] goes to:
-    "K2d" (D > :data:`MAX_HEAD_DIM`), "K2" (bf16, D = 128, T a multiple of
-    64), "K2w" (f16 or bf16, D ≤ 256, D % 8 = 0) or "K2s" (every other
-    input of :data:`DTYPE_CODES`)."""
+    past D = :data:`MAX_HEAD_DIM`, "K2dw" (f16 or bf16, D % 8 = 0) or "K2d"
+    (f32, and 16-bit with D % 8 ≠ 0); else "K2" (bf16, D = 128, T a
+    multiple of 64), "K2w" (f16 or bf16, D ≤ 256, D % 8 = 0) or "K2s"
+    (every other input of :data:`DTYPE_CODES`)."""
+    sixteen = dtype in (torch.float16, torch.bfloat16)
     if d > MAX_HEAD_DIM:
-        return "K2d"
+        return "K2dw" if sixteen and d % 8 == 0 else "K2d"
     if dtype == torch.bfloat16 and d == HEAD_DIM and t % BLOCK == 0:
         return "K2"
-    if (dtype in (torch.float16, torch.bfloat16)
-            and d <= WGMMA_MAX_HEAD_DIM and d % 8 == 0):
+    if sixteen and d <= WGMMA_MAX_HEAD_DIM and d % 8 == 0:
         return "K2w"
     return "K2s"
+
+
+def wide_columns(d: int) -> int:
+    """K2d's and K2dw's partial-workspace row: D rounded up to
+    :data:`WIDE_CHUNK`, the columns of all of a unit's chunk blocks."""
+    return -(-d // WIDE_CHUNK) * WIDE_CHUNK
 
 
 def attention_plain(q, k, v, sm_scale: float | None = None,
@@ -398,10 +410,10 @@ def _generic_launch(q, k, v, scale: float, causal: bool):
 
 def _cores_launch(entry: str, wrapper, q, k, v, scale: float, causal: bool,
                   dp: int, pass_cols: bool = False):
-    """Launch the CUDA-core kernel behind the C entry point ``entry`` (K2s
-    or K2d, which take the same arguments, K2d with the workspace's row
-    stride as well: ``pass_cols``) with a workspace of ``dp`` columns, and
-    count it on ``wrapper``; the output, not yet synchronised."""
+    """Launch the kernel behind the C entry point ``entry`` (K2s, K2d or
+    K2dw, which take the same arguments, K2d and K2dw with the workspace's
+    row stride as well: ``pass_cols``) with a workspace of ``dp`` columns,
+    and count it on ``wrapper``; the output, not yet synchronised."""
     out, heads, work, _workspace = _schedule(q, causal, SPLIT, dp)
     cols = (dp,) if pass_cols else ()
     lib = _native.library()
@@ -420,9 +432,10 @@ def flash_wide(q, k, v, sm_scale: float | None = None,
                causal: bool = False):
     """K2d's wrapper: softmax(q·Kᵀ·scale)·V for q, k, v of shape [T, D] or
     [H, T, D], f32, f16 or bf16, any D ≥ 1 (``flash_attention`` sends it D
-    > :data:`MAX_HEAD_DIM`), any T. Launches ``csrc/flash_fwd_wide.cu`` for
-    CUDA tensors and runs :func:`attention_plain` for CPU tensors; the
-    output has the input dtype."""
+    > :data:`MAX_HEAD_DIM` in f32, and in 16 bits where D % 8 ≠ 0), any T.
+    Launches ``csrc/flash_fwd_wide.cu`` for CUDA tensors and runs
+    :func:`attention_plain` for CPU tensors; the output has the input
+    dtype."""
     _check_shapes(q, k, v)
     d = q.shape[-1]
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
@@ -436,10 +449,41 @@ flash_wide.launches = 0
 
 def _wide_launch(q, k, v, scale: float, causal: bool):
     """Launch K2d on inputs :func:`_cuda_inputs` checked; the output, not
-    yet synchronised. The workspace's rows are D rounded up to
-    :data:`WIDE_CHUNK`, and the C entry refuses a narrower one."""
+    yet synchronised. The workspace's rows are :func:`wide_columns`, and
+    the C entry refuses a narrower one."""
     return _cores_launch("flash_fwd_wide", flash_wide, q, k, v, scale, causal,
-                         -(-q.shape[-1] // WIDE_CHUNK) * WIDE_CHUNK,
+                         wide_columns(q.shape[-1]), pass_cols=True)
+
+
+def flash_wide_wgmma(q, k, v, sm_scale: float | None = None,
+                     causal: bool = False):
+    """K2dw's wrapper: softmax(q·Kᵀ·scale)·V for q, k, v of shape [T, D] or
+    [H, T, D], f16 or bf16, D > :data:`MAX_HEAD_DIM` with D % 8 = 0, any T.
+    Launches the tensor-core kernel (``csrc/flash_fwd_wide_wgmma.cu``) for
+    CUDA tensors and runs :func:`attention_plain` for CPU tensors; the
+    output has the input dtype. Another dtype or head dim is refused on
+    any device (K2d takes it)."""
+    _check_shapes(q, k, v)
+    d = q.shape[-1]
+    if q.dtype not in (torch.float16, torch.bfloat16):
+        raise ValueError(f"K2dw takes float16 and bfloat16, got {q.dtype}")
+    if d <= MAX_HEAD_DIM or d % 8:
+        raise ValueError(f"K2dw takes a head dim above {MAX_HEAD_DIM} that "
+                         f"is a multiple of 8, got {d}")
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v, scale, causal)
+    return _wide_wgmma_launch(*_cuda_inputs(q, k, v), scale, causal)
+
+
+flash_wide_wgmma.launches = 0
+
+
+def _wide_wgmma_launch(q, k, v, scale: float, causal: bool):
+    """Launch K2dw on inputs :func:`_cuda_inputs` checked; the output, not
+    yet synchronised. Its workspace and C arguments are K2d's."""
+    return _cores_launch("flash_fwd_wide_wgmma", flash_wide_wgmma, q, k, v,
+                         scale, causal, wide_columns(q.shape[-1]),
                          pass_cols=True)
 
 
@@ -483,7 +527,8 @@ def flash_attention(q, k, v, sm_scale: float | None = None,
     by its own rows. A CUDA input goes to the kernel :func:`kernel_for`
     names: K2 (counted here), K2w (:func:`flash_wgmma`), K2s
     (:func:`flash_generic`) or, for heads wider than :data:`MAX_HEAD_DIM`,
-    K2d (:func:`flash_wide`); other dtypes raise.
+    K2dw (:func:`flash_wide_wgmma`) or K2d (:func:`flash_wide`); other
+    dtypes raise.
     """
     _check_shapes(q, k, v)
     t, d = q.shape[-2:]
@@ -501,6 +546,8 @@ def flash_attention(q, k, v, sm_scale: float | None = None,
         return _wgmma_launch(q, k, v, scale, causal)
     if kernel == "K2s":
         return _generic_launch(q, k, v, scale, causal)
+    if kernel == "K2dw":
+        return _wide_wgmma_launch(q, k, v, scale, causal)
     if kernel == "K2d":
         return _wide_launch(q, k, v, scale, causal)
     out = flash_launch(q, k, v, scale, causal)
