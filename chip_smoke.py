@@ -17,19 +17,23 @@ most kv tiles a unit of its work takes, and beside every SDPA backend
 (flash, cuDNN, memory-efficient, math) on the 4-D form of the same inputs;
 the fastest is its library time; it is also held and timed at the
 bench's shape, bf16 [16384, 128] causal. K2w (K2's kernel template at
-every other f16 or bf16 input with D ≤ 256, D % 8 = 0), K2s (the
-register-tiled CUDA-core kernel: f32, and 16-bit inputs K2w does not take,
-D ≤ 512), K2dw (the D-chunked tensor-core kernel: f16 and bf16 with D >
-512, D % 8 = 0) and K2d (the D-chunked CUDA-core kernel: the other inputs
-with D > 512) are held against the plain version over f32, f16 and bf16,
-head dims 64, 96, 128, 256, 384, 512, 520, 640, 1000, 1001, 1024 and 2048,
-causal and full, and sequence lengths that 64 does not divide, through
-their own wrappers and through ``flash_attention``'s routing (K2d also
-against K2s at D = 512, K2dw against K2d past it and against itself on a
-second call), and timed the same way (K2w also by the keys a kv step takes
-at D = 256; K2dw at bf16 [2, 4096, 1024], its shape on the main path,
-causal and full, beside K2d on the same input; K2d at f32 [2, 4096,
-1024] causal, its shape on the main path). Then it holds the ring kernels
+every other f16 or bf16 input with D ≤ 256, D % 8 = 0), K2dw (the
+D-chunked tensor-core kernel: f16 and bf16 with D > 256, D % 8 = 0), K2s
+(the register-tiled CUDA-core kernel: f32, and 16-bit inputs with D % 8
+≠ 0, D ≤ 512), K2dt (K2dw's schedule on the tensor cores in three TF32
+products: f32 with D > 512, D % 4 = 0) and K2d (the D-chunked CUDA-core
+kernel: the other inputs with D > 512) are held against the plain
+version over f32, f16 and bf16, head dims 64, 96, 128, 256, 384, 512,
+520, 640, 1000, 1001, 1024 and 2048, causal and full, and sequence
+lengths that 64 does not divide, through their own wrappers and through
+``flash_attention``'s routing (K2d also against K2s at D = 512, K2dw
+against K2d or K2s and K2dt against K2d, each against itself on a second
+call), and timed the same way (K2w also by the keys a kv step takes at D
+= 256; K2dt at f32 [2, 4096, 1024], its shape on the main path, causal
+and full, beside K2d on the same input; K2dw at bf16 [2, 4096, 1024]
+beside K2d, and at bf16 [4096, 384] beside K2s; K2dt once at f32 [4096,
+384] beside K2s, whose width it is; EFFICIENT_ATTENTION's kernels by
+name at K2dt's shape). Then it holds the ring kernels
 (K3–K6) against their plain versions and the library sums for 2, 4 and 8
 virtual ranks on the card, in
 one launch and in a launch a rank on streams of their own (the protocol of
@@ -44,14 +48,16 @@ kernels. Then ``WorkloadComponent(ranks=4)`` runs the validator's
 multi-device leg on 4 virtual ranks, whose collective suite must launch K5
 and K6 at its 64 MiB payload, and Ulysses attention runs with 8 heads over
 4 virtual ranks, causal and not, at T = 4096 with Dh = 128, where K2 must
-launch once per rank, Dh = 256, where K2w must, Dh = 384, where K2s must,
-and Dh = 1024, where K2dw must in bf16 and K2d in f32; the result is held
+launch once per rank, Dh = 256, where K2w must, Dh = 384, where K2dw must,
+and Dh = 1024, where K2dw must in bf16 and K2dt in f32; the result is held
 to the per-element limit (the attention tolerance in f32) against the
-single-device computation; in bf16 at Dh = 384 and 1024 it is also
-timed beside the same call with each rank's attention dense
-(``attention_plain``), outside the counted run. The build phase prints
-ptxas's registers and spills for every kernel (a flash kernel that spills
-fails).
+single-device computation; at Dh = 384 and 1024 (bf16) and 1024 (f32) it
+is also timed beside the same call with each rank's attention dense
+(``attention_plain``), outside the counted run. ``flash_attention`` then
+takes one input of each row of its routing table at T = 4096, each
+launching the one kernel the table names (K2s and K2d serve callers
+there). The build phase prints ptxas's registers and spills for every
+kernel (a flash kernel that spills fails).
 Last, the node health monitor's CLI runs once as its DaemonSet would, on
 the machine's ``/dev`` and NVML with the HBM sweep on K1 at 256 MiB, and
 must publish the node healthy; then each probe is called directly
@@ -247,8 +253,11 @@ def graph_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-# float32 outside the tensor cores, H100 SXM data sheet (TFLOP/s)
+# float32 outside the tensor cores, and TF32 on them, H100 SXM data sheet
+# (TFLOP/s); K2dt runs three TF32 products for each f32 product
 F32_PEAK_TFLOPS = 67.0
+TF32_PEAK_TFLOPS = 495.0
+TF32_PRODUCTS = 3
 
 
 def bound(flops: float, nbytes: float, kind: str,
@@ -306,8 +315,10 @@ def phase_build() -> None:
              if "flash" in name}
     spilled = [name for name, spill in flash.items() if spill]
     check(bool(flash) and not spilled, f"flash kernels spill: {spilled}")
-    check(any("flash_wide_wgmma_kernel" in name for name in flash),
-          "no K2dw (flash_wide_wgmma_kernel) in ptxas's report")
+    for kernel, source in (("K2dw", "flash_wide_wgmma_kernel"),
+                           ("K2dt", "flash_wide_tf32_kernel")):
+        check(any(source in name for name in flash),
+              f"no {kernel} ({source}) in ptxas's report")
     # ptxas's notes on wgmma it had to serialise (none is expected)
     for line in _native.log_path().read_text().splitlines():
         if "Performance Loss" in line or "serializ" in line:
@@ -560,36 +571,55 @@ def phase_flash(dev, kind) -> dict:
     return main
 
 
-# K2w's, K2s's, K2dw's and K2d's grid: each dtype, the head-dim buckets
-# both K2w and K2s take and one D off them (96), the buckets only K2s
-# takes, and heads past 512 (multiples of 128 and of 256, 520 and 1000 off
-# them: K2dw in 16 bits, K2d in f32; 1001, off 8, K2d in every dtype),
-# causal and full, at T = 1024 and at T that 64 does not divide (with the
-# blocks the reference would take for them), over 2 heads
+# K2w's, K2s's, K2dw's, K2dt's and K2d's grid: each dtype, the head-dim
+# buckets both K2w and K2s take and one D off them (96), 384 and 512 (K2dw
+# in 16 bits, K2s in f32), and heads past 512 (multiples of 128 and of
+# 256, 520 and 1000 off them: K2dw in 16 bits, K2dt in f32; 1001, off 8
+# and 4, K2d in every dtype), causal and full, at T = 1024 and at T that 64
+# does not divide (with the blocks the reference would take for them), over
+# 2 heads
 GRID_DTYPES = (torch.float32, torch.float16, torch.bfloat16)
 GRID_DIMS = (64, 96, 128, 256, 384, 512, 520, 640, 1000, 1001, 1024, 2048)
 GRID_T = ((1024, (None, None)), (96, (32, 96)), (200, (40, 200)))
-# the shapes timed, (dtype, T, D, heads, causal): the main path's first on
-# each kernel (Ulysses' head widths, 256 on K2w, 384 on K2s, and a rank's
-# two heads of 1024: bf16 on K2dw, f32 on K2d), then two others on K2w, f32
-# at K2's shape on K2s, and on K2dw the main path's shape at full attention
-# (Ulysses runs both) and one head of 1024; at K2dw's shapes K2d is timed
-# on the same input
-TIMED = ((torch.bfloat16, 4096, 256, None, True),
-         (torch.float16, 4096, 128, None, True),
-         (torch.bfloat16, 4096, 64, None, True),
-         (torch.bfloat16, 4096, 384, None, True),
-         (torch.float32, 4096, 128, None, True),
-         (torch.bfloat16, 4096, 1024, 2, True),
-         (torch.float32, 4096, 1024, 2, True),
-         (torch.bfloat16, 4096, 1024, 2, False),
-         (torch.bfloat16, 4096, 1024, None, True))
+# the shapes timed, (dtype, T, D, heads, causal, kernels timed beside the
+# routed one on the same input): each kernel's first is its entry in the
+# kernels line (Ulysses' head widths where the kernel is on that path: 256
+# on K2w, a rank's two heads of 1024 on K2dt in f32 and K2dw in bf16; K2s
+# at f32 [4096, 128], K2d beside K2dt at f32 [2, 4096, 1024]), then two
+# others on K2w, both attentions at the main path's shapes (Ulysses runs
+# both), one head of 1024, bf16 384 on K2dw (Ulysses' Dh = 384) beside
+# K2s, and K2dt beside K2s at f32 [4096, 384], a width the routing keeps
+# on K2s
+TIMED = ((torch.bfloat16, 4096, 256, None, True, ()),
+         (torch.float16, 4096, 128, None, True, ()),
+         (torch.bfloat16, 4096, 64, None, True, ()),
+         (torch.float32, 4096, 128, None, True, ()),
+         (torch.float32, 4096, 1024, 2, True, ("K2d",)),
+         (torch.float32, 4096, 1024, 2, False, ("K2d",)),
+         (torch.bfloat16, 4096, 1024, 2, True, ("K2d",)),
+         (torch.bfloat16, 4096, 1024, 2, False, ("K2d",)),
+         (torch.bfloat16, 4096, 1024, None, True, ("K2d",)),
+         (torch.bfloat16, 4096, 384, None, True, ("K2s",)),
+         (torch.bfloat16, 4096, 384, None, False, ("K2s",)),
+         (torch.float32, 4096, 384, None, True, ("K2dt",)))
 # K2w's keys a kv step at DP = 256
 SWEEP_BLOCK_K = (32, 64)
 # the wrapper that counts each kernel's launches
 WRAPPERS = {"K2": "flash_attention", "K2w": "flash_wgmma",
             "K2s": "flash_generic", "K2d": "flash_wide",
-            "K2dw": "flash_wide_wgmma"}
+            "K2dw": "flash_wide_wgmma", "K2dt": "flash_wide_tf32"}
+
+
+def direct(name: str):
+    """Kernel ``name`` called directly on (q, k, v, causal): its wrapper,
+    or for K2dt its launch, so that it can be timed at a width its wrapper
+    refuses (the routing keeps D ≤ 512 on K2s)."""
+    from tpu_operator_torch.ops import flash_attention as flash
+    if name == "K2dt":
+        return lambda q, k, v, causal: flash._wide_tf32_launch(
+            *flash._cuda_inputs(q, k, v), q.shape[-1] ** -0.5, causal)
+    wrapper = getattr(flash, WRAPPERS[name])
+    return lambda q, k, v, causal: wrapper(q, k, v, causal=causal)
 
 
 def flash_within(out, q, k, v, causal) -> tuple[float, str]:
@@ -607,73 +637,99 @@ def flash_within(out, q, k, v, causal) -> tuple[float, str]:
     return limit_ratio(out, ref32, limit), "of the per-element limit"
 
 
-def time_flash(label, run, q, k, v, kind, causal=True) -> dict:
-    """One timed shape: the kernel in a CUDA graph beside the plain
-    version, every SDPA backend and the bound."""
+def flash_refs(q, k, v, causal, label) -> dict:
+    """What every kernel timed on one input is held and timed against: the
+    f32 plain output, the plain version's ms (CUDA events over 5 calls) and
+    each SDPA backend that takes the input (``sdpa_times``)."""
     from tpu_operator_torch.ops import flash_attention as flash
-    t, d = q.shape[-2:]
-    heads = q.shape[0] if q.dim() == 3 else 1
     ref32 = flash.attention_plain(q.float(), k.float(), v.float(),
                                   causal=causal)
-    out = run()
-    ratio, of = flash_within(out, q, k, v, causal)
-    check(ratio <= 1.0, f"{label} timed shape: error {ratio:.3f} {of}")
-    err = (out.float() - ref32).abs().max().item()
-    ms = graph_ms(run, iters=20)
     plain_ms = cuda_ms(
         lambda: flash.attention_plain(q, k, v, causal=causal), iters=5)
     sdpa = sdpa_times(q, k, v, causal, ref32, tag=label)
     ran = {name: ms_ for name, ms_ in sdpa.items() if ms_ is not None}
     check(bool(ran), f"no SDPA backend took {label}'s inputs")
+    return {"ref32": ref32, "plain_ms": plain_ms, "sdpa": ran}
+
+
+def time_flash(label, run, q, k, v, kind, causal=True, refs=None) -> dict:
+    """One timed shape: the kernel in a CUDA graph beside the plain
+    version, every SDPA backend (``refs``, made here if not given) and the
+    bound. K2dt's bound counts its three TF32 products at the TF32 peak,
+    with the f32 CUDA-core bound beside it."""
+    t, d = q.shape[-2:]
+    heads = q.shape[0] if q.dim() == 3 else 1
+    refs = refs or flash_refs(q, k, v, causal, label)
+    out = run()
+    ratio, of = flash_within(out, q, k, v, causal)
+    check(ratio <= 1.0, f"{label} timed shape: error {ratio:.3f} {of}")
+    err = (out.float() - refs["ref32"]).abs().max().item()
+    ms = graph_ms(run, iters=20)
+    ran = refs["sdpa"]
     backend = min(ran, key=ran.get)
     flops = 4.0 * d * (t * (t + 1) / 2 if causal else t * t) * heads
     nbytes = 4 * heads * t * d * q.element_size()
-    bound_ms, bound_by = bound(
-        flops, nbytes, kind,
-        F32_PEAK_TFLOPS if q.dtype == torch.float32 else None)
+    extra = {}
+    if label == "K2dt":
+        bound_ms, bound_by = bound(TF32_PRODUCTS * flops, nbytes, kind,
+                                   TF32_PEAK_TFLOPS)
+        extra["bound_cuda_cores_ms"] = bound(flops, nbytes, kind,
+                                             F32_PEAK_TFLOPS)[0]
+    else:
+        bound_ms, bound_by = bound(
+            flops, nbytes, kind,
+            F32_PEAK_TFLOPS if q.dtype == torch.float32 else None)
     shape = (f"{str(q.dtype).removeprefix('torch.')} "
              f"[{', '.join(str(n) for n in q.shape)}] "
              f"{'causal' if causal else 'full'}")
     print(f"[{label}] {shape}: kernel {ms:.4f} ms in a graph "
-          f"({flops / ms / 1e9:.1f} TFLOP/s); plain {plain_ms:.4f} ms; "
-          f"fastest sdpa {backend} {ran[backend]:.4f} ms; bound "
-          f"{bound_ms:.4f} ms ({bound_by}); error {ratio:.3f} {of}; max abs "
-          f"err {err:.3e}")
-    return {"shape": shape, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
+          f"({flops / ms / 1e9:.1f} TFLOP/s); plain {refs['plain_ms']:.4f} "
+          f"ms; fastest sdpa {backend} {ran[backend]:.4f} ms; bound "
+          f"{bound_ms:.4f} ms ({bound_by})"
+          + (f", {extra['bound_cuda_cores_ms']:.4f} ms on f32 CUDA cores"
+             if extra else "")
+          + f"; error {ratio:.3f} {of}; max abs err {err:.3e}")
+    return {"shape": shape, "ms": ms, "plain_ms": refs["plain_ms"],
+            "bound_ms": bound_ms, "bound_by": bound_by, **extra,
             "library_ms": ran[backend], "library_backend": backend,
             "max_abs_err": err, "error_share": ratio}
 
 
-def wide_beside(q, k, v, causal, k2dw_ms) -> dict:
-    """At one of K2dw's timed shapes: K2d (``flash_wide``, the CUDA-core
-    kernel) on the same input, held to the same limit and timed in a CUDA
-    graph beside K2dw's ``k2dw_ms``."""
-    from tpu_operator_torch.ops import flash_attention as flash
-    ratio, of = flash_within(flash.flash_wide(q, k, v, causal=causal), q, k,
-                             v, causal)
-    check(ratio <= 1.0, f"K2d beside K2dw: error {ratio:.3f} {of}")
-    k2d_ms = graph_ms(lambda: flash.flash_wide(q, k, v, causal=causal),
-                      iters=5)
-    print(f"[K2dw] beside it on the same input: K2d {k2d_ms:.4f} ms in a "
-          f"graph ({k2d_ms / k2dw_ms:.2f}x K2dw's time; error {ratio:.3f} "
-          f"{of})")
-    return {"k2d_same_input_ms": k2d_ms, "k2d_error_share": ratio}
+def sdpa_kernel_names(q, k, v, causal, backend: str) -> list[str]:
+    """The device kernels one SDPA call on ``backend`` runs, by name with
+    their device µs, from ``torch.profiler`` (what arithmetic the library
+    takes for f32, which its name tells)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from torch.profiler import ProfilerActivity, profile
+    q4, k4, v4 = (x.reshape(1, -1, *x.shape[-2:]) for x in (q, k, v))
+    with sdpa_kernel(getattr(SDPBackend, backend)):
+        F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal)
+            torch.cuda.synchronize()
+    return [f"{e.key[:160]} ({e.device_time_total:.1f} us)"
+            for e in prof.key_averages()
+            if e.device_time_total > 0 and not e.key.startswith("aten::")]
 
 
 def phase_flash_generic(dev, kind) -> list[dict]:
     """K2w (``csrc/flash_fwd.cu``'s template at any 16-bit input with D ≤
     256, D % 8 = 0), K2s (``csrc/flash_fwd_generic.cu``), K2dw
-    (``csrc/flash_fwd_wide_wgmma.cu``, 16-bit D > 512, D % 8 = 0) and K2d
+    (``csrc/flash_fwd_wide_wgmma.cu``, 16-bit D > 256, D % 8 = 0), K2dt
+    (``csrc/flash_fwd_wide_tf32.cu``, f32 D > 512, D % 4 = 0) and K2d
     (``csrc/flash_fwd_wide.cu``, the other inputs past 512) against the
     plain version over the grid, through their own wrappers and through
     ``flash_attention``'s routing, with no CUDA call reaching the plain
-    version; K2d against K2s at D = 512 and K2dw against K2d past it, K2dw
-    bit-equal on a second call; the head dim K2s refuses and K2d (f32) and
-    K2dw (bf16) take; their times beside every SDPA backend at ``TIMED``
-    (at K2dw's shapes also K2d's on the same input), and K2w's sweep of
-    kv-step keys at DP = 256."""
+    version; K2d against K2s at D = 512, K2dw against K2d (K2s below 512)
+    and K2dt against K2d, K2dw and K2dt bit-equal on a second call; the
+    head dim K2s refuses and K2dt (f32), K2d (f32, D % 4 ≠ 0) and K2dw
+    (bf16) take; their times beside every SDPA backend at ``TIMED``, with
+    the kernels it names beside the routed one on the same input, and K2w's
+    sweep of kv-step keys at DP = 256."""
     from tpu_operator_torch.ops import flash_attention as flash
+    from tpu_operator_torch.parallel.numerics import attention_tolerance
     plain = flash.attention_plain
     plain_calls = []
 
@@ -682,9 +738,10 @@ def phase_flash_generic(dev, kind) -> list[dict]:
         return plain(*a, **kw)
     counters = {name: getattr(flash, fn) for name, fn in WRAPPERS.items()}
     gen = torch.Generator(device=dev).manual_seed(13)
-    worst = {"K2w": 0.0, "K2s": 0.0, "K2d": 0.0, "K2dw": 0.0}
+    worst = {"K2w": 0.0, "K2s": 0.0, "K2d": 0.0, "K2dw": 0.0, "K2dt": 0.0}
     vs_k2s = 0.0   # K2d against K2s at D = 512: max abs difference
-    vs_k2d = 0.0   # K2dw against K2d: |difference| over the limit, at most
+    vs_k2d = 0.0   # K2dw against K2d (K2s below 512): share of the limit
+    vs_k2d_f32 = 0.0   # K2dt against K2d: share of the f32 tolerance
     n_cases = 0
     for dtype in GRID_DTYPES:
         for d in GRID_DIMS:
@@ -701,8 +758,8 @@ def phase_flash_generic(dev, kind) -> list[dict]:
                         own.append(("K2w", flash.flash_wgmma))
                     if d >= flash.MAX_HEAD_DIM:
                         own.append(("K2d", flash.flash_wide))
-                    if route == "K2dw":
-                        own.append(("K2dw", flash.flash_wide_wgmma))
+                    if route in ("K2dw", "K2dt"):
+                        own.append((route, getattr(flash, WRAPPERS[route])))
                     before = {n: fn.launches for n, fn in counters.items()}
                     flash.attention_plain = counted_plain
                     try:
@@ -738,26 +795,37 @@ def phase_flash_generic(dev, kind) -> list[dict]:
                                 - by["K2s"].float()).abs().max().item()
                         vs_k2s = max(vs_k2s, diff)
                         against = f"; |K2d - K2s| at most {diff:.3e}"
+                    if route in ("K2dw", "K2dt"):
+                        check(torch.equal(by[route], routed),
+                              f"{route} {label}: two calls differ")
                     if route == "K2dw":
-                        check(torch.equal(by["K2dw"], routed),
-                              f"K2dw {label}: two calls differ")
+                        other = "K2d" if "K2d" in by else "K2s"
                         _, limit = flash.kernel_error_limit(q, k, v,
                                                             causal=causal)
-                        share = limit_ratio(by["K2dw"], by["K2d"].float(),
+                        share = limit_ratio(by["K2dw"], by[other].float(),
                                             limit)
                         check(share <= 2.0, f"K2dw {label}: {share:.3f} of "
-                                            "the limit from K2d")
+                                            f"the limit from {other}")
                         vs_k2d = max(vs_k2d, share)
-                        against = (f"; the same bits twice; |K2dw - K2d| "
-                                   f"{share:.3f} of the limit")
+                        against = (f"; the same bits twice; |K2dw - {other}|"
+                                   f" {share:.3f} of the limit")
+                    if route == "K2dt":
+                        share = ((by["K2dt"] - by["K2d"]).abs().max().item()
+                                 / attention_tolerance(dtype, d, "cuda"))
+                        check(share <= 1.0, f"K2dt {label}: {share:.3f} of "
+                                            "the tolerance from K2d")
+                        vs_k2d_f32 = max(vs_k2d_f32, share)
+                        against = (f"; the same bits twice; |K2dt - K2d| "
+                                   f"{share:.3f} of the tolerance")
                     n_cases += 1
-                    print(f"[K2w/K2s/K2d/K2dw] {label} blocks "
+                    print(f"[K2w/K2s/K2d/K2dw/K2dt] {label} blocks "
                           f"{bq or 'default'}: "
                           f"routed to {route}; error "
                           + ", ".join(shares) + f" {of}{against}")
     check(not plain_calls, f"{len(plain_calls)} CUDA calls reached the "
                            "plain version")
-    # K2s's own wrapper refuses D = 640; flash_attention takes it on K2d
+    # K2s's own wrapper refuses D = 640; flash_attention takes it on K2dt
+    # (f32), K2dw (bf16), and D = 642 (f32, off 4) on K2d
     wide = torch.randn((64, 640), generator=gen, device=dev)
     try:
         flash.flash_generic(wide, wide, wide)
@@ -766,40 +834,60 @@ def phase_flash_generic(dev, kind) -> list[dict]:
     else:
         raise SmokeFailure("flash_generic took D=640")
     shares = []
-    for x, name in ((wide, "K2d"), (wide.to(torch.bfloat16), "K2dw")):
+    off4 = torch.randn((64, 642), generator=gen, device=dev)
+    for x, name in ((wide, "K2dt"), (wide.to(torch.bfloat16), "K2dw"),
+                    (off4, "K2d")):
         before = {n: fn.launches for n, fn in counters.items()}
         out = flash.flash_attention(x, x, x, causal=True)
         got = {n: fn.launches - before[n] for n, fn in counters.items()}
         check(got == {n: int(n == name) for n in counters},
-              f"flash_attention at {x.dtype} D=640 launched {got}, "
-              f"expected {name} once")
+              f"flash_attention at {x.dtype} D={x.shape[-1]} launched "
+              f"{got}, expected {name} once")
         ratio, of = flash_within(out, x, x, x, True)
-        check(ratio <= 1.0, f"flash_attention at {x.dtype} D=640: error "
-                            f"{ratio:.3f} {of}")
+        check(ratio <= 1.0, f"flash_attention at {x.dtype} D={x.shape[-1]}:"
+                            f" error {ratio:.3f} {of}")
         shares.append(f"{name} {ratio:.3f} {of}")
-    print(f"[K2w/K2s/K2d/K2dw] {n_cases} cases: within their limits (worst "
-          f"share K2w {worst['K2w']:.3f}, K2s {worst['K2s']:.3f}, K2d "
-          f"{worst['K2d']:.3f}, K2dw {worst['K2dw']:.3f}); K2d against K2s "
-          f"at D=512: max abs difference {vs_k2s:.3e}; K2dw against K2d: at "
-          f"most {vs_k2d:.3f} of the limit, the same bits on a second call; "
-          f"no CUDA call reached the plain version; K2s refuses D=640, "
-          f"flash_attention takes it on K2d in f32 and K2dw in bf16 "
-          f"(error " + ", ".join(shares) + ")")
+    print(f"[K2w/K2s/K2d/K2dw/K2dt] {n_cases} cases: within their limits "
+          f"(worst share K2w {worst['K2w']:.3f}, K2s {worst['K2s']:.3f}, "
+          f"K2d {worst['K2d']:.3f}, K2dw {worst['K2dw']:.3f}, K2dt "
+          f"{worst['K2dt']:.3f}); K2d against K2s at D=512: max abs "
+          f"difference {vs_k2s:.3e}; K2dw against K2d (K2s below 512): at "
+          f"most {vs_k2d:.3f} of the limit; K2dt against K2d: at most "
+          f"{vs_k2d_f32:.3f} of the tolerance; K2dw and K2dt the same bits "
+          f"on a second call; no CUDA call reached the plain version; K2s "
+          f"refuses D=640, flash_attention takes it on K2dt in f32 and K2dw "
+          f"in bf16, and D=642 in f32 on K2d (error " + ", ".join(shares)
+          + ")")
 
-    timed = {"K2w": [], "K2s": [], "K2d": [], "K2dw": []}
+    timed = {"K2w": [], "K2s": [], "K2d": [], "K2dw": [], "K2dt": []}
     sweep = {}
-    for dtype, t, d, heads, causal in TIMED:
+    for dtype, t, d, heads, causal, beside in TIMED:
         shape = (t, d) if heads is None else (heads, t, d)
         q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
                    for _ in range(3))
         route = flash.kernel_for(dtype, d, t)
-        run = getattr(flash, WRAPPERS[route])
-        timed[route].append(time_flash(
-            route, lambda: run(q, k, v, causal=causal), q, k, v, kind,
-            causal))
-        if route == "K2dw":
-            timed[route][-1].update(
-                wide_beside(q, k, v, causal, timed[route][-1]["ms"]))
+        refs = flash_refs(q, k, v, causal, route)
+        run = direct(route)
+        entry = time_flash(route, lambda: run(q, k, v, causal), q, k, v,
+                           kind, causal, refs)
+        timed[route].append(entry)
+        for name in beside:
+            other = direct(name)
+            got = time_flash(name, lambda: other(q, k, v, causal), q, k, v,
+                             kind, causal, refs)
+            got["beside"] = route
+            timed[name].append(got)
+            entry.setdefault("beside_ms", {})[name] = got["ms"]
+            print(f"[{route}] beside it on the same input: {name} "
+                  f"{got['ms']:.4f} ms in a graph "
+                  f"({got['ms'] / entry['ms']:.2f}x {route}'s time)")
+        if route == "K2dt" and causal:
+            names = sdpa_kernel_names(q, k, v, causal, "EFFICIENT_ATTENTION")
+            print("[K2dt] torch.backends.cuda.matmul.allow_tf32 "
+                  f"{torch.backends.cuda.matmul.allow_tf32}; "
+                  "EFFICIENT_ATTENTION's kernels on this input: "
+                  + ("; ".join(names) or "none seen by the profiler"))
+        del refs
         if route == "K2w" and d == 256:
             for block_k in SWEEP_BLOCK_K:
                 def launch():
@@ -813,7 +901,8 @@ def phase_flash_generic(dev, kind) -> list[dict]:
                       f"{block_k} keys a step: {sweep[block_k]:.4f} ms "
                       f"(error {ratio:.3f} {of})")
         del q, k, v
-    kw, ks, kd, kdw = (timed[n] for n in ("K2w", "K2s", "K2d", "K2dw"))
+    kw, ks, kd, kdw, kdt = (timed[n]
+                            for n in ("K2w", "K2s", "K2d", "K2dw", "K2dt"))
     return [{"name": "flash_fwd_wgmma", "route": "cuda",
              "source": "tpu_operator_torch/csrc/flash_fwd.cu",
              "replaces": "tpu_operator/ops/flash_attention.py:48",
@@ -835,7 +924,13 @@ def phase_flash_generic(dev, kind) -> list[dict]:
              "replaces": "tpu_operator/ops/flash_attention.py:48",
              **kdw[0], "other_shapes": kdw[1:],
              "grid_worst_share": worst["K2dw"],
-             "vs_k2d_limit_share": vs_k2d}]
+             "vs_k2d_limit_share": vs_k2d},
+            {"name": "flash_fwd_wide_tf32", "route": "cuda",
+             "source": "tpu_operator_torch/csrc/flash_fwd_wide_tf32.cu",
+             "replaces": "tpu_operator/ops/flash_attention.py:48",
+             **kdt[0], "other_shapes": kdt[1:],
+             "grid_worst_share": worst["K2dt"],
+             "vs_k2d_tolerance_share": vs_k2d_f32}]
 
 
 # (name, wrapper, plain version, TPU kernel it replaces, rows per rank
@@ -1432,20 +1527,20 @@ def phase_ranks_across_cards() -> None:
     ACROSS_CARDS.update(ring_across_cards(kind))
 
 
-# (Dh, T, kernel, dtype): K2's head width, K2w's widest bucket, a width only
-# K2s takes and one past 512 (K2dw in bf16, K2d in f32), each at the full
+# (Dh, T, kernel, dtype): K2's head width, K2w's widest bucket, a width past
+# it (K2dw) and one past 512 (K2dw in bf16, K2dt in f32), each at the full
 # sequence
 ULYSSES_SHAPES = ((128, 4096, "K2", torch.bfloat16),
                   (256, 4096, "K2w", torch.bfloat16),
-                  (384, 4096, "K2s", torch.bfloat16),
+                  (384, 4096, "K2dw", torch.bfloat16),
                   (1024, 4096, "K2dw", torch.bfloat16),
-                  (1024, 4096, "K2d", torch.float32))
+                  (1024, 4096, "K2dt", torch.float32))
 
 
 def phase_ulysses() -> None:
     """Ulysses attention on 4 virtual ranks, 8 heads, causal and not: each
-    rank's [2, T, Dh] goes through K2 at Dh = 128, K2w at 256, K2s at 384
-    (bf16) and at 1024 through K2dw in bf16 and K2d in f32, once per rank;
+    rank's [2, T, Dh] goes through K2 at Dh = 128, K2w at 256, K2dw at 384
+    (bf16) and at 1024 through K2dw in bf16 and K2dt in f32, once per rank;
     the result is held to the per-element limit (bf16) or the attention
     tolerance (f32) against the single-device computation."""
     from tpu_operator_torch.ops import flash_attention as flash
@@ -1500,13 +1595,20 @@ def phase_ulysses() -> None:
         del q, k, v
 
 
+# (Dh, kernel, dtype) of the Ulysses calls timed beside dense attention
+ULYSSES_TIMED = ((384, "K2dw", torch.bfloat16),
+                 (1024, "K2dw", torch.bfloat16),
+                 (1024, "K2dt", torch.float32))
+
+
 def phase_ulysses_dense() -> dict:
-    """Ulysses in bf16 at Dh = 384 (K2s's width on the main path) and 1024
-    (K2dw's) beside the same call with each rank's attention dense
-    (``attention_plain``, the port's path at those widths before the wide
-    kernels took them): mean ms a call by CUDA events over 5 back-to-back
-    calls after one warm-up, host time included. Returns {kernel: {"causal"
-    | "full": {kernel: ms, "dense": ms}}}."""
+    """Ulysses at ``ULYSSES_TIMED``'s widths (bf16 at Dh = 384 and 1024 on
+    K2dw, f32 at 1024 on K2dt) beside the same call with each rank's
+    attention dense (``attention_plain``, the port's path at those widths
+    before the wide kernels took them): mean ms a call by CUDA events over
+    5 back-to-back calls after one warm-up, host time included. Returns
+    {kernel: {"Dh=<d> <dtype>": {"causal" | "full": {kernel: ms, "dense":
+    ms}}}}."""
     from tpu_operator_torch.ops import flash_attention as flash
     from tpu_operator_torch.parallel.mesh import MeshPlan, make_mesh
     from tpu_operator_torch.parallel.ring_attention import ulysses_attention
@@ -1519,9 +1621,10 @@ def phase_ulysses_dense() -> dict:
     def dense(q, k, v, causal=False):
         return flash.attention_plain(q, k, v, causal=causal)
     report = {}
-    for d, kernel in ((384, "K2s"), (1024, "K2dw")):
+    for d, kernel, dtype in ULYSSES_TIMED:
+        type_name = str(dtype).removeprefix("torch.")
         shards = [list(torch.randn((t, h, d), generator=gen, device=dev)
-                       .to(torch.bfloat16).chunk(n)) for _ in range(3)]
+                       .to(dtype).chunk(n)) for _ in range(3)]
         for causal in (True, False):
             times = {}
             for name, fn in ((kernel, routed), ("dense", dense)):
@@ -1531,13 +1634,58 @@ def phase_ulysses_dense() -> dict:
                         *shards, mesh, "model", causal=causal), iters=5)
                 finally:
                     flash.flash_attention = routed
-            report.setdefault(kernel, {})[
+            key = f"Dh={d} {type_name}"
+            report.setdefault(kernel, {}).setdefault(key, {})[
                 "causal" if causal else "full"] = times
-            print(f"[ulysses] n={n} T={t} H={h} Dh={d} bf16 causal={causal}: "
-                  f"on {kernel} {times[kernel]:.3f} ms a call, dense "
-                  f"(attention_plain a rank) {times['dense']:.3f} ms a call")
+            print(f"[ulysses] n={n} T={t} H={h} Dh={d} {type_name} causal="
+                  f"{causal}: on {kernel} {times[kernel]:.3f} ms a call, "
+                  f"dense (attention_plain a rank) {times['dense']:.3f} ms a "
+                  "call")
         del shards
     return report
+
+
+# one input a row of kernel_for's table, at T = 4096: (dtype, heads, D,
+# kernel); the widths are Ulysses' where the kernel is on that path
+ROUTE_SHAPES = ((torch.bfloat16, 1, 128, "K2"),
+                (torch.bfloat16, 2, 256, "K2w"),
+                (torch.bfloat16, 2, 384, "K2dw"),
+                (torch.float32, 2, 128, "K2s"),
+                (torch.bfloat16, 2, 100, "K2s"),
+                (torch.float32, 2, 1024, "K2dt"),
+                (torch.float32, 2, 1022, "K2d"),
+                (torch.bfloat16, 2, 1020, "K2d"))
+
+
+def phase_flash_routes() -> None:
+    """``flash_attention``, the port's single-card attention, causal at T =
+    4096 on one input of each row of ``kernel_for``'s table: each call must
+    launch the kernel the table names, once, and no other, and its output
+    lie within its limit against the plain version (the path by which K2s
+    and K2d, which no Ulysses width reaches, serve a caller)."""
+    from tpu_operator_torch.ops import flash_attention as flash
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(19)
+    counters = {name: getattr(flash, fn) for name, fn in WRAPPERS.items()}
+    for dtype, heads, d, kernel in ROUTE_SHAPES:
+        q, k, v = (torch.randn((heads, 4096, d), generator=gen, device=dev)
+                   .to(dtype) for _ in range(3))
+        check(flash.kernel_for(dtype, d, 4096) == kernel,
+              f"kernel_for({dtype}, {d}) is not {kernel}")
+        before = {name: fn.launches for name, fn in counters.items()}
+        out = flash.flash_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        launched = {name: fn.launches - before[name]
+                    for name, fn in counters.items()}
+        check(launched == {name: int(name == kernel) for name in counters},
+              f"flash_attention at {dtype} D={d}: launched {launched}, "
+              f"expected {kernel} once")
+        ratio, of = flash_within(out, q, k, v, True)
+        check(math.isfinite(ratio) and ratio <= 1.0,
+              f"flash_attention at {dtype} D={d}: error {ratio:.3f} {of}")
+        print(f"[routes] {str(dtype).removeprefix('torch.')} [{heads}, 4096,"
+              f" {d}] causal: {kernel} launched once; error {ratio:.3f} {of}")
+        del q, k, v, out
 
 
 HEALTH_NODE = "gpu-node-0"
@@ -3343,7 +3491,7 @@ def phase_relay_drive() -> None:
 
 def phase_relay_serve() -> None:
     """The rendered command serving on a free port (``--port 0``, as the
-    tenth path's ``operator.metricsPort=0``): ``/metrics`` must hold the
+    eleventh path's ``operator.metricsPort=0``): ``/metrics`` must hold the
     ``gpu_operator_relay_*`` families, ``/debug/utilization`` the ledger
     on the ``h100`` kind and ``/debug/slow`` the flight recorder; SIGINT
     must exit 0."""
@@ -4167,9 +4315,17 @@ def main() -> int:
         ("Ulysses", (phase_ulysses,),
          {"flash_fwd": flash_mod.flash_attention,
           "flash_fwd_wgmma": flash_mod.flash_wgmma,
+          "flash_fwd_wide_wgmma": flash_mod.flash_wide_wgmma,
+          "flash_fwd_wide_tf32": flash_mod.flash_wide_tf32}),
+        # flash_attention on each row of the routing table: K2s and K2d
+        # serve callers there, at widths no Ulysses call reaches
+        ("flash by route", (phase_flash_routes,),
+         {"flash_fwd": flash_mod.flash_attention,
+          "flash_fwd_wgmma": flash_mod.flash_wgmma,
           "flash_fwd_generic": flash_mod.flash_generic,
           "flash_fwd_wide": flash_mod.flash_wide,
-          "flash_fwd_wide_wgmma": flash_mod.flash_wide_wgmma}),
+          "flash_fwd_wide_wgmma": flash_mod.flash_wide_wgmma,
+          "flash_fwd_wide_tf32": flash_mod.flash_wide_tf32}),
         ("health monitor", (phase_health_monitor, phase_health_probes),
          {"hbm_read": hbm_mod.read_sum}),
         # the node agents launch no TPU kernel's port: gpu-smoke's PTX add
@@ -4245,8 +4401,8 @@ def main() -> int:
               f"{entry_['name']} never launched on the main path")
     ulysses = phase_ulysses_dense()
     for entry_ in kernels:
-        kernel = {"flash_fwd_generic": "K2s",
-                  "flash_fwd_wide_wgmma": "K2dw"}.get(entry_["name"])
+        kernel = {"flash_fwd_wide_wgmma": "K2dw",
+                  "flash_fwd_wide_tf32": "K2dt"}.get(entry_["name"])
         if kernel:
             entry_["ulysses_vs_dense_ms"] = ulysses[kernel]
 

@@ -105,8 +105,8 @@ def test_flash_kernel_gives_the_same_bits_twice(cuda):
 
 def test_flash_kernel_rejects_what_it_cannot_take(cuda, monkeypatch):
     """Only a dtype outside f32, f16 and bf16 is refused; every other CUDA
-    input goes to K2, K2w, K2s or (a head dim above 512) K2dw or K2d, never
-    to the plain version. K2s's and K2w's own wrappers refuse heads wider
+    input goes to K2, K2w, K2dw, K2s or (f32 heads above 512) K2dt or K2d,
+    never to the plain version. K2s's and K2w's own wrappers refuse heads wider
     than theirs. bf16 with D = 128 and T a multiple of 64 keeps K2, whatever
     blocks were asked for."""
     def refuse(*a, **kw):
@@ -125,20 +125,18 @@ def test_flash_kernel_rejects_what_it_cannot_take(cuda, monkeypatch):
     xb = x.to(torch.bfloat16)
     counters = (flash_mod.flash_attention, flash_mod.flash_wgmma,
                 flash_mod.flash_generic, flash_mod.flash_wide,
-                flash_mod.flash_wide_wgmma)
+                flash_mod.flash_wide_wgmma, flash_mod.flash_wide_tf32)
     counts = [fn.launches for fn in counters]
     flash_mod.flash_attention(xb, xb, xb, block_q=128, block_k=128)
     flash_mod.flash_attention(x, x, x)
     odd = torch.zeros((256, 96), device=cuda, dtype=torch.bfloat16)
     flash_mod.flash_attention(odd, odd, odd)
-    flash_mod.flash_attention(wide, wide, wide)
+    off4 = torch.zeros((256, 642), device=cuda)
+    flash_mod.flash_attention(off4, off4, off4)
     flash_mod.flash_attention(wide16, wide16, wide16)
+    flash_mod.flash_attention(wide, wide, wide)
     torch.cuda.synchronize()
-    assert [fn.launches for fn in counters] == [counts[0] + 1,
-                                                counts[1] + 1,
-                                                counts[2] + 1,
-                                                counts[3] + 1,
-                                                counts[4] + 1]
+    assert [fn.launches for fn in counters] == [n + 1 for n in counts]
 
 
 def _within(out, q, k, v, causal):
@@ -214,14 +212,15 @@ def test_wide_kernel_against_the_generic_kernel_at_512(cuda, dtype):
 
 
 WIDE_COUNTERS = ("flash_attention", "flash_wgmma", "flash_generic",
-                 "flash_wide", "flash_wide_wgmma")
+                 "flash_wide", "flash_wide_wgmma", "flash_wide_tf32")
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("d", [520, 640, 1000, 1024, 2048, 2304])
+@pytest.mark.parametrize("d", [264, 384, 512, 520, 640, 1000, 1024, 2048,
+                               2304])
 @pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
 def test_wide_wgmma_kernel_matches_plain(cuda, monkeypatch, dtype, d, causal):
-    """K2dw over 16-bit heads past 512 (multiples of its 256-column chunks
+    """K2dw over 16-bit heads past 256 (multiples of its 256-column chunks
     and D off them: a last chunk of 8, 128 or 232 columns, and 2304's nine
     chunks), at a T its 64-row tiles divide and ones they do not, two heads:
     within the per-element limit, through K2dw alone (its wrapper and the
@@ -266,16 +265,113 @@ def test_wide_wgmma_kernel_against_the_wide_kernel_at_1024(cuda, dtype):
 
 
 def test_wide_wgmma_wrapper_refuses_what_it_does_not_take(cuda):
-    """On the card K2dw's wrapper refuses f32, D = 512 and D = 1001 and
+    """On the card K2dw's wrapper refuses f32, D = 256 and D = 1001 and
     launches nothing; nothing falls back to K2d or the plain version."""
     before = {n: getattr(flash_mod, n).launches for n in WIDE_COUNTERS}
-    for dtype, d in ((torch.float32, 1024), (torch.bfloat16, 512),
+    for dtype, d in ((torch.float32, 1024), (torch.bfloat16, 256),
                      (torch.float16, 1001)):
         x = torch.zeros((128, d), device=cuda, dtype=dtype)
         with pytest.raises(ValueError, match="K2dw takes"):
             flash_mod.flash_wide_wgmma(x, x, x)
     assert {n: getattr(flash_mod, n).launches for n in WIDE_COUNTERS} == \
         before
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [516, 520, 640, 1000, 1024, 2048])
+def test_wide_tf32_kernel_matches_plain(cuda, monkeypatch, d, causal):
+    """K2dt over f32 heads past 512 (multiples of its 256-column chunks and
+    D off them, D % 4 = 0: a last chunk of 4, 8, 128 or 232 columns), at a
+    T its 64-row tiles divide and ones they do not, two heads: within the
+    f32 attention tolerance, through K2dt alone (its wrapper and the
+    routing), and the same bits on a second call."""
+    def refuse(*a, **kw):
+        raise AssertionError("a CUDA input reached the plain version")
+    plain = flash_mod.attention_plain
+    gen = torch.Generator(device=cuda).manual_seed(d + 4)
+    for t in (1024, 96, 200, 1):
+        q, k, v = (torch.randn((2, t, d), generator=gen, device=cuda)
+                   for _ in range(3))
+        before = {n: getattr(flash_mod, n).launches for n in WIDE_COUNTERS}
+        monkeypatch.setattr(flash_mod, "attention_plain", refuse)
+        out = flash_mod.flash_wide_tf32(q, k, v, causal=causal)
+        routed = flash_mod.flash_attention(q, k, v, causal=causal,
+                                           block_q=t, block_k=t)
+        torch.cuda.synchronize()
+        monkeypatch.setattr(flash_mod, "attention_plain", plain)
+        assert {n: getattr(flash_mod, n).launches - before[n]
+                for n in WIDE_COUNTERS} == {
+            n: 2 * (n == "flash_wide_tf32") for n in WIDE_COUNTERS}, t
+        assert out.dtype == torch.float32 and out.shape == q.shape
+        assert _within(out, q, k, v, causal), t
+        assert torch.equal(out, routed), t
+
+
+def test_wide_tf32_kernel_against_the_wide_kernel_at_1024(cuda):
+    """At D = 1024 K2dt and K2d (exact f32 on CUDA cores, called directly)
+    agree within the f32 tolerance each is held to."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    q, k, v = (torch.randn((2, 1024, 1024), generator=gen, device=cuda)
+               for _ in range(3))
+    tol = attention_tolerance(torch.float32, 1024, "cuda")
+    for causal in (True, False):
+        tensor = flash_mod.flash_wide_tf32(q, k, v, causal=causal)
+        cores = flash_mod.flash_wide(q, k, v, causal=causal)
+        assert _within(tensor, q, k, v, causal)
+        assert _within(cores, q, k, v, causal)
+        assert (tensor - cores).abs().max().item() <= tol
+
+
+def test_wide_tf32_kernel_is_the_tf32_schedule(cuda):
+    """K2dt on the card against its arithmetic in plain PyTorch
+    (``flash_chunked_tf32_plain`` on the card's tensors) and against one
+    TF32 product: within half the f32 tolerance of the first (the tensor
+    core adds its products in another order than the CPU's f32 sums), and
+    the single product more than the tolerance away from the exact f32
+    output, so the kernel's agreement is the split's doing."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    q, k, v = (torch.randn((128, 1024), generator=gen, device=cuda)
+               for _ in range(3))
+    tol = attention_tolerance(torch.float32, 1024, "cuda")
+    out = flash_mod.flash_wide_tf32(q, k, v, causal=True)
+    model = flash_mod.flash_chunked_tf32_plain(q, k, v, True)
+    one = flash_mod.flash_chunked_tf32_plain(q, k, v, True,
+                                             products=("big_big",))
+    exact = flash_mod.attention_plain(q, k, v, causal=True)
+    assert (out - model).abs().max().item() <= tol / 2
+    assert (one - exact).abs().max().item() > tol
+
+
+def test_wide_tf32_wrapper_refuses_what_it_does_not_take(cuda):
+    """On the card K2dt's wrapper refuses 16-bit, D = 512 and D % 4 ≠ 0 and
+    launches nothing; nothing falls back to K2d or the plain version."""
+    before = {n: getattr(flash_mod, n).launches for n in WIDE_COUNTERS}
+    for dtype, d in ((torch.bfloat16, 1024), (torch.float32, 512),
+                     (torch.float32, 1001)):
+        x = torch.zeros((128, d), device=cuda, dtype=dtype)
+        with pytest.raises(ValueError, match="K2dt takes"):
+            flash_mod.flash_wide_tf32(x, x, x)
+    assert {n: getattr(flash_mod, n).launches for n in WIDE_COUNTERS} == \
+        before
+
+
+@pytest.mark.parametrize("cols", [768, 1026])
+def test_wide_tf32_kernel_refuses_a_narrow_workspace(cuda, cols):
+    """K2dt's C entry, like K2d's, refuses a partials workspace whose rows
+    are narrower than D rounded up to its 256-column chunks, or not a
+    multiple of 4 floats, with cudaErrorInvalidValue and no launch."""
+    from tpu_operator_torch import _native
+    q = torch.randn((1, 256, 1000), device=cuda)
+    out, heads, work, _workspace = flash_mod._schedule(
+        q, True, flash_mod.SPLIT, 1024)
+    split = torch.empty((2, 1000, 256), device=cuda)
+    before = flash_mod.flash_wide_tf32.launches
+    err = _native.library().flash_fwd_wide_tf32(
+        q.data_ptr(), q.data_ptr(), q.data_ptr(), out.data_ptr(), *work, cols,
+        split.data_ptr(), split.data_ptr(), split.data_ptr(), heads, 256,
+        1000, 1000 ** -0.5, 1, torch.cuda.current_stream().cuda_stream)
+    assert err == 1   # cudaErrorInvalidValue
+    assert flash_mod.flash_wide_tf32.launches == before
 
 
 @pytest.mark.parametrize("cols", [768, 1026])
@@ -340,11 +436,13 @@ def test_wgmma_kernel_matches_plain(cuda, dtype, d, causal):
 @pytest.mark.parametrize("dtype,d,t,kernel", [
     (torch.bfloat16, 128, 512, "K2"), (torch.bfloat16, 128, 200, "K2w"),
     (torch.float16, 128, 512, "K2w"), (torch.bfloat16, 256, 512, "K2w"),
-    (torch.float16, 100, 512, "K2s"), (torch.bfloat16, 384, 256, "K2s"),
+    (torch.float16, 100, 512, "K2s"), (torch.bfloat16, 384, 256, "K2dw"),
+    (torch.float16, 512, 200, "K2dw"), (torch.bfloat16, 264, 96, "K2dw"),
     (torch.float32, 128, 512, "K2s"), (torch.float32, 512, 96, "K2s"),
     (torch.bfloat16, 640, 256, "K2dw"), (torch.float16, 1000, 200, "K2dw"),
     (torch.float16, 1001, 200, "K2d"), (torch.bfloat16, 1001, 96, "K2d"),
-    (torch.float32, 1024, 96, "K2d")])
+    (torch.float32, 1024, 96, "K2dt"), (torch.float32, 520, 200, "K2dt"),
+    (torch.float32, 1022, 96, "K2d")])
 def test_flash_attention_launches_the_kernel_the_routing_names(
         cuda, monkeypatch, dtype, d, t, kernel):
     def refuse(*a, **kw):
@@ -358,7 +456,8 @@ def test_flash_attention_launches_the_kernel_the_routing_names(
                 "K2w": flash_mod.flash_wgmma,
                 "K2s": flash_mod.flash_generic,
                 "K2d": flash_mod.flash_wide,
-                "K2dw": flash_mod.flash_wide_wgmma}
+                "K2dw": flash_mod.flash_wide_wgmma,
+                "K2dt": flash_mod.flash_wide_tf32}
     before = {name: fn.launches for name, fn in counters.items()}
     out = flash_mod.flash_attention(q, k, v, causal=True, block_q=t,
                                     block_k=t)
@@ -769,14 +868,14 @@ def test_validator_on_four_ranks_runs_the_hand_rings(cuda, tmp_path):
 
 @pytest.mark.parametrize("d,kernel,dtype", [
     (256, "flash_wgmma", torch.bfloat16),
-    (384, "flash_generic", torch.bfloat16),
+    (384, "flash_wide_wgmma", torch.bfloat16),
     (1024, "flash_wide_wgmma", torch.bfloat16),
-    (1024, "flash_wide", torch.float32)])
+    (1024, "flash_wide_tf32", torch.float32)])
 def test_ulysses_head_dim_256_goes_through_the_generic_kernel(cuda, d,
                                                               kernel, dtype):
     """Dh = 256 goes through K2w (the tensor-core kernel that replaced the
-    generic one there), Dh = 384 through K2s, Dh = 1024 through K2dw in
-    bf16 and K2d in f32, once per rank."""
+    generic one there), Dh = 384 through K2dw, Dh = 1024 through K2dw in
+    bf16 and K2dt in f32, once per rank."""
     from tpu_operator_torch.parallel.mesh import MeshPlan, make_mesh
     from tpu_operator_torch.parallel.ring_attention import ulysses_attention
     n, t, h = 4, 256, 8

@@ -1,11 +1,12 @@
 """Flash attention's inputs beyond K2's: f32, f16 and head dims up to 512
 through the port's ``flash_attention`` (on the CPU, its plain version)
 against the reference's Pallas kernel in interpret mode on the same numpy
-inputs; which CUDA inputs go to K2, which to K2w and which to K2s; what
+inputs; which CUDA inputs go to K2, which to K2w, K2dw and K2s; what
 each wrapper refuses; and Ulysses at Dh = 256, 384, 512, 640 and 1024,
 which take the flash route as the reference does, and at a Dh off the
 multiples of 128, which runs dense as the reference does. Heads past 512
-(K2d) are held in ``tests/test_torch_flash_wide.py``."""
+(K2dw, K2dt, K2d) are held in ``tests/test_torch_flash_wide.py`` and
+``tests/test_torch_flash_tf32.py``."""
 
 import jax
 import jax.numpy as jnp
@@ -92,8 +93,8 @@ def test_routing_between_the_two_kernels(dtype, t, d, wgmma):
     (torch.bfloat16, 8, 1, "K2w"),
     (torch.float16, 100, 256, "K2s"),       # D % 8 != 0: no TMA row stride
     (torch.bfloat16, 3, 256, "K2s"),
-    (torch.bfloat16, 384, 4096, "K2s"),     # past wgmma's widest bucket
-    (torch.float16, 512, 1024, "K2s"),
+    (torch.bfloat16, 384, 4096, "K2dw"),    # past K2w's widest bucket
+    (torch.float16, 512, 1024, "K2dw"),
     (torch.float32, 128, 4096, "K2s"),
     (torch.float32, 512, 96, "K2s"),
     (torch.float32, 5, 7, "K2s"),
@@ -125,7 +126,7 @@ def test_head_dim_buckets(d, bucket):
 def test_what_the_kernels_refuse_raises(dtype, d, match):
     """Off the CPU, only a dtype outside f32/f16/bf16 is refused for what it
     is, and by K2s's own wrapper a head dim past 512 (``flash_attention``
-    takes those on K2d); a meta tensor, which no kernel takes, is refused
+    takes those on K2dw, K2dt or K2d); a meta tensor, which no kernel takes, is refused
     for its device."""
     x = torch.empty((64, d), dtype=dtype, device="meta")
     wide = d > port.MAX_HEAD_DIM
@@ -143,7 +144,8 @@ def test_what_the_kernels_refuse_raises(dtype, d, match):
 ])
 def test_what_k2w_refuses_raises(dtype, d, match):
     """K2w's own wrapper refuses, on any device, what its tensor maps and
-    wgmma shapes cannot take; ``flash_attention`` sends those to K2s."""
+    wgmma shapes cannot take; ``flash_attention`` sends those to K2s, and
+    16-bit heads past 256 with D % 8 = 0 to K2dw."""
     for device in ("cpu", "meta"):
         x = torch.zeros((64, d), dtype=dtype, device=device)
         with pytest.raises(ValueError, match=match):
@@ -218,8 +220,8 @@ def test_ulysses_head_dim_256_takes_flash_as_the_reference(causal,
 @pytest.mark.parametrize("dh", [384, 512])
 def test_ulysses_wide_heads_take_flash_as_the_reference(dh, causal,
                                                         monkeypatch):
-    """Dh = 384 and 512: multiples of 128 that only K2s takes on the card;
-    the reference takes its flash kernel for them too."""
+    """Dh = 384 and 512: multiples of 128 that K2dw (16-bit) and K2s (f32)
+    take on the card; the reference takes its flash kernel for them too."""
     _ulysses_takes_flash(dh, causal, monkeypatch)
 
 
@@ -228,8 +230,8 @@ def test_ulysses_wide_heads_take_flash_as_the_reference(dh, causal,
 def test_ulysses_heads_past_512_take_flash_as_the_reference(dh, causal,
                                                             monkeypatch):
     """Dh = 640 and 1024: multiples of 128 past K2s's widest head, which
-    K2d takes on the card; the reference takes its flash kernel for them
-    too."""
+    K2dw (16-bit) and K2dt (f32) take on the card; the reference takes its
+    flash kernel for them too."""
     _ulysses_takes_flash(dh, causal, monkeypatch)
 
 

@@ -1,5 +1,6 @@
 """Flash attention past K2s's widest head (D > 512): the routing between
-K2dw (16-bit, D % 8 = 0) and K2d (the rest), their wrappers on the CPU,
+K2dw (16-bit, D % 8 = 0), K2dt (f32, D % 4 = 0) and K2d (the rest), their
+wrappers on the CPU,
 the workspace row they share, and the schedule both run, in plain
 PyTorch.
 
@@ -68,10 +69,11 @@ def test_flash_attention_past_512_matches_the_pallas_kernel(t, d, blocks,
     # takes the input (16-bit, D % 8 = 0)
     torch.testing.assert_close(port.flash_wide(q, k, v, causal=causal), got,
                                rtol=0, atol=0)
-    if port.kernel_for(q.dtype, d, t) == "K2dw":
-        torch.testing.assert_close(
-            port.flash_wide_wgmma(q, k, v, causal=causal), got, rtol=0,
-            atol=0)
+    wrapper = {"K2dw": port.flash_wide_wgmma,
+               "K2dt": port.flash_wide_tf32}.get(port.kernel_for(q.dtype, d, t))
+    if wrapper is not None:
+        torch.testing.assert_close(wrapper(q, k, v, causal=causal), got,
+                                   rtol=0, atol=0)
 
 
 # T = 200: four q tiles, the last one short; blocks the reference takes
@@ -182,18 +184,25 @@ def test_a_wrong_chunk_is_rejected_by_the_limit(dtype, causal, fault):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
                                    torch.bfloat16])
 def test_kernel_for_sends_every_head_past_512_to_k2d(dtype, d, t):
-    """Past 512, 16-bit heads with D % 8 = 0 go to K2dw (the tensor-core
-    kernel); f32 and D = 513 stay on K2d."""
-    want = ("K2dw" if dtype != torch.float32 and d % 8 == 0 else "K2d")
+    """Past 512, 16-bit heads with D % 8 = 0 go to K2dw and f32 heads with
+    D % 4 = 0 to K2dt (the tensor-core kernels); D = 513 stays on K2d."""
+    if d % 8 == 0 and dtype != torch.float32:
+        want = "K2dw"
+    elif d % 4 == 0 and dtype == torch.float32:
+        want = "K2dt"
+    else:
+        want = "K2d"
     assert port.kernel_for(dtype, d, t) == want
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
                                    torch.bfloat16])
 def test_kernel_for_keeps_512_and_below_where_they_were(dtype):
-    """K2, K2w and K2s keep exactly the inputs they took before K2d."""
-    assert port.kernel_for(dtype, 512, 4096) == "K2s"
-    assert port.kernel_for(dtype, 384, 4096) == "K2s"
+    """K2w and K2s keep the inputs up to 512 they took before K2d, but for
+    16-bit heads past 256 with D % 8 = 0, which K2dw takes."""
+    wide = "K2s" if dtype == torch.float32 else "K2dw"
+    assert port.kernel_for(dtype, 512, 4096) == wide
+    assert port.kernel_for(dtype, 384, 4096) == wide
     assert port.kernel_for(dtype, 256, 4096) == (
         "K2s" if dtype == torch.float32 else "K2w")
 
@@ -250,11 +259,11 @@ def test_wide_wgmma_wrapper_on_the_cpu_runs_the_plain_version():
 
 @pytest.mark.parametrize("dtype,d,match", [
     (torch.float32, 1024, "takes float16 and bfloat16"),
-    (torch.bfloat16, 512, "above 512 that is a multiple of 8, got 512"),
-    (torch.float16, 1001, "above 512 that is a multiple of 8, got 1001")])
+    (torch.bfloat16, 256, "above 256 that is a multiple of 8, got 256"),
+    (torch.float16, 1001, "above 256 that is a multiple of 8, got 1001")])
 def test_wide_wgmma_wrapper_refuses_what_it_does_not_take(dtype, d, match):
-    """f32, D = 512 and D = 1001 are refused before any device is asked:
-    K2d or K2s takes them, never K2dw."""
+    """f32, D = 256 and D = 1001 are refused before any device is asked:
+    K2dt, K2w or K2d takes them, never K2dw."""
     x = torch.empty((64, d), dtype=dtype, device="meta")
     with pytest.raises(ValueError, match=match):
         port.flash_wide_wgmma(x, x, x)
@@ -275,12 +284,12 @@ def test_wide_columns_hold_every_chunk_block():
 def test_wide_wgmma_wrapper_takes_what_the_routing_sends_it():
     """For every D from 513 to 4096 and every dtype, K2dw's wrapper takes
     an input (and then asks for its device) exactly where ``kernel_for``
-    names K2dw, and refuses it where ``kernel_for`` names K2d."""
+    names K2dw, and refuses it where ``kernel_for`` names K2dt or K2d."""
     for dtype in (torch.float32, torch.float16, torch.bfloat16):
         for d in range(513, 4097):
             x = torch.empty((64, d), dtype=dtype, device="meta")
             kernel = port.kernel_for(dtype, d, 64)
-            assert kernel in ("K2dw", "K2d"), (dtype, d)
+            assert kernel in ("K2dw", "K2dt", "K2d"), (dtype, d)
             match = ("unsupported device" if kernel == "K2dw"
                      else "K2dw takes")
             with pytest.raises(ValueError, match=match):

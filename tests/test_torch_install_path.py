@@ -1,4 +1,4 @@
-"""``chip_smoke.py``'s tenth path, "operator installed from its chart", on
+"""``chip_smoke.py``'s eleventh path, "operator installed from its chart", on
 the CPU.
 
 The path runs here as it runs on the card — the cfg tool's four gates, the

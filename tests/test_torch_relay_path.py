@@ -1,4 +1,4 @@
-"""``chip_smoke.py``'s eleventh path, "relay replica", on the CPU.
+"""``chip_smoke.py``'s twelfth path, "relay replica", on the CPU.
 
 The path runs here as it runs on the card — the operator CLI drives a
 policy with the relay enabled to ready, the rendered ``gpu-relay-service``

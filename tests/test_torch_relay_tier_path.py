@@ -1,4 +1,4 @@
-"""``chip_smoke.py``'s twelfth path, "relay tier", on the CPU.
+"""``chip_smoke.py``'s thirteenth path, "relay tier", on the CPU.
 
 The path runs here as it runs on the card — the operator CLI drives a
 policy with the router, its autoscaler and the federation switched on to

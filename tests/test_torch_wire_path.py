@@ -1,4 +1,4 @@
-"""``chip_smoke.py``'s ninth path, "operator over the wire", on the CPU.
+"""``chip_smoke.py``'s tenth path, "operator over the wire", on the CPU.
 
 The path's serving phase runs here as it runs on the card — the port's
 apiserver and two operator processes over TLS, leader election, the watch

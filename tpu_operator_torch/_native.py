@@ -56,6 +56,8 @@ _SIGNATURES = {
                        _I, _I, _F, _I, _P),
     "flash_fwd_wide_wgmma": (_P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I,
                              _I, _I, _I, _F, _I, _P),
+    "flash_fwd_wide_tf32": (_P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _P,
+                            _P, _P, _I, _I, _I, _F, _I, _P),
     "ring_all_gather_f32": _RING,
     "ring_reduce_scatter_f32": _RING,
     "ring_all_reduce_f32": _RING,

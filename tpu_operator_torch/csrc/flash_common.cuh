@@ -1,11 +1,11 @@
 // What the flash-attention kernels share: K2 and K2w (flash_fwd.cu), K2s
-// (flash_fwd_generic.cu), K2d (flash_fwd_wide.cu) and K2dw
-// (flash_fwd_wide_wgmma.cu) run the same work list of units
-// (ops/flash_attention.py::work_list; K2d and K2dw cut each unit by output
-// columns) and merge the units of a split q tile with the same kernel, whose
-// row stride is an argument. The tensor-core kernels (K2, K2w, K2dw) share
-// their mbarrier, TMA and wgmma tools, the tensor maps and the online
-// softmax on a wgmma fragment.
+// (flash_fwd_generic.cu), K2d (flash_fwd_wide.cu), K2dw
+// (flash_fwd_wide_wgmma.cu) and K2dt (flash_fwd_wide_tf32.cu) run the same
+// work list of units (ops/flash_attention.py::work_list; K2d, K2dw and K2dt
+// cut each unit by output columns) and merge the units of a split q tile
+// with the same kernel, whose row stride is an argument. The tensor-core
+// kernels (K2, K2w, K2dw, K2dt) share their mbarrier, TMA and wgmma tools,
+// the tensor maps and the online softmax on a wgmma fragment.
 //
 // A unit is an int4 (row tile, first kv tile, end kv tile, slot): row tile =
 // head * ceil(T / 64) + q tile, kv tiles of 64 keys, slot -1 where the unit
@@ -175,7 +175,8 @@ void launch_combine(const void* merges, int n_merges, const void* part_acc,
 }
 
 // ---- the tensor-core kernels' tools (K2, K2w in flash_fwd.cu; K2dw in
-// flash_fwd_wide_wgmma.cu): mbarriers, TMA, wgmma, tensor maps ------------
+// flash_fwd_wide_wgmma.cu; K2dt in flash_fwd_wide_tf32.cu): mbarriers,
+// TMA, wgmma, tensor maps ----------------------------------------------------
 
 // A TMA box is [rows][64 columns] of 16-bit elements: 128-byte rows, the
 // widest the 128-byte swizzle takes.
@@ -290,6 +291,11 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
 }
 
 // The wgmma shapes the kernels issue, each for bf16 and f16 (kF16). The
@@ -484,18 +490,16 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[128],
 
 // ---- the online softmax -----------------------------------------------------
 
-// One kv step's online softmax on the S fragment of a 64 x BK wgmma product,
-// in log2 units, as K2, K2w and K2dw run it: the scores scaled, masked where
-// the step crosses the diagonal or (kBounded) holds keys past T, the row
-// maxima m and sums l updated across the quad's four lanes, the NACC
-// accumulators rescaled, and P = 2^(s - m) rounded to T in 16-bit pairs, the
-// A fragments of the P V k-steps (the S fragment's pairs are the A
-// fragment's pairs). Rows r0 and r0 + 8 of the q tile at q0; keys from k0.
-template <typename T, int BK, int NACC, bool kBounded>
-__device__ __forceinline__ void softmax_step(
-    float (&sc)[BK / 2], float (&acc)[NACC], float (&m)[2], float (&l)[2],
-    uint32_t (&p)[BK / 16][4], float scale_log2, int causal, int k0, int q0,
-    int r0, int quad, int t_len) {
+// The first half of one kv step's online softmax on the S fragment of a 64
+// x BK wgmma product, in log2 units: the scores scaled, masked where the
+// step crosses the diagonal or (kBounded) holds keys past T, the row maxima
+// m updated across the quad's four lanes, and alpha = 2^(m_old - m_new), the
+// factor the sums and the accumulators are rescaled by. Rows r0 and r0 + 8
+// of the q tile at q0; keys from k0.
+template <int BK, bool kBounded>
+__device__ __forceinline__ void softmax_max(
+    float (&sc)[BK / 2], float (&m)[2], float (&alpha)[2], float scale_log2,
+    int causal, int k0, int q0, int r0, int quad, int t_len) {
   const bool masked = (causal && k0 + BK - 1 > q0) ||
                       (kBounded && k0 + BK > t_len);
   float mx[2] = {kMaskFill, kMaskFill};
@@ -511,7 +515,6 @@ __device__ __forceinline__ void softmax_step(
     sc[i] = x;
     mx[h] = fmaxf(mx[h], x);
   }
-  float alpha[2], sum[2] = {0.f, 0.f};
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
@@ -520,14 +523,15 @@ __device__ __forceinline__ void softmax_step(
     alpha[h] = exp2_approx(m[h] - m_new);  // 0 on the first step
     m[h] = m_new;
   }
-#pragma unroll
-  for (int i = 0; i < BK / 2; i += 2) {
-    const int h = (i >> 1) & 1;
-    const float a = exp2_approx(sc[i] - m[h]);
-    const float b = exp2_approx(sc[i + 1] - m[h]);
-    sum[h] += a + b;
-    p[i >> 3][(i >> 1) & 3] = pack2<T>(a, b);
-  }
+}
+
+// The second half: l = l alpha + the quad's row sums of P, and the NACC
+// accumulators rescaled by alpha.
+template <int NACC>
+__device__ __forceinline__ void softmax_rescale(float (&acc)[NACC],
+                                                float (&l)[2],
+                                                const float (&alpha)[2],
+                                                float (&sum)[2]) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
@@ -536,6 +540,49 @@ __device__ __forceinline__ void softmax_step(
   }
 #pragma unroll
   for (int i = 0; i < NACC; ++i) acc[i] *= alpha[(i >> 1) & 1];
+}
+
+// One kv step's online softmax as K2, K2w and K2dw run it (softmax_max,
+// softmax_rescale), with P = 2^(s - m) rounded to T in 16-bit pairs, the A
+// fragments of the P V k-steps (the S fragment's pairs are the A fragment's
+// pairs).
+template <typename T, int BK, int NACC, bool kBounded>
+__device__ __forceinline__ void softmax_step(
+    float (&sc)[BK / 2], float (&acc)[NACC], float (&m)[2], float (&l)[2],
+    uint32_t (&p)[BK / 16][4], float scale_log2, int causal, int k0, int q0,
+    int r0, int quad, int t_len) {
+  float alpha[2], sum[2] = {0.f, 0.f};
+  softmax_max<BK, kBounded>(sc, m, alpha, scale_log2, causal, k0, q0, r0,
+                            quad, t_len);
+#pragma unroll
+  for (int i = 0; i < BK / 2; i += 2) {
+    const int h = (i >> 1) & 1;
+    const float a = exp2_approx(sc[i] - m[h]);
+    const float b = exp2_approx(sc[i + 1] - m[h]);
+    sum[h] += a + b;
+    p[i >> 3][(i >> 1) & 3] = pack2<T>(a, b);
+  }
+  softmax_rescale(acc, l, alpha, sum);
+}
+
+// The same step for f32 inputs (K2dt): P = 2^(s - m) stays f32, in place of
+// the scores.
+template <int BK, int NACC, bool kBounded>
+__device__ __forceinline__ void softmax_step_f32(
+    float (&sc)[BK / 2], float (&acc)[NACC], float (&m)[2], float (&l)[2],
+    float scale_log2, int causal, int k0, int q0, int r0, int quad,
+    int t_len) {
+  float alpha[2], sum[2] = {0.f, 0.f};
+  softmax_max<BK, kBounded>(sc, m, alpha, scale_log2, causal, k0, q0, r0,
+                            quad, t_len);
+#pragma unroll
+  for (int i = 0; i < BK / 2; i += 2) {
+    const int h = (i >> 1) & 1;
+    sc[i] = exp2_approx(sc[i] - m[h]);
+    sc[i + 1] = exp2_approx(sc[i + 1] - m[h]);
+    sum[h] += sc[i] + sc[i + 1];
+  }
+  softmax_rescale(acc, l, alpha, sum);
 }
 
 // ---- host side: tensor maps -------------------------------------------------
@@ -586,6 +633,28 @@ inline bool tile_map(CUtensorMap* map, const void* ptr, int heads, int t_len, in
   return encode(map, type, 3, const_cast<void*>(ptr), dims, strides, box,
                 steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
                 CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// [outer][rows][inner] f32 as a 3-D map (inner, rows, outer) in boxes of
+// 32 elements (one 128-byte row) by `box_rows` rows of one outer index,
+// 128-byte swizzle; reads past inner or rows fill zeros. TMA needs the row
+// stride, inner * 4 bytes, to be a multiple of 16.
+inline bool tile_map_f32(CUtensorMap* map, const void* ptr, int outer,
+                         int rows, int inner, int box_rows) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(inner),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(outer)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(inner) * 4,
+                                 static_cast<cuuint64_t>(rows) * inner * 4};
+  const cuuint32_t box[3] = {32, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t steps[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
+                const_cast<void*>(ptr), dims, strides, box, steps,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

@@ -1,6 +1,8 @@
-// Flash-attention forward on CUDA cores (K2s), for the inputs the tensor-core
-// kernel (flash_fwd.cu) does not take: f32 with any head dim D up to 512,
-// and f16 or bf16 where D % 8 != 0 or 256 < D <= 512; any sequence length T.
+// Flash-attention forward on CUDA cores (K2s), for the inputs up to D = 512
+// that no tensor-core kernel (flash_fwd.cu, flash_fwd_wide_wgmma.cu) takes:
+// f32 with any head dim D up to 512, and f16 or bf16 where D % 8 != 0 (the
+// routing sends 16-bit heads with D % 8 == 0 to K2w or K2dw); any sequence
+// length T.
 // softmax(q k^T * scale) v over [H, T, D] with an online softmax, so the
 // [T, T] score matrix never reaches device memory.
 //

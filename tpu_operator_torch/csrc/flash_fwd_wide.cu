@@ -1,6 +1,8 @@
 // Flash-attention forward for head dims past the other kernels' reach (K2d):
 // softmax(q k^T * scale) v over [H, T, D] with an online softmax, f32, f16 or
-// bf16, any D >= 1 (the routing sends it D > 512), any T, causal or full.
+// bf16, any D >= 1, any T, causal or full. The routing sends it what no
+// tensor-core kernel takes past D = 512: f32 with D % 4 != 0 (K2dt,
+// flash_fwd_wide_tf32.cu, takes the rest) and 16-bit with D % 8 != 0.
 //
 // Replaces tpu_operator/ops/flash_attention.py::_flash_kernel for those
 // inputs: the Pallas kernel takes any [T, D], with a [block_q, D] f32
@@ -9,7 +11,7 @@
 // Bound on an H100: the operations. 4 D T(T+1)/2 flops a head causal (4 D
 // T^2 full) against 4 T D elements of traffic; over the 989 TFLOP/s
 // tensor-core peak for 16-bit inputs and the 67 TFLOP/s f32 CUDA-core peak
-// for f32 (f32 stays exact f32: no TF32). What stands in the way at D > 512:
+// for f32 (exact f32 here: no TF32). What stands in the way at D > 512:
 // a block cannot hold the Q tile and the accumulator of a 64-row q tile.
 // At D = 1024 the f32 accumulator alone is 256 KiB, more than a block's
 // 227 KiB of shared memory and as large as an SM's register file.

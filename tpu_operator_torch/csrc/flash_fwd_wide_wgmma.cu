@@ -1,10 +1,13 @@
-// Flash-attention forward on the tensor cores for 16-bit heads past 512
+// Flash-attention forward on the tensor cores for 16-bit heads past 256
 // (K2dw): softmax(q k^T * scale) v over [H, T, D] f16 or bf16 inputs with
-// D % 8 == 0 (the routing sends it D > 512), any T, causal or full.
+// D % 8 == 0 (the routing sends it D > 256), any T, causal or full. At D =
+// 384 and 512 a unit runs two chunk blocks; the last one's columns past D
+// are zeros (TMA fills them) and are not stored.
 //
 // Replaces tpu_operator/ops/flash_attention.py::_flash_kernel for those
 // inputs (the Pallas kernel takes any [T, D], with a [block_q, D] f32
-// accumulator in VMEM), which K2d (flash_fwd_wide.cu) ran on CUDA cores.
+// accumulator in VMEM), which K2d (flash_fwd_wide.cu, past 512) and K2s
+// (flash_fwd_generic.cu, 257 to 512) ran on CUDA cores.
 //
 // Bound on an H100: the operations. 4 D T(T+1)/2 flops a head causal (4 D
 // T^2 full) over the 989 TFLOP/s 16-bit tensor-core peak: 0.0695 ms at

@@ -22,24 +22,30 @@ second kernel merges them by the log-sum-exp rule in a fixed order (no
 atomics: the same bits on every run). :func:`flash_split_plain` is that
 schedule in plain PyTorch.
 
-Five kernels run that schedule (:func:`kernel_for` routes a CUDA input):
+Six kernels run that schedule (:func:`kernel_for` routes a CUDA input):
 
 - K2 (``csrc/flash_fwd.cu``, the instance the node validator runs): bf16,
   D = 128, T a multiple of 64; wgmma and TMA.
 - K2w (:func:`flash_wgmma`, the same kernel template): f16 and bf16, D ≤
-  256 with D % 8 = 0, any T.
-- K2s (:func:`flash_generic`, ``csrc/flash_fwd_generic.cu``): f32, and
-  16-bit inputs K2w does not take, D ≤ :data:`MAX_HEAD_DIM`, any T; CUDA
-  cores, register-tiled.
+  :data:`WGMMA_MAX_HEAD_DIM` with D % 8 = 0, any T.
 - K2dw (:func:`flash_wide_wgmma`, ``csrc/flash_fwd_wide_wgmma.cu``): f16
-  and bf16 with D > :data:`MAX_HEAD_DIM` and D % 8 = 0, any T; wgmma and
-  TMA. The output's head dim is cut into chunks of :data:`WIDE_CHUNK`
+  and bf16 with D > :data:`WGMMA_MAX_HEAD_DIM` and D % 8 = 0, any T; wgmma
+  and TMA. The output's head dim is cut into chunks of :data:`WIDE_CHUNK`
   columns, one block a (unit, chunk), and each block forms the scores from
   all of D again; :func:`flash_chunked_plain` is that schedule in plain
   PyTorch.
-- K2d (:func:`flash_wide`, ``csrc/flash_fwd_wide.cu``): the same schedule
-  on CUDA cores, for f32 (exact f32, no TF32) and 16-bit inputs with D %
-  8 ≠ 0, D > :data:`MAX_HEAD_DIM`, any T.
+- K2dt (:func:`flash_wide_tf32`, ``csrc/flash_fwd_wide_tf32.cu``): f32
+  with D > :data:`MAX_HEAD_DIM` and D % 4 = 0, any T; K2dw's schedule on
+  the tensor cores, every product split into three TF32 products (3xTF32)
+  so that it keeps f32 grade; :func:`flash_chunked_tf32_plain` is its
+  arithmetic in plain PyTorch.
+- K2s (:func:`flash_generic`, ``csrc/flash_fwd_generic.cu``): f32, and
+  16-bit inputs with D % 8 ≠ 0, D ≤ :data:`MAX_HEAD_DIM`, any T; CUDA
+  cores, register-tiled.
+- K2d (:func:`flash_wide`, ``csrc/flash_fwd_wide.cu``): K2dw's schedule on
+  CUDA cores, for the inputs past :data:`MAX_HEAD_DIM` that no tensor-core
+  kernel takes (f32 with D % 4 ≠ 0, 16-bit with D % 8 ≠ 0; exact f32), any
+  T.
 
 So every head dim the reference's Pallas kernel takes has a kernel.
 :func:`flash_attention` runs the plain PyTorch version,
@@ -63,11 +69,11 @@ BLOCK = 64          # the kernels' q tile rows and the work list's kv tiles
 HEAD_DIM = 128      # K2's head dimension
 SPLIT = 8           # kv tiles per unit at most, from chip_smoke.py's sweep
 MASK_FILL = -1e30   # the causal mask's fill, as in the reference
-MAX_HEAD_DIM = 512  # the largest D K2s takes; K2d and K2dw take every D above it
-WGMMA_MAX_HEAD_DIM = 256  # the largest D K2w takes
-# K2d's and K2dw's output columns a block (``kDC`` in
-# ``csrc/flash_fwd_wide.cu`` and ``csrc/flash_fwd_wide_wgmma.cu``, whose C
-# entries refuse a workspace narrower than D rounded up to it)
+MAX_HEAD_DIM = 512  # the largest D K2s takes; K2dt and K2d take f32 above it
+WGMMA_MAX_HEAD_DIM = 256  # the largest D K2w takes; K2dw takes 16-bit above it
+# K2d's, K2dw's and K2dt's output columns a block (``kDC`` in
+# ``csrc/flash_fwd_wide*.cu``, whose C entries refuse a workspace narrower
+# than D rounded up to it)
 WIDE_CHUNK = 256
 # the kernels' element types, by the code their C entry points take
 DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
@@ -86,22 +92,23 @@ def head_bucket(d: int, widest: int = MAX_HEAD_DIM) -> int:
 
 def kernel_for(dtype: torch.dtype, d: int, t: int) -> str:
     """Which kernel a CUDA input of ``dtype`` and shape [.., t, d] goes to:
-    past D = :data:`MAX_HEAD_DIM`, "K2dw" (f16 or bf16, D % 8 = 0) or "K2d"
-    (f32, and 16-bit with D % 8 ≠ 0); else "K2" (bf16, D = 128, T a
-    multiple of 64), "K2w" (f16 or bf16, D ≤ 256, D % 8 = 0) or "K2s"
-    (every other input of :data:`DTYPE_CODES`)."""
+    "K2" (bf16, D = 128, T a multiple of 64); for the other f16 and bf16
+    inputs with D % 8 = 0, "K2w" (D ≤ :data:`WGMMA_MAX_HEAD_DIM`) or "K2dw"
+    (wider); for the rest, "K2s" up to D = :data:`MAX_HEAD_DIM`, and past
+    it "K2dt" (f32, D % 4 = 0) or "K2d" (f32 with D % 4 ≠ 0, 16-bit with D
+    % 8 ≠ 0)."""
     sixteen = dtype in (torch.float16, torch.bfloat16)
-    if d > MAX_HEAD_DIM:
-        return "K2dw" if sixteen and d % 8 == 0 else "K2d"
     if dtype == torch.bfloat16 and d == HEAD_DIM and t % BLOCK == 0:
         return "K2"
-    if sixteen and d <= WGMMA_MAX_HEAD_DIM and d % 8 == 0:
-        return "K2w"
-    return "K2s"
+    if sixteen and d % 8 == 0:
+        return "K2w" if d <= WGMMA_MAX_HEAD_DIM else "K2dw"
+    if d <= MAX_HEAD_DIM:
+        return "K2s"
+    return "K2dt" if dtype == torch.float32 and d % 4 == 0 else "K2d"
 
 
 def wide_columns(d: int) -> int:
-    """K2d's and K2dw's partial-workspace row: D rounded up to
+    """K2d's, K2dw's and K2dt's partial-workspace row: D rounded up to
     :data:`WIDE_CHUNK`, the columns of all of a unit's chunk blocks."""
     return -(-d // WIDE_CHUNK) * WIDE_CHUNK
 
@@ -187,7 +194,7 @@ def work_list(heads: int, t: int, causal: bool, split: int):
 
 def split_partials(q, k, v, causal: bool, split: int,
                    sm_scale: float | None = None, block_k: int = BLOCK,
-                   v_cols: slice = slice(None)):
+                   v_cols: slice = slice(None), matmul=torch.matmul):
     """Each unit's softmax state as the kernels leave it, for q, k, v of
     shape [T, D] or [H, T, D], any T and D: {q tile: [(m, l, acc), ...] in
     kv order}, each of shape [H, rows], [H, rows], [H, rows, C] in f32
@@ -195,7 +202,9 @@ def split_partials(q, k, v, causal: bool, split: int,
     picks, all of D by default; the scores always come from all of D). A
     unit walks its keys in steps of ``block_k`` (a divisor of BLOCK; the
     last step cut at T). Per step the online update rounds P = exp(s − m)
-    to the input dtype before P·V, and sums the unrounded P into l."""
+    to the input dtype before P·V, and sums the unrounded P into l.
+    ``matmul`` forms both products, Q·Kᵀ and P·V (:func:`tf32_matmul` for
+    K2dt's)."""
     if BLOCK % block_k:
         raise ValueError(f"block_k {block_k} must divide {BLOCK}")
     q3, k3, v3 = (x.reshape(-1, *x.shape[-2:]).float() for x in (q, k, v))
@@ -216,7 +225,7 @@ def split_partials(q, k, v, causal: bool, split: int,
                               device=q3.device)
             for k0 in range(j0 * BLOCK, min(j1 * BLOCK, t), block_k):
                 cols = keys[k0:k0 + block_k]
-                s = torch.matmul(qt, k3[:, cols].transpose(-1, -2)) * scale
+                s = matmul(qt, k3[:, cols].transpose(-1, -2)) * scale
                 if causal:
                     s = s.masked_fill(cols[None, :] > rows[:, None],
                                       MASK_FILL)
@@ -224,7 +233,7 @@ def split_partials(q, k, v, causal: bool, split: int,
                 alpha = torch.exp(m - m_new)
                 p = torch.exp(s - m_new[..., None])
                 l = l * alpha + p.sum(-1)
-                acc = acc * alpha[..., None] + torch.matmul(
+                acc = acc * alpha[..., None] + matmul(
                     p.to(q.dtype).float(), v3[:, cols])
                 m = m_new
             parts.setdefault(row, []).append((m, l, acc))
@@ -262,23 +271,77 @@ def flash_split_plain(q, k, v, causal: bool = False, split: int = SPLIT,
 
 def flash_chunked_plain(q, k, v, causal: bool = False, split: int = SPLIT,
                         chunk: int = WIDE_CHUNK,
-                        sm_scale: float | None = None):
-    """K2d's schedule in plain PyTorch: for each chunk of ``chunk`` output
-    columns, every unit's (m, l, acc) with the scores from all of D and
-    P·V over the chunk's columns of V (:func:`split_partials`), merged per
-    q tile (:func:`combine_partials`); the chunks side by side, rounded
-    once to the input dtype. Any T and D, 16-bit or f32 inputs."""
+                        sm_scale: float | None = None, matmul=torch.matmul):
+    """K2d's and K2dw's schedule in plain PyTorch: for each chunk of
+    ``chunk`` output columns, every unit's (m, l, acc) with the scores from
+    all of D and P·V over the chunk's columns of V (:func:`split_partials`,
+    its products by ``matmul``), merged per q tile
+    (:func:`combine_partials`); the chunks side by side, rounded once to
+    the input dtype. Any T and D, 16-bit or f32 inputs."""
     if chunk < 1:
         raise ValueError(f"chunk {chunk} must be at least 1")
     d = q.shape[-1]
     chunks = []
     for c0 in range(0, d, chunk):
         parts = split_partials(q, k, v, causal, split, sm_scale,
-                               v_cols=slice(c0, c0 + chunk))
+                               v_cols=slice(c0, c0 + chunk), matmul=matmul)
         chunks.append(torch.cat([combine_partials(parts[row])
                                  for row in range(len(parts))], dim=-2))
     out = torch.cat(chunks, dim=-1)
     return out.reshape(q.shape).to(q.dtype)
+
+
+#: K2dt's three TF32 products of an f32 product a·b, in the order it adds
+#: them: the two with a small part first, as CUTLASS's fast-f32 mode does
+TF32_PRODUCTS = ("small_big", "big_small", "big_big")
+
+
+def tf32_split(x):
+    """f32 ``x`` as (big, small): big = x rounded to TF32 (10 mantissa
+    bits), small = x − big rounded to TF32, each to nearest with ties away
+    from zero by the bit mask K2dt applies, ``(bits + 0x1000) & ~0x1fff``.
+    big + small is x to about 2⁻²¹ of its magnitude; big alone to 2⁻¹¹."""
+    def rounded(y):
+        bits = y.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+    big = rounded(x)
+    return big, rounded(x - big)
+
+
+def tf32_matmul(products=TF32_PRODUCTS):
+    """An f32 matmul as K2dt forms it: both operands split by
+    :func:`tf32_split` and the named ``products`` of :data:`TF32_PRODUCTS`
+    (each exact on TF32 values, summed in f32) added in that order. One
+    product alone, ``("big_big",)``, is a plain TF32 matmul."""
+    unknown = set(products) - set(TF32_PRODUCTS)
+    if unknown or not products:
+        raise ValueError(f"products must name some of {TF32_PRODUCTS}, got "
+                         f"{products}")
+
+    def matmul(a, b):
+        (a_big, a_small), (b_big, b_small) = tf32_split(a), tf32_split(b)
+        pairs = {"small_big": (a_small, b_big), "big_small": (a_big, b_small),
+                 "big_big": (a_big, b_big)}
+        out = None
+        for name in products:
+            term = torch.matmul(*pairs[name])
+            out = term if out is None else out + term
+        return out
+    return matmul
+
+
+def flash_chunked_tf32_plain(q, k, v, causal: bool = False,
+                             split: int = SPLIT, chunk: int = WIDE_CHUNK,
+                             sm_scale: float | None = None,
+                             products=TF32_PRODUCTS):
+    """K2dt's arithmetic in plain PyTorch, for f32 inputs: K2dw's chunked
+    schedule (:func:`flash_chunked_plain`) with Q·Kᵀ and P·V each formed
+    from TF32 parts (:func:`tf32_matmul` of ``products``), scores, softmax
+    state and output in f32."""
+    if q.dtype != torch.float32:
+        raise ValueError(f"K2dt's arithmetic is for float32, got {q.dtype}")
+    return flash_chunked_plain(q, k, v, causal, split, chunk, sm_scale,
+                               matmul=tf32_matmul(products))
 
 
 # -- the kernels ------------------------------------------------------------
@@ -412,8 +475,9 @@ def _cores_launch(entry: str, wrapper, q, k, v, scale: float, causal: bool,
                   dp: int, pass_cols: bool = False):
     """Launch the kernel behind the C entry point ``entry`` (K2s, K2d or
     K2dw, which take the same arguments, K2d and K2dw with the workspace's
-    row stride as well: ``pass_cols``) with a workspace of ``dp`` columns,
-    and count it on ``wrapper``; the output, not yet synchronised."""
+    row stride as well: ``pass_cols``; K2dt has its own launch) with a
+    workspace of ``dp`` columns, and count it on ``wrapper``; the output,
+    not yet synchronised."""
     out, heads, work, _workspace = _schedule(q, causal, SPLIT, dp)
     cols = (dp,) if pass_cols else ()
     lib = _native.library()
@@ -432,7 +496,8 @@ def flash_wide(q, k, v, sm_scale: float | None = None,
                causal: bool = False):
     """K2d's wrapper: softmax(q·Kᵀ·scale)·V for q, k, v of shape [T, D] or
     [H, T, D], f32, f16 or bf16, any D ≥ 1 (``flash_attention`` sends it D
-    > :data:`MAX_HEAD_DIM` in f32, and in 16 bits where D % 8 ≠ 0), any T.
+    > :data:`MAX_HEAD_DIM` in f32 where D % 4 ≠ 0, and in 16 bits where D
+    % 8 ≠ 0), any T.
     Launches ``csrc/flash_fwd_wide.cu`` for CUDA tensors and runs
     :func:`attention_plain` for CPU tensors; the output has the input
     dtype."""
@@ -458,18 +523,19 @@ def _wide_launch(q, k, v, scale: float, causal: bool):
 def flash_wide_wgmma(q, k, v, sm_scale: float | None = None,
                      causal: bool = False):
     """K2dw's wrapper: softmax(q·Kᵀ·scale)·V for q, k, v of shape [T, D] or
-    [H, T, D], f16 or bf16, D > :data:`MAX_HEAD_DIM` with D % 8 = 0, any T.
-    Launches the tensor-core kernel (``csrc/flash_fwd_wide_wgmma.cu``) for
-    CUDA tensors and runs :func:`attention_plain` for CPU tensors; the
-    output has the input dtype. Another dtype or head dim is refused on
-    any device (K2d takes it)."""
+    [H, T, D], f16 or bf16, D > :data:`WGMMA_MAX_HEAD_DIM` with D % 8 = 0,
+    any T. Launches the tensor-core kernel
+    (``csrc/flash_fwd_wide_wgmma.cu``) for CUDA tensors and runs
+    :func:`attention_plain` for CPU tensors; the output has the input
+    dtype. Another dtype or head dim is refused on any device (K2w, K2s,
+    K2dt or K2d takes it)."""
     _check_shapes(q, k, v)
     d = q.shape[-1]
     if q.dtype not in (torch.float16, torch.bfloat16):
         raise ValueError(f"K2dw takes float16 and bfloat16, got {q.dtype}")
-    if d <= MAX_HEAD_DIM or d % 8:
-        raise ValueError(f"K2dw takes a head dim above {MAX_HEAD_DIM} that "
-                         f"is a multiple of 8, got {d}")
+    if d <= WGMMA_MAX_HEAD_DIM or d % 8:
+        raise ValueError(f"K2dw takes a head dim above {WGMMA_MAX_HEAD_DIM} "
+                         f"that is a multiple of 8, got {d}")
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
     if q.device.type == "cpu":
         return attention_plain(q, k, v, scale, causal)
@@ -485,6 +551,56 @@ def _wide_wgmma_launch(q, k, v, scale: float, causal: bool):
     return _cores_launch("flash_fwd_wide_wgmma", flash_wide_wgmma, q, k, v,
                          scale, causal, wide_columns(q.shape[-1]),
                          pass_cols=True)
+
+
+def flash_wide_tf32(q, k, v, sm_scale: float | None = None,
+                    causal: bool = False):
+    """K2dt's wrapper: softmax(q·Kᵀ·scale)·V for q, k, v of shape [T, D] or
+    [H, T, D], f32, D > :data:`MAX_HEAD_DIM` with D % 4 = 0, any T.
+    Launches the 3xTF32 tensor-core kernel (``csrc/flash_fwd_wide_tf32.cu``)
+    for CUDA tensors and runs :func:`attention_plain` for CPU tensors; the
+    output is f32. Another dtype or head dim is refused on any device (K2s,
+    K2d or a 16-bit kernel takes it)."""
+    _check_shapes(q, k, v)
+    d = q.shape[-1]
+    if q.dtype != torch.float32:
+        raise ValueError(f"K2dt takes float32, got {q.dtype}")
+    if d <= MAX_HEAD_DIM or d % 4:
+        raise ValueError(f"K2dt takes a head dim above {MAX_HEAD_DIM} that "
+                         f"is a multiple of 4, got {d}")
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v, scale, causal)
+    return _wide_tf32_launch(*_cuda_inputs(q, k, v), scale, causal)
+
+
+flash_wide_tf32.launches = 0
+
+
+def _wide_tf32_launch(q, k, v, scale: float, causal: bool):
+    """Launch K2dt on inputs :func:`_cuda_inputs` checked; the output, not
+    yet synchronised. Its work list and partial workspace are K2dw's; the
+    C entry's pre-pass writes the TF32 parts into three more workspaces,
+    Q's and K's [2H, T, D] and V's transposed [2H, D, Tp] (Tp: T rounded
+    up to :data:`BLOCK`)."""
+    t, d = q.shape[-2:]
+    cols = wide_columns(d)
+    out, heads, work, _workspace = _schedule(q, causal, SPLIT, cols)
+    split_q = torch.empty((2 * heads, t, d), dtype=torch.float32,
+                          device=q.device)
+    split_k = torch.empty_like(split_q)
+    split_v = torch.empty((2 * heads, d, -(-t // BLOCK) * BLOCK),
+                          dtype=torch.float32, device=q.device)
+    lib = _native.library()
+    with torch.cuda.device(q.device):
+        err = lib.flash_fwd_wide_tf32(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *work,
+            cols, split_q.data_ptr(), split_k.data_ptr(), split_v.data_ptr(),
+            heads, t, d, scale, int(causal),
+            torch.cuda.current_stream().cuda_stream)
+    _native.check(err, "flash_fwd_wide_tf32")
+    flash_wide_tf32.launches += 1
+    return out
 
 
 def _check_shapes(q, k, v):
@@ -525,10 +641,10 @@ def flash_attention(q, k, v, sm_scale: float | None = None,
     checks it; ``sm_scale`` defaults to 1/√D; the output has the input
     dtype. On the card the blocks are a tiling hint only: each kernel tiles
     by its own rows. A CUDA input goes to the kernel :func:`kernel_for`
-    names: K2 (counted here), K2w (:func:`flash_wgmma`), K2s
-    (:func:`flash_generic`) or, for heads wider than :data:`MAX_HEAD_DIM`,
-    K2dw (:func:`flash_wide_wgmma`) or K2d (:func:`flash_wide`); other
-    dtypes raise.
+    names: K2 (counted here), K2w (:func:`flash_wgmma`), K2dw
+    (:func:`flash_wide_wgmma`), K2s (:func:`flash_generic`), K2dt
+    (:func:`flash_wide_tf32`) or K2d (:func:`flash_wide`); other dtypes
+    raise.
     """
     _check_shapes(q, k, v)
     t, d = q.shape[-2:]
@@ -548,6 +664,8 @@ def flash_attention(q, k, v, sm_scale: float | None = None,
         return _generic_launch(q, k, v, scale, causal)
     if kernel == "K2dw":
         return _wide_wgmma_launch(q, k, v, scale, causal)
+    if kernel == "K2dt":
+        return _wide_tf32_launch(q, k, v, scale, causal)
     if kernel == "K2d":
         return _wide_launch(q, k, v, scale, causal)
     out = flash_launch(q, k, v, scale, causal)
