@@ -18,22 +18,23 @@ most kv tiles a unit of its work takes, and beside every SDPA backend
 the fastest is its library time; it is also held and timed at the
 bench's shape, bf16 [16384, 128] causal. K2w (K2's kernel template at
 every other f16 or bf16 input with D ≤ 256, D % 8 = 0), K2dw (the
-D-chunked tensor-core kernel: f16 and bf16 with D > 256, D % 8 = 0), K2s
-(the register-tiled CUDA-core kernel: f32, and 16-bit inputs with D % 8
-≠ 0, D ≤ 512), K2dt (K2dw's schedule on the tensor cores in three TF32
-products: f32 with D > 512, D % 4 = 0) and K2d (the D-chunked CUDA-core
-kernel: the other inputs with D > 512) are held against the plain
-version over f32, f16 and bf16, head dims 64, 96, 128, 256, 384, 512,
-520, 640, 1000, 1001, 1024 and 2048, causal and full, and sequence
-lengths that 64 does not divide, through their own wrappers and through
-``flash_attention``'s routing (K2d also against K2s at D = 512, K2dw
-against K2d or K2s and K2dt against K2d, each against itself on a second
-call), and timed the same way (K2w also by the keys a kv step takes at D
-= 256; K2dt at f32 [2, 4096, 1024], its shape on the main path, causal
-and full, beside K2d on the same input; K2dw at bf16 [2, 4096, 1024]
-beside K2d, and at bf16 [4096, 384] beside K2s; K2dt once at f32 [4096,
-384] beside K2s, whose width it is; EFFICIENT_ATTENTION's kernels by
-name at K2dt's shape). Then it holds the ring kernels
+D-chunked tensor-core kernel: f16 and bf16 with D > 256, any D), K2s
+(the register-tiled CUDA-core kernel: f32 with D ≤ 512, and 16-bit
+inputs with D % 8 ≠ 0, D ≤ 256) and K2dt (K2dw's schedule on the tensor
+cores in three TF32 products: f32 with D > 512, any D) are held against
+the plain version over f32, f16 and bf16, head dims 64, 96, 128, 256,
+300, 384, 512, 514, 520, 640, 1000, 1001, 1020, 1024 and 2048 (the heads
+off 8 or 4 through K2dw's and K2dt's padded row stride), causal and full,
+and sequence lengths that 64 does not divide, through their own wrappers
+and through ``flash_attention``'s routing (K2dw also against K2s where
+both take it, K2dw and K2dt each against itself on a second call), and
+timed the same way (K2w also by the keys a kv step takes at D = 256; K2dt
+at f32 [2, 4096, 1024], its shape on the main path, and at [2, 4096,
+1022], causal and full; K2dw at bf16 [2, 4096, 1024] and [2, 4096, 1020],
+causal and full, and at bf16 [4096, 384] and [4096, 300] beside K2s;
+K2s also at bf16 [4096, 100]; K2dt once at f32 [4096, 384] beside K2s,
+whose width it is; EFFICIENT_ATTENTION's kernels by name at K2dt's
+shape). Then it holds the ring kernels
 (K3–K6) against their plain versions and the library sums for 2, 4 and 8
 virtual ranks on the card, in
 one launch and in a launch a rank on streams of their own (the protocol of
@@ -55,8 +56,8 @@ single-device computation; at Dh = 384 and 1024 (bf16) and 1024 (f32) it
 is also timed beside the same call with each rank's attention dense
 (``attention_plain``), outside the counted run. ``flash_attention`` then
 takes one input of each row of its routing table at T = 4096, each
-launching the one kernel the table names (K2s and K2d serve callers
-there). The build phase prints ptxas's registers and spills for every
+launching the one kernel the table names (K2s serves callers there, and
+K2dw and K2dt at heads off 8 and 4). The build phase prints ptxas's registers and spills for every
 kernel (a flash kernel that spills fails).
 Last, the node health monitor's CLI runs once as its DaemonSet would, on
 the machine's ``/dev`` and NVML with the HBM sweep on K1 at 256 MiB, and
@@ -311,18 +312,25 @@ def phase_build() -> None:
     for pretty, (regs, spill) in zip(demangle(list(res)), res.values()):
         print(f"[build] {pretty.replace('(anonymous namespace)::', '')}: "
               f"{regs} registers, {spill} bytes spilled")
+    # the flash kernels, K2dw's copy and K2dt's pre-pass
     flash = {name: spill for name, (_, spill) in res.items()
-             if "flash" in name}
+             if any(part in name for part in ("flash", "pad_rows",
+                                              "tf32_split"))}
     spilled = [name for name, spill in flash.items() if spill]
     check(bool(flash) and not spilled, f"flash kernels spill: {spilled}")
     for kernel, source in (("K2dw", "flash_wide_wgmma_kernel"),
-                           ("K2dt", "flash_wide_tf32_kernel")):
+                           ("K2dw's copy", "pad_rows_kernel"),
+                           ("K2dt", "flash_wide_tf32_kernel"),
+                           ("K2dt's pre-pass", "tf32_split_kernel")):
         check(any(source in name for name in flash),
               f"no {kernel} ({source}) in ptxas's report")
-    # ptxas's notes on wgmma it had to serialise (none is expected)
-    for line in _native.log_path().read_text().splitlines():
-        if "Performance Loss" in line or "serializ" in line:
-            print(f"[build] ptxas: {line.strip()}")
+    # ptxas's notes on wgmma it had to serialise: none may stand
+    serialised = [line.strip() for line
+                  in _native.log_path().read_text().splitlines()
+                  if "Performance Loss" in line or "serializ" in line]
+    for line in serialised:
+        print(f"[build] ptxas: {line}")
+    check(not serialised, f"ptxas serialised wgmma: {serialised}")
 
 
 def phase_hbm(dev, kind) -> dict:
@@ -571,43 +579,51 @@ def phase_flash(dev, kind) -> dict:
     return main
 
 
-# K2w's, K2s's, K2dw's, K2dt's and K2d's grid: each dtype, the head-dim
-# buckets both K2w and K2s take and one D off them (96), 384 and 512 (K2dw
-# in 16 bits, K2s in f32), and heads past 512 (multiples of 128 and of
-# 256, 520 and 1000 off them: K2dw in 16 bits, K2dt in f32; 1001, off 8
-# and 4, K2d in every dtype), causal and full, at T = 1024 and at T that 64
-# does not divide (with the blocks the reference would take for them), over
-# 2 heads
+# K2w's, K2s's, K2dw's and K2dt's grid: each dtype, the head-dim buckets
+# both K2w and K2s take and one D off them (96), 300, 384 and 512 (K2dw in
+# 16 bits, K2s in f32), and heads past 512 (multiples of 128 and of 256,
+# 520 and 1000 off them: K2dw in 16 bits, K2dt in f32; 514, 1001 and 1020,
+# off 8, and 514 and 1001 off 4, through the padded row stride), causal and
+# full, at T = 1024 and at T that 64 does not divide (with the blocks the
+# reference would take for them), over 2 heads
 GRID_DTYPES = (torch.float32, torch.float16, torch.bfloat16)
-GRID_DIMS = (64, 96, 128, 256, 384, 512, 520, 640, 1000, 1001, 1024, 2048)
+GRID_DIMS = (64, 96, 128, 256, 300, 384, 512, 514, 520, 640, 1000, 1001,
+             1020, 1024, 2048)
 GRID_T = ((1024, (None, None)), (96, (32, 96)), (200, (40, 200)))
 # the shapes timed, (dtype, T, D, heads, causal, kernels timed beside the
 # routed one on the same input): each kernel's first is its entry in the
 # kernels line (Ulysses' head widths where the kernel is on that path: 256
 # on K2w, a rank's two heads of 1024 on K2dt in f32 and K2dw in bf16; K2s
-# at f32 [4096, 128], K2d beside K2dt at f32 [2, 4096, 1024]), then two
-# others on K2w, both attentions at the main path's shapes (Ulysses runs
-# both), one head of 1024, bf16 384 on K2dw (Ulysses' Dh = 384) beside
-# K2s, and K2dt beside K2s at f32 [4096, 384], a width the routing keeps
-# on K2s
+# at f32 [4096, 128]), then two others on K2w, both attentions at the main
+# path's shapes (Ulysses runs both) and at the heads off 4 and 8 that flash
+# by route drives (f32 1022 on K2dt, bf16 1020 on K2dw), one head of 1024,
+# bf16 384 on K2dw (Ulysses' Dh = 384) and 300 (off 8) beside K2s, K2s at
+# bf16 [4096, 100] (a 16-bit input it keeps), and K2dt beside K2s at f32
+# [4096, 384], a width the routing keeps on K2s
 TIMED = ((torch.bfloat16, 4096, 256, None, True, ()),
          (torch.float16, 4096, 128, None, True, ()),
          (torch.bfloat16, 4096, 64, None, True, ()),
          (torch.float32, 4096, 128, None, True, ()),
-         (torch.float32, 4096, 1024, 2, True, ("K2d",)),
-         (torch.float32, 4096, 1024, 2, False, ("K2d",)),
-         (torch.bfloat16, 4096, 1024, 2, True, ("K2d",)),
-         (torch.bfloat16, 4096, 1024, 2, False, ("K2d",)),
-         (torch.bfloat16, 4096, 1024, None, True, ("K2d",)),
+         (torch.float32, 4096, 1024, 2, True, ()),
+         (torch.float32, 4096, 1024, 2, False, ()),
+         (torch.float32, 4096, 1022, 2, True, ()),
+         (torch.float32, 4096, 1022, 2, False, ()),
+         (torch.bfloat16, 4096, 1024, 2, True, ()),
+         (torch.bfloat16, 4096, 1024, 2, False, ()),
+         (torch.bfloat16, 4096, 1020, 2, True, ()),
+         (torch.bfloat16, 4096, 1020, 2, False, ()),
+         (torch.bfloat16, 4096, 1024, None, True, ()),
          (torch.bfloat16, 4096, 384, None, True, ("K2s",)),
          (torch.bfloat16, 4096, 384, None, False, ("K2s",)),
+         (torch.bfloat16, 4096, 300, None, True, ("K2s",)),
+         (torch.bfloat16, 4096, 100, None, True, ()),
          (torch.float32, 4096, 384, None, True, ("K2dt",)))
 # K2w's keys a kv step at DP = 256
 SWEEP_BLOCK_K = (32, 64)
 # the wrapper that counts each kernel's launches
 WRAPPERS = {"K2": "flash_attention", "K2w": "flash_wgmma",
-            "K2s": "flash_generic", "K2d": "flash_wide",
-            "K2dw": "flash_wide_wgmma", "K2dt": "flash_wide_tf32"}
+            "K2s": "flash_generic", "K2dw": "flash_wide_wgmma",
+            "K2dt": "flash_wide_tf32"}
 
 
 def direct(name: str):
@@ -717,19 +733,17 @@ def sdpa_kernel_names(q, k, v, causal, backend: str) -> list[str]:
 def phase_flash_generic(dev, kind) -> list[dict]:
     """K2w (``csrc/flash_fwd.cu``'s template at any 16-bit input with D ≤
     256, D % 8 = 0), K2s (``csrc/flash_fwd_generic.cu``), K2dw
-    (``csrc/flash_fwd_wide_wgmma.cu``, 16-bit D > 256, D % 8 = 0), K2dt
-    (``csrc/flash_fwd_wide_tf32.cu``, f32 D > 512, D % 4 = 0) and K2d
-    (``csrc/flash_fwd_wide.cu``, the other inputs past 512) against the
-    plain version over the grid, through their own wrappers and through
+    (``csrc/flash_fwd_wide_wgmma.cu``, 16-bit D > 256) and K2dt
+    (``csrc/flash_fwd_wide_tf32.cu``, f32 D > 512) against the plain
+    version over the grid, through their own wrappers and through
     ``flash_attention``'s routing, with no CUDA call reaching the plain
-    version; K2d against K2s at D = 512, K2dw against K2d (K2s below 512)
-    and K2dt against K2d, K2dw and K2dt bit-equal on a second call; the
-    head dim K2s refuses and K2dt (f32), K2d (f32, D % 4 ≠ 0) and K2dw
-    (bf16) take; their times beside every SDPA backend at ``TIMED``, with
-    the kernels it names beside the routed one on the same input, and K2w's
-    sweep of kv-step keys at DP = 256."""
+    version; K2dw against K2s where both take the input, K2dw and K2dt
+    bit-equal on a second call; the head dims K2s refuses and K2dt (f32,
+    on and off 4) and K2dw (bf16, on and off 8) take; their times beside
+    every SDPA backend at ``TIMED``, with the kernels it names beside the
+    routed one on the same input, and K2w's sweep of kv-step keys at DP =
+    256."""
     from tpu_operator_torch.ops import flash_attention as flash
-    from tpu_operator_torch.parallel.numerics import attention_tolerance
     plain = flash.attention_plain
     plain_calls = []
 
@@ -738,10 +752,8 @@ def phase_flash_generic(dev, kind) -> list[dict]:
         return plain(*a, **kw)
     counters = {name: getattr(flash, fn) for name, fn in WRAPPERS.items()}
     gen = torch.Generator(device=dev).manual_seed(13)
-    worst = {"K2w": 0.0, "K2s": 0.0, "K2d": 0.0, "K2dw": 0.0, "K2dt": 0.0}
-    vs_k2s = 0.0   # K2d against K2s at D = 512: max abs difference
-    vs_k2d = 0.0   # K2dw against K2d (K2s below 512): share of the limit
-    vs_k2d_f32 = 0.0   # K2dt against K2d: share of the f32 tolerance
+    worst = {"K2w": 0.0, "K2s": 0.0, "K2dw": 0.0, "K2dt": 0.0}
+    vs_k2s = 0.0   # K2dw against K2s where both take it: share of the limit
     n_cases = 0
     for dtype in GRID_DTYPES:
         for d in GRID_DIMS:
@@ -756,8 +768,6 @@ def phase_flash_generic(dev, kind) -> list[dict]:
                            else [("K2s", flash.flash_generic)])
                     if route in ("K2", "K2w"):
                         own.append(("K2w", flash.flash_wgmma))
-                    if d >= flash.MAX_HEAD_DIM:
-                        own.append(("K2d", flash.flash_wide))
                     if route in ("K2dw", "K2dt"):
                         own.append((route, getattr(flash, WRAPPERS[route])))
                     before = {n: fn.launches for n, fn in counters.items()}
@@ -790,42 +800,30 @@ def phase_flash_generic(dev, kind) -> list[dict]:
                         shares.append(f"{name} {ratio:.3f}")
                     against = ""
                     by = dict(outs)
-                    if d == flash.MAX_HEAD_DIM:
-                        diff = (by["K2d"].float()
-                                - by["K2s"].float()).abs().max().item()
-                        vs_k2s = max(vs_k2s, diff)
-                        against = f"; |K2d - K2s| at most {diff:.3e}"
                     if route in ("K2dw", "K2dt"):
                         check(torch.equal(by[route], routed),
                               f"{route} {label}: two calls differ")
-                    if route == "K2dw":
-                        other = "K2d" if "K2d" in by else "K2s"
+                        against = "; the same bits twice"
+                    if route == "K2dw" and "K2s" in by:
                         _, limit = flash.kernel_error_limit(q, k, v,
                                                             causal=causal)
-                        share = limit_ratio(by["K2dw"], by[other].float(),
+                        share = limit_ratio(by["K2dw"], by["K2s"].float(),
                                             limit)
                         check(share <= 2.0, f"K2dw {label}: {share:.3f} of "
-                                            f"the limit from {other}")
-                        vs_k2d = max(vs_k2d, share)
-                        against = (f"; the same bits twice; |K2dw - {other}|"
-                                   f" {share:.3f} of the limit")
-                    if route == "K2dt":
-                        share = ((by["K2dt"] - by["K2d"]).abs().max().item()
-                                 / attention_tolerance(dtype, d, "cuda"))
-                        check(share <= 1.0, f"K2dt {label}: {share:.3f} of "
-                                            "the tolerance from K2d")
-                        vs_k2d_f32 = max(vs_k2d_f32, share)
-                        against = (f"; the same bits twice; |K2dt - K2d| "
-                                   f"{share:.3f} of the tolerance")
+                                            "the limit from K2s")
+                        vs_k2s = max(vs_k2s, share)
+                        against += (f"; |K2dw - K2s| {share:.3f} of the "
+                                    "limit")
                     n_cases += 1
-                    print(f"[K2w/K2s/K2d/K2dw/K2dt] {label} blocks "
+                    print(f"[K2w/K2s/K2dw/K2dt] {label} blocks "
                           f"{bq or 'default'}: "
                           f"routed to {route}; error "
                           + ", ".join(shares) + f" {of}{against}")
     check(not plain_calls, f"{len(plain_calls)} CUDA calls reached the "
                            "plain version")
     # K2s's own wrapper refuses D = 640; flash_attention takes it on K2dt
-    # (f32), K2dw (bf16), and D = 642 (f32, off 4) on K2d
+    # (f32) and K2dw (bf16), and D = 642 (f32, off 4) and 641 (bf16, off 8,
+    # odd) as well
     wide = torch.randn((64, 640), generator=gen, device=dev)
     try:
         flash.flash_generic(wide, wide, wide)
@@ -835,8 +833,10 @@ def phase_flash_generic(dev, kind) -> list[dict]:
         raise SmokeFailure("flash_generic took D=640")
     shares = []
     off4 = torch.randn((64, 642), generator=gen, device=dev)
+    off8 = torch.randn((64, 641), generator=gen, device=dev).to(
+        torch.bfloat16)
     for x, name in ((wide, "K2dt"), (wide.to(torch.bfloat16), "K2dw"),
-                    (off4, "K2d")):
+                    (off4, "K2dt"), (off8, "K2dw")):
         before = {n: fn.launches for n, fn in counters.items()}
         out = flash.flash_attention(x, x, x, causal=True)
         got = {n: fn.launches - before[n] for n, fn in counters.items()}
@@ -847,19 +847,17 @@ def phase_flash_generic(dev, kind) -> list[dict]:
         check(ratio <= 1.0, f"flash_attention at {x.dtype} D={x.shape[-1]}:"
                             f" error {ratio:.3f} {of}")
         shares.append(f"{name} {ratio:.3f} {of}")
-    print(f"[K2w/K2s/K2d/K2dw/K2dt] {n_cases} cases: within their limits "
+    print(f"[K2w/K2s/K2dw/K2dt] {n_cases} cases: within their limits "
           f"(worst share K2w {worst['K2w']:.3f}, K2s {worst['K2s']:.3f}, "
-          f"K2d {worst['K2d']:.3f}, K2dw {worst['K2dw']:.3f}, K2dt "
-          f"{worst['K2dt']:.3f}); K2d against K2s at D=512: max abs "
-          f"difference {vs_k2s:.3e}; K2dw against K2d (K2s below 512): at "
-          f"most {vs_k2d:.3f} of the limit; K2dt against K2d: at most "
-          f"{vs_k2d_f32:.3f} of the tolerance; K2dw and K2dt the same bits "
-          f"on a second call; no CUDA call reached the plain version; K2s "
-          f"refuses D=640, flash_attention takes it on K2dt in f32 and K2dw "
-          f"in bf16, and D=642 in f32 on K2d (error " + ", ".join(shares)
+          f"K2dw {worst['K2dw']:.3f}, K2dt {worst['K2dt']:.3f}); K2dw "
+          f"against K2s where both take it: at most {vs_k2s:.3f} of the "
+          f"limit; K2dw and K2dt the same bits on a second call; no CUDA call "
+          f"reached the plain version; K2s refuses D=640, flash_attention "
+          f"takes it on K2dt in f32 and K2dw in bf16, and D=642 in f32 on "
+          f"K2dt and D=641 in bf16 on K2dw (error " + ", ".join(shares)
           + ")")
 
-    timed = {"K2w": [], "K2s": [], "K2d": [], "K2dw": [], "K2dt": []}
+    timed = {"K2w": [], "K2s": [], "K2dw": [], "K2dt": []}
     sweep = {}
     for dtype, t, d, heads, causal, beside in TIMED:
         shape = (t, d) if heads is None else (heads, t, d)
@@ -881,7 +879,8 @@ def phase_flash_generic(dev, kind) -> list[dict]:
             print(f"[{route}] beside it on the same input: {name} "
                   f"{got['ms']:.4f} ms in a graph "
                   f"({got['ms'] / entry['ms']:.2f}x {route}'s time)")
-        if route == "K2dt" and causal:
+        if (route == "K2dt" and causal
+                and "EFFICIENT_ATTENTION" in refs["sdpa"]):
             names = sdpa_kernel_names(q, k, v, causal, "EFFICIENT_ATTENTION")
             print("[K2dt] torch.backends.cuda.matmul.allow_tf32 "
                   f"{torch.backends.cuda.matmul.allow_tf32}; "
@@ -901,8 +900,7 @@ def phase_flash_generic(dev, kind) -> list[dict]:
                       f"{block_k} keys a step: {sweep[block_k]:.4f} ms "
                       f"(error {ratio:.3f} {of})")
         del q, k, v
-    kw, ks, kd, kdw, kdt = (timed[n]
-                            for n in ("K2w", "K2s", "K2d", "K2dw", "K2dt"))
+    kw, ks, kdw, kdt = (timed[n] for n in ("K2w", "K2s", "K2dw", "K2dt"))
     return [{"name": "flash_fwd_wgmma", "route": "cuda",
              "source": "tpu_operator_torch/csrc/flash_fwd.cu",
              "replaces": "tpu_operator/ops/flash_attention.py:48",
@@ -913,24 +911,17 @@ def phase_flash_generic(dev, kind) -> list[dict]:
              "replaces": "tpu_operator/ops/flash_attention.py:48",
              **ks[0], "other_shapes": ks[1:],
              "grid_worst_share": worst["K2s"]},
-            {"name": "flash_fwd_wide", "route": "cuda",
-             "source": "tpu_operator_torch/csrc/flash_fwd_wide.cu",
-             "replaces": "tpu_operator/ops/flash_attention.py:48",
-             **kd[0], "other_shapes": kd[1:],
-             "grid_worst_share": worst["K2d"],
-             "vs_k2s_at_512_max_abs": vs_k2s},
             {"name": "flash_fwd_wide_wgmma", "route": "cuda",
              "source": "tpu_operator_torch/csrc/flash_fwd_wide_wgmma.cu",
              "replaces": "tpu_operator/ops/flash_attention.py:48",
              **kdw[0], "other_shapes": kdw[1:],
              "grid_worst_share": worst["K2dw"],
-             "vs_k2d_limit_share": vs_k2d},
+             "vs_k2s_limit_share": vs_k2s},
             {"name": "flash_fwd_wide_tf32", "route": "cuda",
              "source": "tpu_operator_torch/csrc/flash_fwd_wide_tf32.cu",
              "replaces": "tpu_operator/ops/flash_attention.py:48",
              **kdt[0], "other_shapes": kdt[1:],
-             "grid_worst_share": worst["K2dt"],
-             "vs_k2d_tolerance_share": vs_k2d_f32}]
+             "grid_worst_share": worst["K2dt"]}]
 
 
 # (name, wrapper, plain version, TPU kernel it replaces, rows per rank
@@ -1653,16 +1644,17 @@ ROUTE_SHAPES = ((torch.bfloat16, 1, 128, "K2"),
                 (torch.float32, 2, 128, "K2s"),
                 (torch.bfloat16, 2, 100, "K2s"),
                 (torch.float32, 2, 1024, "K2dt"),
-                (torch.float32, 2, 1022, "K2d"),
-                (torch.bfloat16, 2, 1020, "K2d"))
+                (torch.float32, 2, 1022, "K2dt"),
+                (torch.bfloat16, 2, 1020, "K2dw"))
 
 
 def phase_flash_routes() -> None:
     """``flash_attention``, the port's single-card attention, causal at T =
     4096 on one input of each row of ``kernel_for``'s table: each call must
     launch the kernel the table names, once, and no other, and its output
-    lie within its limit against the plain version (the path by which K2s
-    and K2d, which no Ulysses width reaches, serve a caller)."""
+    lie within its limit against the plain version (the path by which K2s,
+    and K2dw and K2dt at heads off 8 and 4, which no Ulysses width reaches,
+    serve a caller)."""
     from tpu_operator_torch.ops import flash_attention as flash
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(19)
@@ -4317,13 +4309,13 @@ def main() -> int:
           "flash_fwd_wgmma": flash_mod.flash_wgmma,
           "flash_fwd_wide_wgmma": flash_mod.flash_wide_wgmma,
           "flash_fwd_wide_tf32": flash_mod.flash_wide_tf32}),
-        # flash_attention on each row of the routing table: K2s and K2d
-        # serve callers there, at widths no Ulysses call reaches
+        # flash_attention on each row of the routing table: K2s serves
+        # callers there, and K2dw and K2dt at heads off 8 and 4, at widths
+        # no Ulysses call reaches
         ("flash by route", (phase_flash_routes,),
          {"flash_fwd": flash_mod.flash_attention,
           "flash_fwd_wgmma": flash_mod.flash_wgmma,
           "flash_fwd_generic": flash_mod.flash_generic,
-          "flash_fwd_wide": flash_mod.flash_wide,
           "flash_fwd_wide_wgmma": flash_mod.flash_wide_wgmma,
           "flash_fwd_wide_tf32": flash_mod.flash_wide_tf32}),
         ("health monitor", (phase_health_monitor, phase_health_probes),

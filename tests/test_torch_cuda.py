@@ -105,7 +105,7 @@ def test_flash_kernel_gives_the_same_bits_twice(cuda):
 
 def test_flash_kernel_rejects_what_it_cannot_take(cuda, monkeypatch):
     """Only a dtype outside f32, f16 and bf16 is refused; every other CUDA
-    input goes to K2, K2w, K2dw, K2s or (f32 heads above 512) K2dt or K2d,
+    input goes to K2, K2w, K2dw, K2s or K2dt, heads off 8 or 4 included,
     never to the plain version. K2s's and K2w's own wrappers refuse heads wider
     than theirs. bf16 with D = 128 and T a multiple of 64 keeps K2, whatever
     blocks were asked for."""
@@ -124,8 +124,8 @@ def test_flash_kernel_rejects_what_it_cannot_take(cuda, monkeypatch):
         flash_mod.flash_wgmma(wide16, wide16, wide16)
     xb = x.to(torch.bfloat16)
     counters = (flash_mod.flash_attention, flash_mod.flash_wgmma,
-                flash_mod.flash_generic, flash_mod.flash_wide,
-                flash_mod.flash_wide_wgmma, flash_mod.flash_wide_tf32)
+                flash_mod.flash_generic, flash_mod.flash_wide_wgmma,
+                flash_mod.flash_wide_tf32)
     counts = [fn.launches for fn in counters]
     flash_mod.flash_attention(xb, xb, xb, block_q=128, block_k=128)
     flash_mod.flash_attention(x, x, x)
@@ -133,8 +133,8 @@ def test_flash_kernel_rejects_what_it_cannot_take(cuda, monkeypatch):
     flash_mod.flash_attention(odd, odd, odd)
     off4 = torch.zeros((256, 642), device=cuda)
     flash_mod.flash_attention(off4, off4, off4)
-    flash_mod.flash_attention(wide16, wide16, wide16)
-    flash_mod.flash_attention(wide, wide, wide)
+    off8 = torch.zeros((256, 1001), device=cuda, dtype=torch.bfloat16)
+    flash_mod.flash_attention(off8, off8, off8)
     torch.cuda.synchronize()
     assert [fn.launches for fn in counters] == [n + 1 for n in counts]
 
@@ -169,41 +169,57 @@ def test_generic_kernel_matches_plain(cuda, dtype, d, causal):
         assert _within(out, q, k, v, causal), t
 
 
+# heads off 8 (16-bit) or 4 (f32) that K2dw and K2dt take through a padded
+# row stride, odd ones among them
+UNALIGNED = [(torch.float16, 257), (torch.float16, 1001),
+             (torch.bfloat16, 300), (torch.bfloat16, 1020),
+             (torch.bfloat16, 2049), (torch.float32, 513),
+             (torch.float32, 514), (torch.float32, 1001),
+             (torch.float32, 1022), (torch.float32, 2050)]
+
+
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("d", [520, 640, 1000, 1024, 2048, 512, 3, 100])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
-                                   torch.bfloat16])
+@pytest.mark.parametrize("dtype,d", UNALIGNED)
 def test_wide_kernel_matches_plain(cuda, dtype, d, causal):
-    """K2d over heads past 512 (multiples of its 256-column chunks and D
-    off them), and at D = 512 and below, where its wrapper takes what the
-    routing does not send it, at a T its 64-row tiles divide and ones they
-    do not, with two heads; the same bits on a second call."""
+    """K2dw and K2dt at heads off 8 or 4, at a T their 64-row tiles divide
+    and ones they do not, with two heads: through the wrapper the routing
+    names, within the limit, and the same bits on a second call."""
     gen = torch.Generator(device=cuda).manual_seed(d + 2)
+    wrapper = (flash_mod.flash_wide_tf32 if dtype == torch.float32
+               else flash_mod.flash_wide_wgmma)
+    assert flash_mod.padded_width(dtype, d) != d
     for t in (1024, 200, 96, 1):
         q, k, v = (torch.randn((2, t, d), generator=gen, device=cuda)
                    .to(dtype) for _ in range(3))
-        before = flash_mod.flash_wide.launches
-        out = flash_mod.flash_wide(q, k, v, causal=causal)
+        before = wrapper.launches
+        out = wrapper(q, k, v, causal=causal)
         torch.cuda.synchronize()
-        assert flash_mod.flash_wide.launches == before + 1
+        assert wrapper.launches == before + 1
         assert out.dtype == dtype and out.shape == q.shape
         assert _within(out, q, k, v, causal), t
-        assert torch.equal(out, flash_mod.flash_wide(q, k, v, causal=causal))
+        assert torch.equal(out, wrapper(q, k, v, causal=causal))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
                                    torch.bfloat16])
-def test_wide_kernel_against_the_generic_kernel_at_512(cuda, dtype):
-    """At D = 512, where both take the input, K2d and K2s agree within
-    the limit each is held to against the plain version."""
+def test_wide_kernel_against_the_generic_kernel_where_both_take_it(cuda,
+                                                                  dtype):
+    """At a head off 8 or 4 that K2s also takes (16-bit D = 300 on K2dw's
+    wrapper, f32 D = 510 on K2dt's launch, which its wrapper keeps for
+    K2s), the two agree within the limit each is held to against the
+    plain version."""
     gen = torch.Generator(device=cuda).manual_seed(5)
-    q, k, v = (torch.randn((2, 1024, 512), generator=gen, device=cuda)
+    d = 510 if dtype == torch.float32 else 300
+    q, k, v = (torch.randn((2, 1024, d), generator=gen, device=cuda)
                .to(dtype) for _ in range(3))
-    wide = flash_mod.flash_wide(q, k, v, causal=True)
+    if dtype == torch.float32:
+        wide = flash_mod._wide_tf32_launch(q, k, v, d ** -0.5, True)
+    else:
+        wide = flash_mod.flash_wide_wgmma(q, k, v, causal=True)
     generic = flash_mod.flash_generic(q, k, v, causal=True)
     assert _within(wide, q, k, v, True) and _within(generic, q, k, v, True)
     if dtype == torch.float32:
-        tol = attention_tolerance(dtype, 512, "cuda")
+        tol = attention_tolerance(dtype, d, "cuda")
         assert (wide - generic).abs().max().item() <= tol
     else:
         _, limit = flash_mod.kernel_error_limit(q, k, v, causal=True)
@@ -211,18 +227,23 @@ def test_wide_kernel_against_the_generic_kernel_at_512(cuda, dtype):
                      <= 2 * limit).all())
 
 
+def _zero_padded(x, width):
+    return torch.nn.functional.pad(x, (0, width - x.shape[-1]))
+
+
 WIDE_COUNTERS = ("flash_attention", "flash_wgmma", "flash_generic",
-                 "flash_wide", "flash_wide_wgmma", "flash_wide_tf32")
+                 "flash_wide_wgmma", "flash_wide_tf32")
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("d", [264, 384, 512, 520, 640, 1000, 1024, 2048,
-                               2304])
+@pytest.mark.parametrize("d", [264, 300, 384, 512, 520, 640, 1000, 1001,
+                               1020, 1024, 2048, 2304])
 @pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
 def test_wide_wgmma_kernel_matches_plain(cuda, monkeypatch, dtype, d, causal):
     """K2dw over 16-bit heads past 256 (multiples of its 256-column chunks
     and D off them: a last chunk of 8, 128 or 232 columns, and 2304's nine
-    chunks), at a T its 64-row tiles divide and ones they do not, two heads:
+    chunks; D = 300, 1001 and 1020, off 8, through the padded row stride),
+    at a T its 64-row tiles divide and ones they do not, two heads:
     within the per-element limit, through K2dw alone (its wrapper and the
     routing), and the same bits on a second call."""
     def refuse(*a, **kw):
@@ -248,28 +269,32 @@ def test_wide_wgmma_kernel_matches_plain(cuda, monkeypatch, dtype, d, causal):
 
 
 @pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
-def test_wide_wgmma_kernel_against_the_wide_kernel_at_1024(cuda, dtype):
-    """At D = 1024 K2dw and K2d (its CUDA-core kernel, called directly)
-    agree within the limit each is held to against the plain version."""
+def test_wide_wgmma_kernel_off_8_is_the_kernel_on_zero_padded_heads(cuda,
+                                                                   dtype):
+    """At D = 1020 and 1001 K2dw (its padded row stride, the tensor maps
+    filling zeros past D) gives the bits of K2dw at D = 1024 on the same
+    heads padded with zero columns at the same scale, cut back to D: the
+    pad columns enter no product."""
     gen = torch.Generator(device=cuda).manual_seed(6)
-    q, k, v = (torch.randn((2, 1024, 1024), generator=gen, device=cuda)
-               .to(dtype) for _ in range(3))
-    for causal in (True, False):
-        tensor = flash_mod.flash_wide_wgmma(q, k, v, causal=causal)
-        cores = flash_mod.flash_wide(q, k, v, causal=causal)
-        assert _within(tensor, q, k, v, causal)
-        assert _within(cores, q, k, v, causal)
-        _, limit = flash_mod.kernel_error_limit(q, k, v, causal=causal)
-        assert bool(((tensor.float() - cores.float()).abs()
-                     <= 2 * limit).all())
+    for d in (1020, 1001):
+        q, k, v = (torch.randn((2, 1024, d), generator=gen, device=cuda)
+                   .to(dtype) for _ in range(3))
+        for causal in (True, False):
+            got = flash_mod.flash_wide_wgmma(q, k, v, causal=causal)
+            padded = flash_mod.flash_wide_wgmma(
+                *(_zero_padded(x, 1024) for x in (q, k, v)),
+                sm_scale=1.0 / math.sqrt(d), causal=causal)
+            assert _within(got, q, k, v, causal)
+            assert torch.equal(got, padded[..., :d]), (d, causal)
 
 
 def test_wide_wgmma_wrapper_refuses_what_it_does_not_take(cuda):
-    """On the card K2dw's wrapper refuses f32, D = 256 and D = 1001 and
-    launches nothing; nothing falls back to K2d or the plain version."""
+    """On the card K2dw's wrapper refuses f32, D = 256 and D = 200 and
+    launches nothing; nothing falls back to another kernel or the plain
+    version."""
     before = {n: getattr(flash_mod, n).launches for n in WIDE_COUNTERS}
     for dtype, d in ((torch.float32, 1024), (torch.bfloat16, 256),
-                     (torch.float16, 1001)):
+                     (torch.float16, 200)):
         x = torch.zeros((128, d), device=cuda, dtype=dtype)
         with pytest.raises(ValueError, match="K2dw takes"):
             flash_mod.flash_wide_wgmma(x, x, x)
@@ -278,10 +303,12 @@ def test_wide_wgmma_wrapper_refuses_what_it_does_not_take(cuda):
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("d", [516, 520, 640, 1000, 1024, 2048])
+@pytest.mark.parametrize("d", [513, 514, 516, 520, 640, 1000, 1001, 1022,
+                               1024, 2048])
 def test_wide_tf32_kernel_matches_plain(cuda, monkeypatch, d, causal):
     """K2dt over f32 heads past 512 (multiples of its 256-column chunks and
-    D off them, D % 4 = 0: a last chunk of 4, 8, 128 or 232 columns), at a
+    D off them: a last chunk of 1 to 8, 128 or 232 columns; D = 513, 514,
+    1001 and 1022, off 4, through the padded row stride), at a
     T its 64-row tiles divide and ones they do not, two heads: within the
     f32 attention tolerance, through K2dt alone (its wrapper and the
     routing), and the same bits on a second call."""
@@ -307,19 +334,22 @@ def test_wide_tf32_kernel_matches_plain(cuda, monkeypatch, d, causal):
         assert torch.equal(out, routed), t
 
 
-def test_wide_tf32_kernel_against_the_wide_kernel_at_1024(cuda):
-    """At D = 1024 K2dt and K2d (exact f32 on CUDA cores, called directly)
-    agree within the f32 tolerance each is held to."""
+def test_wide_tf32_kernel_off_4_is_the_kernel_on_zero_padded_heads(cuda):
+    """At D = 1022 and 1001 K2dt (split copies at a padded row stride, the
+    tensor maps filling zeros past D) gives the bits of K2dt at D = 1024 on
+    the same heads padded with zero columns at the same scale, cut back to
+    D: the pad columns enter no product."""
     gen = torch.Generator(device=cuda).manual_seed(8)
-    q, k, v = (torch.randn((2, 1024, 1024), generator=gen, device=cuda)
-               for _ in range(3))
-    tol = attention_tolerance(torch.float32, 1024, "cuda")
-    for causal in (True, False):
-        tensor = flash_mod.flash_wide_tf32(q, k, v, causal=causal)
-        cores = flash_mod.flash_wide(q, k, v, causal=causal)
-        assert _within(tensor, q, k, v, causal)
-        assert _within(cores, q, k, v, causal)
-        assert (tensor - cores).abs().max().item() <= tol
+    for d in (1022, 1001):
+        q, k, v = (torch.randn((2, 1024, d), generator=gen, device=cuda)
+                   for _ in range(3))
+        for causal in (True, False):
+            got = flash_mod.flash_wide_tf32(q, k, v, causal=causal)
+            padded = flash_mod.flash_wide_tf32(
+                *(_zero_padded(x, 1024) for x in (q, k, v)),
+                sm_scale=1.0 / math.sqrt(d), causal=causal)
+            assert _within(got, q, k, v, causal)
+            assert torch.equal(got, padded[..., :d]), (d, causal)
 
 
 def test_wide_tf32_kernel_is_the_tf32_schedule(cuda):
@@ -343,11 +373,12 @@ def test_wide_tf32_kernel_is_the_tf32_schedule(cuda):
 
 
 def test_wide_tf32_wrapper_refuses_what_it_does_not_take(cuda):
-    """On the card K2dt's wrapper refuses 16-bit, D = 512 and D % 4 ≠ 0 and
-    launches nothing; nothing falls back to K2d or the plain version."""
+    """On the card K2dt's wrapper refuses 16-bit, D = 512 and D = 300 and
+    launches nothing; nothing falls back to another kernel or the plain
+    version."""
     before = {n: getattr(flash_mod, n).launches for n in WIDE_COUNTERS}
     for dtype, d in ((torch.bfloat16, 1024), (torch.float32, 512),
-                     (torch.float32, 1001)):
+                     (torch.float32, 300)):
         x = torch.zeros((128, d), device=cuda, dtype=dtype)
         with pytest.raises(ValueError, match="K2dt takes"):
             flash_mod.flash_wide_tf32(x, x, x)
@@ -357,7 +388,7 @@ def test_wide_tf32_wrapper_refuses_what_it_does_not_take(cuda):
 
 @pytest.mark.parametrize("cols", [768, 1026])
 def test_wide_tf32_kernel_refuses_a_narrow_workspace(cuda, cols):
-    """K2dt's C entry, like K2d's, refuses a partials workspace whose rows
+    """K2dt's C entry, like K2dw's, refuses a partials workspace whose rows
     are narrower than D rounded up to its 256-column chunks, or not a
     multiple of 4 floats, with cudaErrorInvalidValue and no launch."""
     from tpu_operator_torch import _native
@@ -374,25 +405,25 @@ def test_wide_tf32_kernel_refuses_a_narrow_workspace(cuda, cols):
     assert flash_mod.flash_wide_tf32.launches == before
 
 
-@pytest.mark.parametrize("cols", [768, 1026])
-def test_wide_kernel_refuses_a_narrow_workspace(cuda, cols):
-    """K2d's C entry refuses a partials workspace whose rows are narrower
-    than D rounded up to its 256-column chunks, or not a multiple of 4
-    floats, with cudaErrorInvalidValue and no launch."""
+def test_wide_wgmma_kernel_refuses_a_missing_pad_workspace(cuda):
+    """K2dw's C entry refuses a head off 8 (D = 1001) without the padded
+    workspace to copy it into, with cudaErrorInvalidValue and no launch."""
     from tpu_operator_torch import _native
-    q = torch.randn((1, 256, 1000), device=cuda).to(torch.bfloat16)
+    q = torch.randn((1, 256, 1001), device=cuda).to(torch.bfloat16)
     out, heads, work, _workspace = flash_mod._schedule(
         q, True, flash_mod.SPLIT, 1024)
-    err = _native.library().flash_fwd_wide(
-        q.data_ptr(), q.data_ptr(), q.data_ptr(), out.data_ptr(), *work, cols,
-        flash_mod.DTYPE_CODES[q.dtype], heads, 256, 1000, 1000 ** -0.5, 1,
-        torch.cuda.current_stream().cuda_stream)
+    before = flash_mod.flash_wide_wgmma.launches
+    err = _native.library().flash_fwd_wide_wgmma(
+        q.data_ptr(), q.data_ptr(), q.data_ptr(), out.data_ptr(), *work,
+        1024, None, flash_mod.DTYPE_CODES[q.dtype], heads, 256, 1001,
+        1001 ** -0.5, 1, torch.cuda.current_stream().cuda_stream)
     assert err == 1   # cudaErrorInvalidValue
+    assert flash_mod.flash_wide_wgmma.launches == before
 
 
 @pytest.mark.parametrize("cols", [768, 1026])
 def test_wide_wgmma_kernel_refuses_a_narrow_workspace(cuda, cols):
-    """K2dw's C entry, like K2d's, refuses a partials workspace whose rows
+    """K2dw's C entry, like K2dt's, refuses a partials workspace whose rows
     are narrower than D rounded up to its 256-column chunks, or not a
     multiple of 4 floats, with cudaErrorInvalidValue and no launch."""
     from tpu_operator_torch import _native
@@ -402,8 +433,8 @@ def test_wide_wgmma_kernel_refuses_a_narrow_workspace(cuda, cols):
     before = flash_mod.flash_wide_wgmma.launches
     err = _native.library().flash_fwd_wide_wgmma(
         q.data_ptr(), q.data_ptr(), q.data_ptr(), out.data_ptr(), *work, cols,
-        flash_mod.DTYPE_CODES[q.dtype], heads, 256, 1000, 1000 ** -0.5, 1,
-        torch.cuda.current_stream().cuda_stream)
+        None, flash_mod.DTYPE_CODES[q.dtype], heads, 256, 1000, 1000 ** -0.5,
+        1, torch.cuda.current_stream().cuda_stream)
     assert err == 1   # cudaErrorInvalidValue
     assert flash_mod.flash_wide_wgmma.launches == before
 
@@ -440,9 +471,10 @@ def test_wgmma_kernel_matches_plain(cuda, dtype, d, causal):
     (torch.float16, 512, 200, "K2dw"), (torch.bfloat16, 264, 96, "K2dw"),
     (torch.float32, 128, 512, "K2s"), (torch.float32, 512, 96, "K2s"),
     (torch.bfloat16, 640, 256, "K2dw"), (torch.float16, 1000, 200, "K2dw"),
-    (torch.float16, 1001, 200, "K2d"), (torch.bfloat16, 1001, 96, "K2d"),
+    (torch.float16, 1001, 200, "K2dw"), (torch.bfloat16, 1001, 96, "K2dw"),
+    (torch.bfloat16, 300, 200, "K2dw"), (torch.float16, 202, 96, "K2s"),
     (torch.float32, 1024, 96, "K2dt"), (torch.float32, 520, 200, "K2dt"),
-    (torch.float32, 1022, 96, "K2d")])
+    (torch.float32, 1022, 96, "K2dt"), (torch.float32, 513, 200, "K2dt")])
 def test_flash_attention_launches_the_kernel_the_routing_names(
         cuda, monkeypatch, dtype, d, t, kernel):
     def refuse(*a, **kw):
@@ -455,7 +487,6 @@ def test_flash_attention_launches_the_kernel_the_routing_names(
     counters = {"K2": flash_mod.flash_attention,
                 "K2w": flash_mod.flash_wgmma,
                 "K2s": flash_mod.flash_generic,
-                "K2d": flash_mod.flash_wide,
                 "K2dw": flash_mod.flash_wide_wgmma,
                 "K2dt": flash_mod.flash_wide_tf32}
     before = {name: fn.launches for name, fn in counters.items()}

@@ -5,7 +5,7 @@ inputs; which CUDA inputs go to K2, which to K2w, K2dw and K2s; what
 each wrapper refuses; and Ulysses at Dh = 256, 384, 512, 640 and 1024,
 which take the flash route as the reference does, and at a Dh off the
 multiples of 128, which runs dense as the reference does. Heads past 512
-(K2dw, K2dt, K2d) are held in ``tests/test_torch_flash_wide.py`` and
+(K2dw, K2dt) are held in ``tests/test_torch_flash_wide.py`` and
 ``tests/test_torch_flash_tf32.py``."""
 
 import jax
@@ -91,7 +91,7 @@ def test_routing_between_the_two_kernels(dtype, t, d, wgmma):
     (torch.bfloat16, 64, 4096, "K2w"),
     (torch.float16, 96, 96, "K2w"),
     (torch.bfloat16, 8, 1, "K2w"),
-    (torch.float16, 100, 256, "K2s"),       # D % 8 != 0: no TMA row stride
+    (torch.float16, 100, 256, "K2s"),       # D % 8 != 0 up to 256
     (torch.bfloat16, 3, 256, "K2s"),
     (torch.bfloat16, 384, 4096, "K2dw"),    # past K2w's widest bucket
     (torch.float16, 512, 1024, "K2dw"),
@@ -126,8 +126,8 @@ def test_head_dim_buckets(d, bucket):
 def test_what_the_kernels_refuse_raises(dtype, d, match):
     """Off the CPU, only a dtype outside f32/f16/bf16 is refused for what it
     is, and by K2s's own wrapper a head dim past 512 (``flash_attention``
-    takes those on K2dw, K2dt or K2d); a meta tensor, which no kernel takes, is refused
-    for its device."""
+    takes those on K2dw or K2dt); a meta tensor, which no kernel takes, is
+    refused for its device."""
     x = torch.empty((64, d), dtype=dtype, device="meta")
     wide = d > port.MAX_HEAD_DIM
     for fn in (port.flash_attention, port.flash_generic):
@@ -237,8 +237,8 @@ def test_ulysses_heads_past_512_take_flash_as_the_reference(dh, causal,
 
 def test_ulysses_past_the_widest_kernel_head_runs_dense(monkeypatch):
     """Dh = 600, past K2s's widest head but not a multiple of 128: dense,
-    by the reference's rule (K2d would take it, but the rule does not send
-    it), and equal to the reference's dense Ulysses."""
+    by the reference's rule (K2dw or K2dt would take it, but the rule does
+    not send it), and equal to the reference's dense Ulysses."""
     def refuse(*a, **kw):
         raise AssertionError("flash path taken")
     n, t, h, dh = 2, 16, 2, 600

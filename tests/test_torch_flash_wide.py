@@ -1,10 +1,10 @@
-"""Flash attention past K2s's widest head (D > 512): the routing between
-K2dw (16-bit, D % 8 = 0), K2dt (f32, D % 4 = 0) and K2d (the rest), their
-wrappers on the CPU,
-the workspace row they share, and the schedule both run, in plain
-PyTorch.
+"""Flash attention on the wide kernels: the routing of every 16-bit head
+past 256 to K2dw and every f32 head past 512 to K2dt, at any D (a head
+off 8 or 4 goes through a padded row stride, ``padded_width``), their
+wrappers on the CPU, the workspace row they share, and the schedule both
+run, in plain PyTorch.
 
-On the card K2d and K2dw cut the output's head dim into chunks of
+On the card K2dw and K2dt cut the output's head dim into chunks of
 ``WIDE_CHUNK`` columns, one block a (unit, chunk), and every block forms
 the scores from all of D again. ``flash_chunked_plain`` runs that schedule
 with the kernels' roundings. Both it and the port's ``flash_attention`` (on the CPU,
@@ -65,15 +65,54 @@ def test_flash_attention_past_512_matches_the_pallas_kernel(t, d, blocks,
     assert got.dtype == q.dtype and got.shape == q.shape
     tol = attention_tolerance(q.dtype, d)
     np.testing.assert_allclose(got.float().numpy(), want, rtol=tol, atol=tol)
-    # K2d's own wrapper computes the same on the CPU, and K2dw's where it
-    # takes the input (16-bit, D % 8 = 0)
-    torch.testing.assert_close(port.flash_wide(q, k, v, causal=causal), got,
-                               rtol=0, atol=0)
-    wrapper = {"K2dw": port.flash_wide_wgmma,
-               "K2dt": port.flash_wide_tf32}.get(port.kernel_for(q.dtype, d, t))
-    if wrapper is not None:
-        torch.testing.assert_close(wrapper(q, k, v, causal=causal), got,
-                                   rtol=0, atol=0)
+    # the routed kernel's own wrapper computes the same on the CPU
+    wrapper = WIDE_WRAPPERS[port.kernel_for(q.dtype, d, t)]
+    torch.testing.assert_close(wrapper(q, k, v, causal=causal), got, rtol=0,
+                               atol=0)
+
+
+WIDE_WRAPPERS = {"K2dw": port.flash_wide_wgmma, "K2dt": port.flash_wide_tf32}
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype,t,d,blocks", [
+    ("float16", 64, 1001, (64, 32)), ("bfloat16", 96, 300, (32, 96)),
+    ("bfloat16", 64, 1020, (64, 64)), ("float32", 128, 514, (64, 64)),
+    ("float32", 64, 1001, (64, 32))])
+def test_unaligned_heads_match_the_pallas_kernel(dtype, t, d, blocks,
+                                                 causal):
+    """The heads off 8 (16-bit) or 4 (f32) that K2dw and K2dt now take
+    through a padded row stride: ``flash_attention`` and the wrapper the
+    routing names (on the CPU, the plain version) against the reference's
+    Pallas kernel in interpret mode, within the attention tolerance."""
+    arrays, want = _case(dtype, (t, d), causal, blocks)
+    q, k, v = _torch(arrays, dtype)
+    assert port.padded_width(q.dtype, d) != d
+    kernel = port.kernel_for(q.dtype, d, t)
+    assert kernel == ("K2dt" if dtype == "float32" else "K2dw")
+    tol = attention_tolerance(q.dtype, d)
+    for got in (port.flash_attention(q, k, v, causal=causal,
+                                     block_q=blocks[0], block_k=blocks[1]),
+                WIDE_WRAPPERS[kernel](q, k, v, causal=causal)):
+        assert got.dtype == q.dtype and got.shape == q.shape
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=tol,
+                                   atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
+def test_padded_width_gives_a_16_byte_row_and_no_chunk_more(dtype):
+    """For every D from 257 to 4096: the padded row is a multiple of 16
+    bytes, less than one 16-byte group past D, and holds the same number
+    of 256-column chunks as D."""
+    size = torch.empty((), dtype=dtype).element_size()
+    group = 16 // size
+    for d in range(257, 4097):
+        dp = port.padded_width(dtype, d)
+        assert dp * size % 16 == 0, d
+        assert 0 <= dp - d < group, d
+        assert -(-dp // port.WIDE_CHUNK) == -(-d // port.WIDE_CHUNK), d
+        assert port.wide_columns(dp) == port.wide_columns(d), d
 
 
 # T = 200: four q tiles, the last one short; blocks the reference takes
@@ -183,66 +222,75 @@ def test_a_wrong_chunk_is_rejected_by_the_limit(dtype, causal, fault):
 @pytest.mark.parametrize("d", [513, 600, 1024, 2048])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
                                    torch.bfloat16])
-def test_kernel_for_sends_every_head_past_512_to_k2d(dtype, d, t):
-    """Past 512, 16-bit heads with D % 8 = 0 go to K2dw and f32 heads with
-    D % 4 = 0 to K2dt (the tensor-core kernels); D = 513 stays on K2d."""
-    if d % 8 == 0 and dtype != torch.float32:
-        want = "K2dw"
-    elif d % 4 == 0 and dtype == torch.float32:
-        want = "K2dt"
-    else:
-        want = "K2d"
+def test_kernel_for_sends_every_head_past_512_to_a_tensor_core_kernel(
+        dtype, d, t):
+    """Past 512, 16-bit heads go to K2dw and f32 heads to K2dt, D = 513
+    and 600 (off 8, and 513 off 4) as much as the aligned ones."""
+    want = "K2dt" if dtype == torch.float32 else "K2dw"
     assert port.kernel_for(dtype, d, t) == want
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
                                    torch.bfloat16])
 def test_kernel_for_keeps_512_and_below_where_they_were(dtype):
-    """K2w and K2s keep the inputs up to 512 they took before K2d, but for
-    16-bit heads past 256 with D % 8 = 0, which K2dw takes."""
+    """K2w and K2s keep the inputs up to 512 they took, but for 16-bit
+    heads past 256, which K2dw takes at any D."""
     wide = "K2s" if dtype == torch.float32 else "K2dw"
     assert port.kernel_for(dtype, 512, 4096) == wide
     assert port.kernel_for(dtype, 384, 4096) == wide
+    assert port.kernel_for(dtype, 300, 4096) == wide
     assert port.kernel_for(dtype, 256, 4096) == (
         "K2s" if dtype == torch.float32 else "K2w")
+    assert port.kernel_for(dtype, 250, 4096) == "K2s"
+
+
+COUNTERS = ("flash_attention", "flash_wgmma", "flash_generic",
+            "flash_wide_wgmma", "flash_wide_tf32")
 
 
 def test_wide_wrapper_on_the_cpu_launches_nothing():
-    counters = (port.flash_attention, port.flash_wgmma, port.flash_generic,
-                port.flash_wide, port.flash_wide_wgmma)
-    before = [fn.launches for fn in counters]
+    """K2dw's and K2dt's wrappers at heads off 8 and 4 (f16 D = 1001, f32
+    D = 514) on CPU tensors are the plain version, bit for bit, as is the
+    routing, and launch nothing."""
+    before = [getattr(port, n).launches for n in COUNTERS]
     rng = np.random.default_rng(5)
-    q, k, v = (torch.from_numpy(rng.standard_normal((2, 64, 640),
-                                                    dtype=np.float32))
-               .to(torch.float16) for _ in range(3))
-    got = port.flash_wide(q, k, v, sm_scale=0.05, causal=True)
-    torch.testing.assert_close(
-        got, port.attention_plain(q, k, v, 0.05, causal=True), rtol=0,
-        atol=0)
-    port.flash_attention(q, k, v, causal=True)
-    # K2d's wrapper takes any head dim, so the card can hold it against K2s
-    small = q[..., :40].contiguous()
-    assert port.flash_wide(small, small, small).shape == small.shape
-    assert [fn.launches for fn in counters] == before
+    for dtype, d, wrapper in ((torch.float16, 1001, port.flash_wide_wgmma),
+                              (torch.float32, 514, port.flash_wide_tf32)):
+        q, k, v = (torch.from_numpy(rng.standard_normal((2, 64, d),
+                                                        dtype=np.float32))
+                   .to(dtype) for _ in range(3))
+        got = wrapper(q, k, v, sm_scale=0.05, causal=True)
+        want = port.attention_plain(q, k, v, 0.05, causal=True)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        torch.testing.assert_close(
+            port.flash_attention(q, k, v, sm_scale=0.05, causal=True), want,
+            rtol=0, atol=0)
+    assert [getattr(port, n).launches for n in COUNTERS] == before
 
 
-def test_wide_wrapper_refuses_what_no_kernel_takes():
-    x = torch.empty((64, 640), dtype=torch.float64, device="meta")
+@pytest.mark.parametrize("wrapper,dtype,name", [
+    (port.flash_wide_wgmma, torch.bfloat16, "K2dw"),
+    (port.flash_wide_tf32, torch.float32, "K2dt")])
+def test_wide_wrapper_refuses_what_no_kernel_takes(wrapper, dtype, name):
+    """At an unaligned head (D = 1001) each wide wrapper refuses another
+    dtype, a device that is not the card's and mismatched shapes before it
+    launches; ``flash_attention`` refuses a dtype no kernel takes."""
+    x = torch.empty((64, 1001), dtype=torch.float64, device="meta")
+    with pytest.raises(ValueError, match=f"{name} takes float"):
+        wrapper(x, x, x)
     with pytest.raises(ValueError, match="take float32, float16 and bfloat16"):
-        port.flash_wide(x, x, x)
-    y = torch.empty((64, 640), device="meta")
+        port.flash_attention(x, x, x)
+    y = torch.empty((64, 1001), dtype=dtype, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
-        port.flash_wide(y, y, y)
+        wrapper(y, y, y)
     with pytest.raises(ValueError, match="share a"):
-        port.flash_wide(y, y[:32], y)
+        wrapper(y, y[:32], y)
 
 
 def test_wide_wgmma_wrapper_on_the_cpu_runs_the_plain_version():
     """K2dw's wrapper on CPU tensors is the plain version, bit for bit, and
     launches no kernel."""
-    counters = (port.flash_attention, port.flash_wgmma, port.flash_generic,
-                port.flash_wide, port.flash_wide_wgmma)
-    before = [fn.launches for fn in counters]
+    before = [getattr(port, n).launches for n in COUNTERS]
     rng = np.random.default_rng(6)
     for dtype in (torch.float16, torch.bfloat16):
         q, k, v = (torch.from_numpy(rng.standard_normal((2, 96, 1024),
@@ -254,16 +302,16 @@ def test_wide_wgmma_wrapper_on_the_cpu_runs_the_plain_version():
             torch.testing.assert_close(
                 got, port.attention_plain(q, k, v, 0.04, causal=causal),
                 rtol=0, atol=0)
-    assert [fn.launches for fn in counters] == before
+    assert [getattr(port, n).launches for n in COUNTERS] == before
 
 
 @pytest.mark.parametrize("dtype,d,match", [
     (torch.float32, 1024, "takes float16 and bfloat16"),
-    (torch.bfloat16, 256, "above 256 that is a multiple of 8, got 256"),
-    (torch.float16, 1001, "above 256 that is a multiple of 8, got 1001")])
+    (torch.bfloat16, 256, "above 256, got 256"),
+    (torch.float16, 200, "above 256, got 200")])
 def test_wide_wgmma_wrapper_refuses_what_it_does_not_take(dtype, d, match):
-    """f32, D = 256 and D = 1001 are refused before any device is asked:
-    K2dt, K2w or K2d takes them, never K2dw."""
+    """f32, D = 256 and D = 200 are refused before any device is asked:
+    K2dt, K2w or K2s takes them, never K2dw."""
     x = torch.empty((64, d), dtype=dtype, device="meta")
     with pytest.raises(ValueError, match=match):
         port.flash_wide_wgmma(x, x, x)
@@ -284,13 +332,34 @@ def test_wide_columns_hold_every_chunk_block():
 def test_wide_wgmma_wrapper_takes_what_the_routing_sends_it():
     """For every D from 513 to 4096 and every dtype, K2dw's wrapper takes
     an input (and then asks for its device) exactly where ``kernel_for``
-    names K2dw, and refuses it where ``kernel_for`` names K2dt or K2d."""
+    names K2dw, and refuses it where ``kernel_for`` names K2dt."""
     for dtype in (torch.float32, torch.float16, torch.bfloat16):
         for d in range(513, 4097):
             x = torch.empty((64, d), dtype=dtype, device="meta")
             kernel = port.kernel_for(dtype, d, 64)
-            assert kernel in ("K2dw", "K2dt", "K2d"), (dtype, d)
+            assert kernel in ("K2dw", "K2dt"), (dtype, d)
             match = ("unsupported device" if kernel == "K2dw"
                      else "K2dw takes")
             with pytest.raises(ValueError, match=match):
                 port.flash_wide_wgmma(x, x, x)
+
+
+@pytest.mark.parametrize("wrapper,dtype,d", [
+    (port.flash_wide_wgmma, torch.float16, 388),
+    (port.flash_wide_wgmma, torch.bfloat16, 1001),
+    (port.flash_wide_tf32, torch.float32, 514),
+    (port.flash_wide_tf32, torch.float32, 1001)])
+def test_wide_wrappers_take_heads_they_used_to_refuse(wrapper, dtype, d):
+    """Heads off 8 (16-bit) or 4 (f32), which the wide wrappers refused
+    before they took a padded row stride: accepted (a meta tensor then
+    fails only for its device), and on the CPU the plain version."""
+    x = torch.empty((64, d), dtype=dtype, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        wrapper(x, x, x)
+    rng = np.random.default_rng(d)
+    q, k, v = (torch.from_numpy(rng.standard_normal((96, d),
+                                                    dtype=np.float32))
+               .to(dtype) for _ in range(3))
+    torch.testing.assert_close(wrapper(q, k, v, causal=True),
+                               port.attention_plain(q, k, v, causal=True),
+                               rtol=0, atol=0)

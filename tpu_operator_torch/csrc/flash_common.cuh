@@ -1,11 +1,11 @@
 // What the flash-attention kernels share: K2 and K2w (flash_fwd.cu), K2s
-// (flash_fwd_generic.cu), K2d (flash_fwd_wide.cu), K2dw
-// (flash_fwd_wide_wgmma.cu) and K2dt (flash_fwd_wide_tf32.cu) run the same
-// work list of units (ops/flash_attention.py::work_list; K2d, K2dw and K2dt
-// cut each unit by output columns) and merge the units of a split q tile
-// with the same kernel, whose row stride is an argument. The tensor-core
-// kernels (K2, K2w, K2dw, K2dt) share their mbarrier, TMA and wgmma tools,
-// the tensor maps and the online softmax on a wgmma fragment.
+// (flash_fwd_generic.cu), K2dw (flash_fwd_wide_wgmma.cu) and K2dt
+// (flash_fwd_wide_tf32.cu) run the same work list of units
+// (ops/flash_attention.py::work_list; K2dw and K2dt cut each unit by output
+// columns) and merge the units of a split q tile with the same kernel, whose
+// row stride is an argument. The tensor-core kernels (K2, K2w, K2dw, K2dt)
+// share their mbarrier, TMA and wgmma tools, the tensor maps and the online
+// softmax on a wgmma fragment.
 //
 // A unit is an int4 (row tile, first kv tile, end kv tile, slot): row tile =
 // head * ceil(T / 64) + q tile, kv tiles of 64 keys, slot -1 where the unit
@@ -613,18 +613,21 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// [heads][T][D] 16-bit as a 3-D map (D, T, heads) in boxes of 64 columns by
-// `rows` rows of one head, 128-byte swizzle; reads past D or T fill zeros
+// [heads][T][stride] 16-bit as a 3-D map (D, T, heads) in boxes of 64
+// columns by `rows` rows of one head, 128-byte swizzle; reads past D or T
+// fill zeros, so columns D .. stride - 1 are never read. TMA needs the row
+// stride, stride * 2 bytes, to be a multiple of 16.
 template <typename T>
-inline bool tile_map(CUtensorMap* map, const void* ptr, int heads, int t_len, int d,
-              int rows) {
+inline bool tile_map(CUtensorMap* map, const void* ptr, int heads, int t_len,
+                     int d, int stride, int rows) {
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
+  const cuuint64_t row = static_cast<cuuint64_t>(stride);
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d),
                               static_cast<cuuint64_t>(t_len),
                               static_cast<cuuint64_t>(heads)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * 2,
-                                 static_cast<cuuint64_t>(t_len) * d * 2};
+  const cuuint64_t strides[2] = {row * 2, static_cast<cuuint64_t>(t_len) *
+                                              row * 2};
   const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t steps[3] = {1, 1, 1};
   const CUtensorMapDataType type = std::is_same<T, __half>::value
@@ -636,19 +639,20 @@ inline bool tile_map(CUtensorMap* map, const void* ptr, int heads, int t_len, in
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// [outer][rows][inner] f32 as a 3-D map (inner, rows, outer) in boxes of
+// [outer][rows][stride] f32 as a 3-D map (inner, rows, outer) in boxes of
 // 32 elements (one 128-byte row) by `box_rows` rows of one outer index,
-// 128-byte swizzle; reads past inner or rows fill zeros. TMA needs the row
-// stride, inner * 4 bytes, to be a multiple of 16.
+// 128-byte swizzle; reads past inner or rows fill zeros, so columns inner ..
+// stride - 1 are never read. TMA needs the row stride, stride * 4 bytes, to
+// be a multiple of 16.
 inline bool tile_map_f32(CUtensorMap* map, const void* ptr, int outer,
-                         int rows, int inner, int box_rows) {
+                         int rows, int inner, int stride, int box_rows) {
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(inner),
                               static_cast<cuuint64_t>(rows),
                               static_cast<cuuint64_t>(outer)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(inner) * 4,
-                                 static_cast<cuuint64_t>(rows) * inner * 4};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(stride) * 4,
+                                 static_cast<cuuint64_t>(rows) * stride * 4};
   const cuuint32_t box[3] = {32, static_cast<cuuint32_t>(box_rows), 1};
   const cuuint32_t steps[3] = {1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,

@@ -279,9 +279,9 @@ template <typename T, int DP, int BK, bool kBounded>
 int launch(const Args& a) {
   using L = Smem<DP, BK>;
   CUtensorMap tq, tk, tv;
-  if (!flash::tile_map<T>(&tq, a.q, a.heads, a.t_len, a.d, kBlockQ) ||
-      !flash::tile_map<T>(&tk, a.k, a.heads, a.t_len, a.d, BK) ||
-      !flash::tile_map<T>(&tv, a.v, a.heads, a.t_len, a.d, BK))
+  if (!flash::tile_map<T>(&tq, a.q, a.heads, a.t_len, a.d, a.d, kBlockQ) ||
+      !flash::tile_map<T>(&tk, a.k, a.heads, a.t_len, a.d, a.d, BK) ||
+      !flash::tile_map<T>(&tv, a.v, a.heads, a.t_len, a.d, a.d, BK))
     return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = flash_fwd_kernel<T, DP, BK, kBounded>;
   cudaError_t err = cudaFuncSetAttribute(

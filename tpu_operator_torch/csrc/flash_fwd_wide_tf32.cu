@@ -1,19 +1,19 @@
 // Flash-attention forward on the tensor cores for f32 heads past 512 (K2dt):
-// softmax(q k^T * scale) v over [H, T, D] f32 inputs with D % 4 == 0 (the
-// routing sends it D > 512), any T, causal or full, every product in three
-// TF32 products (3xTF32), so that the scores and the output keep f32 grade.
+// softmax(q k^T * scale) v over [H, T, D] f32 inputs, any D (the routing
+// sends it D > 512), any T, causal or full, every product in three TF32
+// products (3xTF32), so that the scores and the output keep f32 grade.
 //
 // Replaces tpu_operator/ops/flash_attention.py::_flash_kernel for those
 // inputs (the Pallas kernel takes any [T, D], with a [block_q, D] f32
-// accumulator in VMEM), which K2d (flash_fwd_wide.cu) ran on CUDA cores.
+// accumulator in VMEM).
 //
 // Bound on an H100: the operations. 4 D T(T+1)/2 f32 flops a head causal
 // (4 D T^2 full). On CUDA cores (67 TFLOP/s) that is 1.026 ms at [2, 4096,
 // 1024] causal; here each f32 product is three TF32 products at 495
 // TFLOP/s, 165 TFLOP/s of f32 work: 0.417 ms. Its 4 T D f32 elements a
 // head take 0.04 ms at 3.35 TB/s, the split copies below 0.12 ms more.
-// What held K2d back, and what this design does:
-//   1. f32 FMAs on CUDA cores (28.8 TFLOP/s executed against 67). A single
+// What the design does about it:
+//   1. The products run on wgmma, not as f32 FMAs on CUDA cores. A single
 //      TF32 product errs about 1e-3, twenty times attention_tolerance(f32,
 //      D, "cuda"), so the products are split: x = big + small, big =
 //      tf32(x), small = tf32(x - big), and a product is small*big +
@@ -22,21 +22,22 @@
 //      out. Rounding is to nearest, ties away from zero, by bit mask
 //      ((bits + 0x1000) & ~0x1fff), as ops/flash_attention.py::tf32_split
 //      does on the CPU: the tensor core is never handed low bits to drop.
-//   2. The scores formed again for each 256-column output chunk, (D/256 +
-//      1)/2 times the least work (2.5x at D = 1024): kept, as in K2d and
-//      K2dw; partial scores of D slices summed through distributed shared
-//      memory would remove them (open, ROADMAP.md).
+//   2. The scores are formed again for each 256-column output chunk, (D/256
+//      + 1)/2 times the least work (2.5x at D = 1024): kept, as in K2dw;
+//      partial scores of D slices summed through distributed shared memory
+//      would remove them (open, ROADMAP.md).
 //
 // Design:
-//   - A pre-pass writes the split copies once a call: Q and K as [2H][T][D]
-//     (heads 0 .. H-1 the big parts, H .. 2H-1 the small), and V transposed
-//     to [2H][D][Tp] (Tp = T rounded up to 64, zeros past T), since a tf32
-//     wgmma reads only K-major operands from shared memory and V's [keys,
-//     columns] tile is MN-major as the B operand of P V; its keys are
-//     permuted within each group of 8 to match P's A fragment (a_order).
-//     The copies are twice the inputs' bytes, written and read once: 0.12
-//     ms at 3.35 TB/s at [2, 4096, 1024], against the kernel's
-//     milliseconds.
+//   - A pre-pass writes the split copies once a call: Q and K as
+//     [2H][T][Dp] (heads 0 .. H-1 the big parts, H .. 2H-1 the small; Dp =
+//     D rounded up to 4, the row stride TMA takes, its pad columns never
+//     written or read), and V transposed to [2H][D][Tp] (Tp = T rounded up
+//     to 64, zeros past T), since a tf32 wgmma reads only K-major operands
+//     from shared memory and V's [keys, columns] tile is MN-major as the B
+//     operand of P V; its keys are permuted within each group of 8 to match
+//     P's A fragment (a_order). The copies are twice the inputs' bytes,
+//     written and read once: 0.12 ms at 3.35 TB/s at [2, 4096, 1024],
+//     against the kernel's milliseconds.
 //   - The schedule is K2dw's (flash_fwd_wide_wgmma.cu): the units of
 //     flash_common.cuh, each cut into ceil(D / 256) chunks of kDC = 256
 //     output columns, one block a (unit, chunk); the same partial workspace
@@ -65,10 +66,11 @@
 //   - Registers: 128 for O, 32 for S, then 64 for P's two parts while P V
 //     runs; ptxas's count is in the build log (chip_smoke.py's [build]
 //     lines).
-//   - Ragged shapes: 3-D tensor maps, so TMA fills zeros past D and T; keys
-//     past T are masked with the reference's -1e30, rows past T and
-//     columns past D are not stored. TMA needs a 16-byte row stride: D % 4
-//     == 0 (Tp is a multiple of 64).
+//   - Ragged shapes: 3-D tensor maps whose inner dim is D, so TMA fills
+//     zeros past D (the pad columns of the split copies) and past T; keys
+//     past T are masked with the reference's -1e30, rows past T and columns
+//     past D are not stored. The output's rows are D floats: a pair of
+//     columns goes as one float2 where D is even, else column by column.
 //   - m and l agree bit for bit across a unit's chunk blocks: each forms S
 //     from the same split copies with the same wgmma sequence over D's
 //     chunks in the same order, and V enters neither. A split unit's chunk
@@ -230,20 +232,53 @@ __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[128],
 
 // ---- the pre-pass: split copies ---------------------------------------------
 
-// x [n4 float4s] -> out [2][n4]: the big parts, then the small parts
+// x [rows][d] -> out [2][rows][dp]: the big parts, then the small parts, at
+// a row stride of dp >= d; the pad columns d .. dp - 1 are not written.
+// Where dp == d, as float4s over the flat array; else row by row, a block a
+// row at a time, each thread loading four columns before it stores any (a
+// source row starts on a 4-byte boundary only).
 __global__ void __launch_bounds__(256)
-tf32_split_kernel(const float4* __restrict__ x, float4* __restrict__ out,
-                  size_t n4) {
-  for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
-       i < n4; i += static_cast<size_t>(gridDim.x) * blockDim.x) {
-    const float4 a = x[i];
-    float4 big, small;
-    tf32_parts(a.x, big.x, small.x);
-    tf32_parts(a.y, big.y, small.y);
-    tf32_parts(a.z, big.z, small.z);
-    tf32_parts(a.w, big.w, small.w);
-    out[i] = big;
-    out[n4 + i] = small;
+tf32_split_kernel(const float* __restrict__ x, float* __restrict__ out,
+                  int rows, int d, int dp) {
+  const size_t plane = static_cast<size_t>(rows) * dp;
+  if (dp == d) {   // d % 4 == 0
+    const float4* x4 = reinterpret_cast<const float4*>(x);
+    float4* out4 = reinterpret_cast<float4*>(out);
+    const size_t n4 = plane / 4;
+    for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) +
+                    threadIdx.x;
+         i < n4; i += static_cast<size_t>(gridDim.x) * blockDim.x) {
+      const float4 a = x4[i];
+      float4 big, small;
+      tf32_parts(a.x, big.x, small.x);
+      tf32_parts(a.y, big.y, small.y);
+      tf32_parts(a.z, big.z, small.z);
+      tf32_parts(a.w, big.w, small.w);
+      out4[i] = big;
+      out4[n4 + i] = small;
+    }
+    return;
+  }
+  for (int r = blockIdx.x; r < rows; r += gridDim.x) {
+    const float* src = x + static_cast<size_t>(r) * d;
+    float* dst = out + static_cast<size_t>(r) * dp;
+    for (int c0 = threadIdx.x; c0 < d; c0 += 4 * blockDim.x) {
+      float a[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = c0 + e * blockDim.x;
+        a[e] = c < d ? src[c] : 0.f;
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = c0 + e * blockDim.x;
+        if (c >= d) break;
+        float big, small;
+        tf32_parts(a[e], big, small);
+        dst[c] = big;
+        dst[plane + c] = small;
+      }
+    }
   }
 }
 
@@ -286,9 +321,9 @@ tf32_split_transpose_kernel(const float* __restrict__ v,
 
 // Block b takes unit b / n_chunks and output columns [256 c, 256 c + 256),
 // c = b % n_chunks. The wgmma fragments are K2dw's: thread t holds rows r0
-// and r0 + 8. tq and tk map the split copies [2H][T][D] (big parts at head
+// and r0 + 8. tq and tk map the split copies [2H][T][Dp] (big parts at head
 // h, small at H + h), tv the transposed one [2H][D][Tp]; part_acc rows are
-// acc_cols floats.
+// acc_cols floats; o rows are d floats.
 __global__ void __launch_bounds__(kThreads, 1)
 flash_wide_tf32_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
@@ -486,11 +521,18 @@ flash_wide_tf32_kernel(const __grid_constant__ CUtensorMap tq,
         float* dst = o + (static_cast<size_t>(head) * t_len + row) * d + c0;
 #pragma unroll
         for (int c8 = 0; c8 < kDC / 8; ++c8) {
-          // D % 4 == 0: a pair inside D starts inside it
-          if (c0 + 8 * c8 + 2 * quad >= d) continue;
-          *reinterpret_cast<float2*>(dst + 8 * c8 + 2 * quad) =
-              make_float2(acc[4 * c8 + 2 * h] * inv,
-                          acc[4 * c8 + 2 * h + 1] * inv);
+          const int col = c0 + 8 * c8 + 2 * quad;
+          if (col >= d) break;
+          const float a = acc[4 * c8 + 2 * h] * inv;
+          const float b = acc[4 * c8 + 2 * h + 1] * inv;
+          if (d % 2 == 0) {
+            // an even row: the pair is 8-byte aligned and ends inside it
+            *reinterpret_cast<float2*>(dst + 8 * c8 + 2 * quad) =
+                make_float2(a, b);
+          } else {
+            dst[8 * c8 + 2 * quad] = a;
+            if (col + 1 < d) dst[8 * c8 + 2 * quad + 1] = b;
+          }
         }
       }
     }
@@ -499,14 +541,15 @@ flash_wide_tf32_kernel(const __grid_constant__ CUtensorMap tq,
 
 }  // namespace
 
-// q, k, v, o: [heads, T, D] f32 contiguous, 16-byte aligned; D % 4 == 0,
-// T >= 1. units, merges, part_acc and part_ml as for flash_fwd_wide
-// (flash_fwd_wide.cu): part_acc f32 [slots][64][acc_cols], acc_cols a
+// q, k, v, o: [heads, T, D] f32 contiguous, 16-byte aligned; any D >= 1, T
+// >= 1. units, merges, part_acc and part_ml as for flash_fwd_wide_wgmma
+// (flash_fwd_wide_wgmma.cu): part_acc f32 [slots][64][acc_cols], acc_cols a
 // multiple of 4 and at least D rounded up to a multiple of 256. split_q and
-// split_k: f32 [2 heads][T][D]; split_v: f32 [2 heads][D][tp], tp = T
-// rounded up to 64; the pre-pass writes all three. Runs on `stream`;
-// returns cudaGetLastError() after the launches (cudaErrorInvalidValue for
-// another D, T, tp or acc_cols, or a refused tensor map).
+// split_k: f32 [2 heads][T][Dp], Dp = D rounded up to 4; split_v: f32 [2
+// heads][D][tp], tp = T rounded up to 64; the pre-pass writes all three
+// (not split_q's and split_k's pad columns). Runs on `stream`; returns
+// cudaGetLastError() after the launches (cudaErrorInvalidValue for another
+// D, T, tp or acc_cols, or a refused tensor map).
 extern "C" int flash_fwd_wide_tf32(const void* q, const void* k,
                                    const void* v, void* o, const void* units,
                                    int n_units, const void* merges,
@@ -517,17 +560,19 @@ extern "C" int flash_fwd_wide_tf32(const void* q, const void* k,
                                    void* stream) {
   const int n_chunks = (D + kDC - 1) / kDC;
   const int tp = (T + kBK - 1) / kBK * kBK;
-  if (D < 4 || D % 4 || T < 1 || heads < 1 || n_units < 1 ||
-      acc_cols % 4 != 0 || acc_cols < n_chunks * kDC)
+  const int dp = (D + 3) / 4 * 4;   // a row stride of a multiple of 16 bytes
+  if (D < 1 || T < 1 || heads < 1 || n_units < 1 || acc_cols % 4 != 0 ||
+      acc_cols < n_chunks * kDC)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 
-  const size_t n4 = static_cast<size_t>(heads) * T * D / 4;
   const int split_blocks = 132 * 8;
   tf32_split_kernel<<<split_blocks, 256, 0, s>>>(
-      static_cast<const float4*>(q), static_cast<float4*>(split_q), n4);
+      static_cast<const float*>(q), static_cast<float*>(split_q), heads * T,
+      D, dp);
   tf32_split_kernel<<<split_blocks, 256, 0, s>>>(
-      static_cast<const float4*>(k), static_cast<float4*>(split_k), n4);
+      static_cast<const float*>(k), static_cast<float*>(split_k), heads * T,
+      D, dp);
   tf32_split_transpose_kernel<<<dim3((D + kTile - 1) / kTile, tp / kTile,
                                      heads),
                                 dim3(kTile, 8), 0, s>>>(
@@ -537,9 +582,9 @@ extern "C" int flash_fwd_wide_tf32(const void* q, const void* k,
   if (err != cudaSuccess) return static_cast<int>(err);
 
   CUtensorMap tq, tk, tv;
-  if (!flash::tile_map_f32(&tq, split_q, 2 * heads, T, D, kBlockQ) ||
-      !flash::tile_map_f32(&tk, split_k, 2 * heads, T, D, kBK) ||
-      !flash::tile_map_f32(&tv, split_v, 2 * heads, D, tp, kDC))
+  if (!flash::tile_map_f32(&tq, split_q, 2 * heads, T, D, dp, kBlockQ) ||
+      !flash::tile_map_f32(&tk, split_k, 2 * heads, T, D, dp, kBK) ||
+      !flash::tile_map_f32(&tv, split_v, 2 * heads, D, tp, tp, kDC))
     return static_cast<int>(cudaErrorInvalidValue);
   err = cudaFuncSetAttribute(flash_wide_tf32_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -1,40 +1,36 @@
 // Flash-attention forward on the tensor cores for 16-bit heads past 256
-// (K2dw): softmax(q k^T * scale) v over [H, T, D] f16 or bf16 inputs with
-// D % 8 == 0 (the routing sends it D > 256), any T, causal or full. At D =
-// 384 and 512 a unit runs two chunk blocks; the last one's columns past D
-// are zeros (TMA fills them) and are not stored.
+// (K2dw): softmax(q k^T * scale) v over [H, T, D] f16 or bf16 inputs, any D
+// (the routing sends it D > 256), any T, causal or full. At D = 384 and 512
+// a unit runs two chunk blocks; the last one's columns past D are zeros
+// (TMA fills them) and are not stored.
 //
 // Replaces tpu_operator/ops/flash_attention.py::_flash_kernel for those
 // inputs (the Pallas kernel takes any [T, D], with a [block_q, D] f32
-// accumulator in VMEM), which K2d (flash_fwd_wide.cu, past 512) and K2s
-// (flash_fwd_generic.cu, 257 to 512) ran on CUDA cores.
+// accumulator in VMEM).
 //
 // Bound on an H100: the operations. 4 D T(T+1)/2 flops a head causal (4 D
 // T^2 full) over the 989 TFLOP/s 16-bit tensor-core peak: 0.0695 ms at
 // [2, 4096, 1024] causal; its 4 T D elements of traffic a head take 0.02 ms
-// at 3.35 TB/s. What held K2d back there, and what this design does:
-//   1. CUDA cores for 16-bit inputs (27.7 TFLOP/s executed against 989):
-//      S = Q K^T and O += P V run on wgmma here.
-//   2. The scores formed again for each 256-column output chunk, (D/256 +
-//      1)/2 times the least work (2.5x at D = 1024): kept, since a block
+// at 3.35 TB/s. What the design does about it:
+//   1. S = Q K^T and O += P V run on wgmma, not on CUDA cores.
+//   2. The scores are formed again for each 256-column output chunk, (D/256
+//      + 1)/2 times the least work (2.5x at D = 1024): kept, since a block
 //      cannot hold a 64-row accumulator for all of D; on the tensor cores
-//      the extra products cost a fraction of what they did. Partial scores
-//      of D slices summed through distributed shared memory would remove
-//      them (open).
-//   3. Q and K through registers and shared memory as f32, 32 columns at a
-//      time, a barrier a chunk, 244 of 255 registers: here boxes of 64
-//      columns go by TMA straight into the 128-byte-swizzled shared memory
-//      the wgmma descriptors read, through a ring of stages that a producer
-//      warp keeps ahead of the products, across kv steps; no thread of the
-//      consumer touches them.
+//      the extra products cost a fraction of what they would on CUDA cores.
+//      Partial scores of D slices summed through distributed shared memory
+//      would remove them (open).
+//   3. Q and K go in boxes of 64 columns by TMA straight into the
+//      128-byte-swizzled shared memory the wgmma descriptors read, through
+//      a ring of stages that a producer warp keeps ahead of the products,
+//      across kv steps; no thread of the consumer touches them.
 //
 // Design:
-//   - The schedule is K2d's: the units of K2, K2w and K2s (flash_common.cuh;
-//     at most SPLIT kv tiles of 64 keys, longest first), each cut into
-//     ceil(D / 256) chunks of kDC = 256 output columns, one block a (unit,
-//     chunk); the same partial workspace (rows of D rounded up to 256) and
-//     the shared merge. ops/flash_attention.py::flash_chunked_plain at chunk
-//     256 is its plain model.
+//   - The schedule: the units of K2, K2w and K2s (flash_common.cuh; at most
+//     SPLIT kv tiles of 64 keys, longest first), each cut into ceil(D / 256)
+//     chunks of kDC = 256 output columns, one block a (unit, chunk); a
+//     partial workspace with rows of D rounded up to 256, and the shared
+//     merge. ops/flash_attention.py::flash_chunked_plain at chunk 256 is its
+//     plain model.
 //   - A block is one consumer warpgroup and one producer warp. The consumer
 //     owns the unit's 64 rows x 256 columns of O in registers, 128 f32 a
 //     thread, as K2w does at DP = 256.
@@ -59,13 +55,20 @@
 //     than its bytes save.
 //   - Ragged shapes: 3-D tensor maps (D, T, heads), as K2w's, so TMA fills
 //     zeros past D and past T; keys past T are masked with the reference's
-//     -1e30, rows past T and columns past D are not stored. TMA needs a
-//     16-byte row stride: D % 8 == 0.
+//     -1e30, rows past T and columns past D are not stored. TMA needs a row
+//     stride of a multiple of 16 bytes: where D % 8 != 0, q, k and v are
+//     first copied into a workspace [3][H][T][Dp], Dp = D rounded up to 8
+//     (pad_rows_kernel, 0.1 GB at [2, 4096, 1020]: about 0.03 ms at 3.35
+//     TB/s against the kernel's 0.5; measured faster than three
+//     cudaMemcpy2DAsync calls, PERF.md), and the maps read it at that stride
+//     with D as their inner dim, so the pad columns are never read. The
+//     output's rows are D elements: a pair of columns goes as one 32-bit
+//     word where D is even, else element by element.
 //   - m and l agree bit for bit across a unit's chunk blocks: each forms S
 //     with the same wgmma sequence over D's chunks in the same order, and V
 //     enters neither. A split unit's chunk 0 alone writes them.
-//   - Numbers as K2 and K2d: scores, m, l and acc in f32, P rounded to the
-//     input type before P V, the output rounded once to it.
+//   - Numbers as K2: scores, m, l and acc in f32, P rounded to the input
+//     type before P V, the output rounded once to it.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -124,11 +127,43 @@ __device__ __forceinline__ void bar_arrive(uint32_t bar) {
                : "memory");
 }
 
+// ---- the copy into a padded row stride --------------------------------------
+
+// q, k, v [rows][d] 16-bit -> out [3][rows][dp], dp a multiple of 8 and
+// above d: thread i writes one 16-byte group of 8 columns of one row, read
+// element by element (a source row starts on a 2-byte boundary only), the
+// columns past d as zeros. Block y takes tensor y.
+__global__ void __launch_bounds__(256)
+pad_rows_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
+                const uint16_t* __restrict__ v, uint4* __restrict__ out,
+                int rows, int d, int dp) {
+  const uint16_t* src = blockIdx.y == 0 ? q : blockIdx.y == 1 ? k : v;
+  const int groups = dp / 8;
+  const size_t n = static_cast<size_t>(rows) * groups;
+  uint4* dst = out + blockIdx.y * n;
+  for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
+       i < n; i += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    const size_t r = i / groups;
+    const int c0 = 8 * static_cast<int>(i - r * groups);
+    const uint16_t* row = src + r * d;
+    uint32_t w[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = c0 + 2 * e;
+      const uint32_t lo = c < d ? row[c] : 0u;
+      const uint32_t hi = c + 1 < d ? row[c + 1] : 0u;
+      w[e] = lo | (hi << 16);
+    }
+    dst[i] = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
 // ---- the kernel -------------------------------------------------------------
 
 // Block b takes unit b / n_chunks and output columns [256 c, 256 c + 256),
-// c = b % n_chunks. The wgmma fragments are K2w's (flash_fwd.cu): thread t holds rows r0 and r0 + 8. part_acc rows
-// are acc_cols floats.
+// c = b % n_chunks. The wgmma fragments are K2w's (flash_fwd.cu): thread t
+// holds rows r0 and r0 + 8. part_acc rows are acc_cols floats; o rows are d
+// elements.
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_wide_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
@@ -293,10 +328,19 @@ flash_wide_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         T* dst = o + (static_cast<size_t>(head) * t_len + row) * d + c0;
 #pragma unroll
         for (int c8 = 0; c8 < kDC / 8; ++c8) {
-          if (c0 + 8 * c8 >= d) break;
-          *reinterpret_cast<uint32_t*>(dst + 8 * c8 + 2 * quad) =
-              flash::pack2<T>(acc[4 * c8 + 2 * h] * inv,
-                              acc[4 * c8 + 2 * h + 1] * inv);
+          const int col = c0 + 8 * c8 + 2 * quad;
+          if (col >= d) break;
+          const float a = acc[4 * c8 + 2 * h] * inv;
+          const float b = acc[4 * c8 + 2 * h + 1] * inv;
+          if (d % 2 == 0) {
+            // an even row: the pair is 4-byte aligned and ends inside it
+            *reinterpret_cast<uint32_t*>(dst + 8 * c8 + 2 * quad) =
+                flash::pack2<T>(a, b);
+          } else {
+            dst[8 * c8 + 2 * quad] = flash::from_float<T>(a);
+            if (col + 1 < d)
+              dst[8 * c8 + 2 * quad + 1] = flash::from_float<T>(b);
+          }
         }
       }
     }
@@ -308,12 +352,26 @@ flash_wide_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 template <typename T>
 int launch(const void* q, const void* k, const void* v, void* o,
            const void* units, int n_units, const void* merges, int n_merges,
-           void* part_acc, void* part_ml, int acc_cols, int heads, int t_len,
-           int d, float scale, int causal, cudaStream_t s) {
+           void* part_acc, void* part_ml, int acc_cols, void* padded,
+           int heads, int t_len, int d, float scale, int causal,
+           cudaStream_t s) {
+  const int dp = (d + 7) / 8 * 8;
+  if (dp != d) {
+    pad_rows_kernel<<<dim3(132 * 8, 3), 256, 0, s>>>(
+        static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
+        static_cast<const uint16_t*>(v), static_cast<uint4*>(padded),
+        heads * t_len, d, dp);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const size_t plane = static_cast<size_t>(heads) * t_len * dp * 2;
+    q = padded;
+    k = static_cast<const char*>(padded) + plane;
+    v = static_cast<const char*>(padded) + 2 * plane;
+  }
   CUtensorMap tq, tk, tv;
-  if (!flash::tile_map<T>(&tq, q, heads, t_len, d, kBlockQ) ||
-      !flash::tile_map<T>(&tk, k, heads, t_len, d, kBK) ||
-      !flash::tile_map<T>(&tv, v, heads, t_len, d, kBK))
+  if (!flash::tile_map<T>(&tq, q, heads, t_len, d, dp, kBlockQ) ||
+      !flash::tile_map<T>(&tk, k, heads, t_len, d, dp, kBK) ||
+      !flash::tile_map<T>(&tv, v, heads, t_len, d, dp, kBK))
     return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = flash_wide_wgmma_kernel<T>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -334,33 +392,36 @@ int launch(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // q, k, v, o: [heads, T, D] contiguous, 16-byte aligned, of one type: dtype
-// 1 f16, 2 bf16; D % 8 == 0, T >= 1. units, merges, part_acc and part_ml as
-// for flash_fwd_wide (flash_fwd_wide.cu): part_acc f32 [slots][64][acc_cols],
-// acc_cols a multiple of 4 and at least D rounded up to a multiple of 256.
-// Runs on `stream`; returns cudaGetLastError() after the launches
-// (cudaErrorInvalidValue for another dtype, D, T or acc_cols, or a refused
-// tensor map).
+// 1 f16, 2 bf16; any D >= 1, T >= 1. units and merges as
+// ops/flash_attention.py::work_list gives them; part_acc f32
+// [slots][64][acc_cols], acc_cols a multiple of 4 and at least D rounded up
+// to a multiple of 256; part_ml f32 [slots][2][64]. padded: where D % 8 !=
+// 0, a workspace of the input type [3][heads][T][Dp], Dp = D rounded up to
+// 8, that q, k and v are copied into (unused, and may be null, where D % 8
+// == 0). Runs on `stream`; returns cudaGetLastError() after the launches
+// (cudaErrorInvalidValue for another dtype, D, T or acc_cols, a missing
+// workspace, or a refused tensor map).
 extern "C" int flash_fwd_wide_wgmma(const void* q, const void* k,
                                     const void* v, void* o, const void* units,
                                     int n_units, const void* merges,
                                     int n_merges, void* part_acc,
-                                    void* part_ml, int acc_cols, int dtype,
-                                    int heads, int T, int D, float scale,
-                                    int causal, void* stream) {
+                                    void* part_ml, int acc_cols, void* padded,
+                                    int dtype, int heads, int T, int D,
+                                    float scale, int causal, void* stream) {
   const int n_chunks = (D + kDC - 1) / kDC;
-  if (D < 8 || D % 8 || T < 1 || heads < 1 || n_units < 1 ||
-      acc_cols % 4 != 0 || acc_cols < n_chunks * kDC)
+  if (D < 1 || T < 1 || heads < 1 || n_units < 1 || acc_cols % 4 != 0 ||
+      acc_cols < n_chunks * kDC || (D % 8 != 0 && padded == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 1:
       return launch<__half>(q, k, v, o, units, n_units, merges, n_merges,
-                            part_acc, part_ml, acc_cols, heads, T, D, scale,
-                            causal, s);
+                            part_acc, part_ml, acc_cols, padded, heads, T, D,
+                            scale, causal, s);
     case 2:
       return launch<__nv_bfloat16>(q, k, v, o, units, n_units, merges,
                                    n_merges, part_acc, part_ml, acc_cols,
-                                   heads, T, D, scale, causal, s);
+                                   padded, heads, T, D, scale, causal, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

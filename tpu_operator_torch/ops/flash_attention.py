@@ -22,32 +22,32 @@ second kernel merges them by the log-sum-exp rule in a fixed order (no
 atomics: the same bits on every run). :func:`flash_split_plain` is that
 schedule in plain PyTorch.
 
-Six kernels run that schedule (:func:`kernel_for` routes a CUDA input):
+Five kernels run that schedule (:func:`kernel_for` routes a CUDA input):
 
 - K2 (``csrc/flash_fwd.cu``, the instance the node validator runs): bf16,
   D = 128, T a multiple of 64; wgmma and TMA.
 - K2w (:func:`flash_wgmma`, the same kernel template): f16 and bf16, D ≤
   :data:`WGMMA_MAX_HEAD_DIM` with D % 8 = 0, any T.
 - K2dw (:func:`flash_wide_wgmma`, ``csrc/flash_fwd_wide_wgmma.cu``): f16
-  and bf16 with D > :data:`WGMMA_MAX_HEAD_DIM` and D % 8 = 0, any T; wgmma
-  and TMA. The output's head dim is cut into chunks of :data:`WIDE_CHUNK`
-  columns, one block a (unit, chunk), and each block forms the scores from
-  all of D again; :func:`flash_chunked_plain` is that schedule in plain
-  PyTorch.
+  and bf16 with D > :data:`WGMMA_MAX_HEAD_DIM`, any T; wgmma and TMA. The
+  output's head dim is cut into chunks of :data:`WIDE_CHUNK` columns, one
+  block a (unit, chunk), and each block forms the scores from all of D
+  again; :func:`flash_chunked_plain` is that schedule in plain PyTorch.
 - K2dt (:func:`flash_wide_tf32`, ``csrc/flash_fwd_wide_tf32.cu``): f32
-  with D > :data:`MAX_HEAD_DIM` and D % 4 = 0, any T; K2dw's schedule on
-  the tensor cores, every product split into three TF32 products (3xTF32)
-  so that it keeps f32 grade; :func:`flash_chunked_tf32_plain` is its
-  arithmetic in plain PyTorch.
-- K2s (:func:`flash_generic`, ``csrc/flash_fwd_generic.cu``): f32, and
-  16-bit inputs with D % 8 ≠ 0, D ≤ :data:`MAX_HEAD_DIM`, any T; CUDA
-  cores, register-tiled.
-- K2d (:func:`flash_wide`, ``csrc/flash_fwd_wide.cu``): K2dw's schedule on
-  CUDA cores, for the inputs past :data:`MAX_HEAD_DIM` that no tensor-core
-  kernel takes (f32 with D % 4 ≠ 0, 16-bit with D % 8 ≠ 0; exact f32), any
-  T.
+  with D > :data:`MAX_HEAD_DIM`, any T; K2dw's schedule on the tensor
+  cores, every product split into three TF32 products (3xTF32) so that it
+  keeps f32 grade; :func:`flash_chunked_tf32_plain` is its arithmetic in
+  plain PyTorch.
+- K2s (:func:`flash_generic`, ``csrc/flash_fwd_generic.cu``): f32 with D ≤
+  :data:`MAX_HEAD_DIM`, and 16-bit inputs with D % 8 ≠ 0 and D ≤
+  :data:`WGMMA_MAX_HEAD_DIM`, any T; CUDA cores, register-tiled.
 
-So every head dim the reference's Pallas kernel takes has a kernel.
+TMA, which feeds K2dw and K2dt, needs a row stride of a multiple of 16
+bytes. They take a head dim off it through a padded row stride of
+:func:`padded_width` columns, the tensor maps' width staying D: K2dw copies
+q, k and v into a padded workspace, K2dt's pre-pass writes its split copies
+at that stride. So every head dim the reference's Pallas kernel takes has a
+kernel.
 :func:`flash_attention` runs the plain PyTorch version,
 :func:`attention_plain`, only for CPU tensors.
 """
@@ -69,9 +69,10 @@ BLOCK = 64          # the kernels' q tile rows and the work list's kv tiles
 HEAD_DIM = 128      # K2's head dimension
 SPLIT = 8           # kv tiles per unit at most, from chip_smoke.py's sweep
 MASK_FILL = -1e30   # the causal mask's fill, as in the reference
-MAX_HEAD_DIM = 512  # the largest D K2s takes; K2dt and K2d take f32 above it
-WGMMA_MAX_HEAD_DIM = 256  # the largest D K2w takes; K2dw takes 16-bit above it
-# K2d's, K2dw's and K2dt's output columns a block (``kDC`` in
+MAX_HEAD_DIM = 512  # the largest D K2s takes in f32; K2dt takes f32 above it
+WGMMA_MAX_HEAD_DIM = 256  # the largest D K2w and K2s take in 16 bits;
+# K2dw takes 16-bit above it
+# K2dw's and K2dt's output columns a block (``kDC`` in
 # ``csrc/flash_fwd_wide*.cu``, whose C entries refuse a workspace narrower
 # than D rounded up to it)
 WIDE_CHUNK = 256
@@ -93,22 +94,42 @@ def head_bucket(d: int, widest: int = MAX_HEAD_DIM) -> int:
 def kernel_for(dtype: torch.dtype, d: int, t: int) -> str:
     """Which kernel a CUDA input of ``dtype`` and shape [.., t, d] goes to:
     "K2" (bf16, D = 128, T a multiple of 64); for the other f16 and bf16
-    inputs with D % 8 = 0, "K2w" (D ≤ :data:`WGMMA_MAX_HEAD_DIM`) or "K2dw"
-    (wider); for the rest, "K2s" up to D = :data:`MAX_HEAD_DIM`, and past
-    it "K2dt" (f32, D % 4 = 0) or "K2d" (f32 with D % 4 ≠ 0, 16-bit with D
-    % 8 ≠ 0)."""
-    sixteen = dtype in (torch.float16, torch.bfloat16)
+    inputs, "K2dw" past :data:`WGMMA_MAX_HEAD_DIM` (any D), below it "K2w"
+    (D % 8 = 0) or "K2s" (D % 8 ≠ 0); for f32, "K2s" up to
+    :data:`MAX_HEAD_DIM` and "K2dt" past it (any D). Each wrapper takes
+    exactly its rows (:func:`wide_wgmma_takes`, :func:`wide_tf32_takes`)."""
     if dtype == torch.bfloat16 and d == HEAD_DIM and t % BLOCK == 0:
         return "K2"
-    if sixteen and d % 8 == 0:
-        return "K2w" if d <= WGMMA_MAX_HEAD_DIM else "K2dw"
-    if d <= MAX_HEAD_DIM:
-        return "K2s"
-    return "K2dt" if dtype == torch.float32 and d % 4 == 0 else "K2d"
+    if wide_wgmma_takes(dtype, d):
+        return "K2dw"
+    if wide_tf32_takes(dtype, d):
+        return "K2dt"
+    if dtype in (torch.float16, torch.bfloat16) and d % 8 == 0:
+        return "K2w"
+    return "K2s"
+
+
+def wide_wgmma_takes(dtype: torch.dtype, d: int) -> bool:
+    """K2dw's range: f16 and bf16 past :data:`WGMMA_MAX_HEAD_DIM`, any D."""
+    return dtype in (torch.float16, torch.bfloat16) and d > WGMMA_MAX_HEAD_DIM
+
+
+def wide_tf32_takes(dtype: torch.dtype, d: int) -> bool:
+    """K2dt's range: f32 past :data:`MAX_HEAD_DIM`, any D."""
+    return dtype == torch.float32 and d > MAX_HEAD_DIM
+
+
+def padded_width(dtype: torch.dtype, d: int) -> int:
+    """The row stride, in elements, at which K2dw and K2dt hand a [.., D]
+    operand to TMA: D rounded up to 8 (16-bit) or 4 (f32), so that a row
+    is a multiple of 16 bytes. The tensor maps' width stays D, so TMA
+    fills zeros past it and never reads a pad column."""
+    per_16_bytes = 16 // torch.empty((), dtype=dtype).element_size()
+    return -(-d // per_16_bytes) * per_16_bytes
 
 
 def wide_columns(d: int) -> int:
-    """K2d's, K2dw's and K2dt's partial-workspace row: D rounded up to
+    """K2dw's and K2dt's partial-workspace row: D rounded up to
     :data:`WIDE_CHUNK`, the columns of all of a unit's chunk blocks."""
     return -(-d // WIDE_CHUNK) * WIDE_CHUNK
 
@@ -272,7 +293,7 @@ def flash_split_plain(q, k, v, causal: bool = False, split: int = SPLIT,
 def flash_chunked_plain(q, k, v, causal: bool = False, split: int = SPLIT,
                         chunk: int = WIDE_CHUNK,
                         sm_scale: float | None = None, matmul=torch.matmul):
-    """K2d's and K2dw's schedule in plain PyTorch: for each chunk of
+    """K2dw's schedule in plain PyTorch: for each chunk of
     ``chunk`` output columns, every unit's (m, l, acc) with the scores from
     all of D and P·V over the chunk's columns of V (:func:`split_partials`,
     its products by ``matmul``), merged per q tile
@@ -446,10 +467,12 @@ def _wgmma_launch(q, k, v, scale: float, causal: bool,
 def flash_generic(q, k, v, sm_scale: float | None = None,
                   causal: bool = False):
     """K2s's wrapper: softmax(q·Kᵀ·scale)·V for q, k, v of shape [T, D] or
-    [H, T, D], f32, f16 or bf16, D ≤ :data:`MAX_HEAD_DIM`, any T. Launches
-    ``csrc/flash_fwd_generic.cu`` for CUDA tensors and runs
-    :func:`attention_plain` for CPU tensors; the output has the input
-    dtype. A wider head is refused on any device (K2d takes it)."""
+    [H, T, D], f32, f16 or bf16, D ≤ :data:`MAX_HEAD_DIM`, any T (the
+    routing sends it f32, and 16-bit with D % 8 ≠ 0 up to
+    :data:`WGMMA_MAX_HEAD_DIM`). Launches ``csrc/flash_fwd_generic.cu``
+    for CUDA tensors and runs :func:`attention_plain` for CPU tensors; the
+    output has the input dtype. A wider head is refused on any device
+    (K2dw or K2dt takes it)."""
     _check_shapes(q, k, v)
     d = q.shape[-1]
     if d > MAX_HEAD_DIM:
@@ -467,75 +490,35 @@ flash_generic.launches = 0
 def _generic_launch(q, k, v, scale: float, causal: bool):
     """Launch K2s on inputs :func:`_cuda_inputs` checked; the output, not
     yet synchronised."""
-    return _cores_launch("flash_fwd_generic", flash_generic, q, k, v, scale,
-                         causal, head_bucket(q.shape[-1]))
-
-
-def _cores_launch(entry: str, wrapper, q, k, v, scale: float, causal: bool,
-                  dp: int, pass_cols: bool = False):
-    """Launch the kernel behind the C entry point ``entry`` (K2s, K2d or
-    K2dw, which take the same arguments, K2d and K2dw with the workspace's
-    row stride as well: ``pass_cols``; K2dt has its own launch) with a
-    workspace of ``dp`` columns, and count it on ``wrapper``; the output,
-    not yet synchronised."""
-    out, heads, work, _workspace = _schedule(q, causal, SPLIT, dp)
-    cols = (dp,) if pass_cols else ()
+    out, heads, work, _workspace = _schedule(q, causal, SPLIT,
+                                             head_bucket(q.shape[-1]))
     lib = _native.library()
     with torch.cuda.device(q.device):
-        err = getattr(lib, entry)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                  out.data_ptr(), *work, *cols,
-                                  DTYPE_CODES[q.dtype], heads, q.shape[-2],
-                                  q.shape[-1], scale, int(causal),
-                                  torch.cuda.current_stream().cuda_stream)
-    _native.check(err, entry)
-    wrapper.launches += 1
+        err = lib.flash_fwd_generic(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                    out.data_ptr(), *work,
+                                    DTYPE_CODES[q.dtype], heads, q.shape[-2],
+                                    q.shape[-1], scale, int(causal),
+                                    torch.cuda.current_stream().cuda_stream)
+    _native.check(err, "flash_fwd_generic")
+    flash_generic.launches += 1
     return out
-
-
-def flash_wide(q, k, v, sm_scale: float | None = None,
-               causal: bool = False):
-    """K2d's wrapper: softmax(q·Kᵀ·scale)·V for q, k, v of shape [T, D] or
-    [H, T, D], f32, f16 or bf16, any D ≥ 1 (``flash_attention`` sends it D
-    > :data:`MAX_HEAD_DIM` in f32 where D % 4 ≠ 0, and in 16 bits where D
-    % 8 ≠ 0), any T.
-    Launches ``csrc/flash_fwd_wide.cu`` for CUDA tensors and runs
-    :func:`attention_plain` for CPU tensors; the output has the input
-    dtype."""
-    _check_shapes(q, k, v)
-    d = q.shape[-1]
-    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
-    if q.device.type == "cpu":
-        return attention_plain(q, k, v, scale, causal)
-    return _wide_launch(*_cuda_inputs(q, k, v), scale, causal)
-
-
-flash_wide.launches = 0
-
-
-def _wide_launch(q, k, v, scale: float, causal: bool):
-    """Launch K2d on inputs :func:`_cuda_inputs` checked; the output, not
-    yet synchronised. The workspace's rows are :func:`wide_columns`, and
-    the C entry refuses a narrower one."""
-    return _cores_launch("flash_fwd_wide", flash_wide, q, k, v, scale, causal,
-                         wide_columns(q.shape[-1]), pass_cols=True)
 
 
 def flash_wide_wgmma(q, k, v, sm_scale: float | None = None,
                      causal: bool = False):
     """K2dw's wrapper: softmax(q·Kᵀ·scale)·V for q, k, v of shape [T, D] or
-    [H, T, D], f16 or bf16, D > :data:`WGMMA_MAX_HEAD_DIM` with D % 8 = 0,
-    any T. Launches the tensor-core kernel
-    (``csrc/flash_fwd_wide_wgmma.cu``) for CUDA tensors and runs
-    :func:`attention_plain` for CPU tensors; the output has the input
-    dtype. Another dtype or head dim is refused on any device (K2w, K2s,
-    K2dt or K2d takes it)."""
+    [H, T, D], f16 or bf16, D > :data:`WGMMA_MAX_HEAD_DIM` (any D), any T.
+    Launches the tensor-core kernel (``csrc/flash_fwd_wide_wgmma.cu``) for
+    CUDA tensors and runs :func:`attention_plain` for CPU tensors; the
+    output has the input dtype. Another dtype or head dim is refused on any
+    device (K2w, K2s or K2dt takes it)."""
     _check_shapes(q, k, v)
     d = q.shape[-1]
     if q.dtype not in (torch.float16, torch.bfloat16):
         raise ValueError(f"K2dw takes float16 and bfloat16, got {q.dtype}")
-    if d <= WGMMA_MAX_HEAD_DIM or d % 8:
-        raise ValueError(f"K2dw takes a head dim above {WGMMA_MAX_HEAD_DIM} "
-                         f"that is a multiple of 8, got {d}")
+    if not wide_wgmma_takes(q.dtype, d):
+        raise ValueError(f"K2dw takes a head dim above {WGMMA_MAX_HEAD_DIM}, "
+                         f"got {d}")
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
     if q.device.type == "cpu":
         return attention_plain(q, k, v, scale, causal)
@@ -547,27 +530,43 @@ flash_wide_wgmma.launches = 0
 
 def _wide_wgmma_launch(q, k, v, scale: float, causal: bool):
     """Launch K2dw on inputs :func:`_cuda_inputs` checked; the output, not
-    yet synchronised. Its workspace and C arguments are K2d's."""
-    return _cores_launch("flash_fwd_wide_wgmma", flash_wide_wgmma, q, k, v,
-                         scale, causal, wide_columns(q.shape[-1]),
-                         pass_cols=True)
+    yet synchronised. The partial workspace's rows are
+    :func:`wide_columns`; where D is off :func:`padded_width`, the C entry
+    first copies q, k and v into a [3, H, T, Dp] workspace (Dp = that
+    width)."""
+    t, d = q.shape[-2:]
+    out, heads, work, _workspace = _schedule(q, causal, SPLIT,
+                                             wide_columns(d))
+    dp = padded_width(q.dtype, d)
+    padded = (None if dp == d else
+              torch.empty((3, heads, t, dp), dtype=q.dtype, device=q.device))
+    lib = _native.library()
+    with torch.cuda.device(q.device):
+        err = lib.flash_fwd_wide_wgmma(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *work,
+            wide_columns(d), None if padded is None else padded.data_ptr(),
+            DTYPE_CODES[q.dtype], heads, t, d, scale, int(causal),
+            torch.cuda.current_stream().cuda_stream)
+    _native.check(err, "flash_fwd_wide_wgmma")
+    flash_wide_wgmma.launches += 1
+    return out
 
 
 def flash_wide_tf32(q, k, v, sm_scale: float | None = None,
                     causal: bool = False):
     """K2dt's wrapper: softmax(q·Kᵀ·scale)·V for q, k, v of shape [T, D] or
-    [H, T, D], f32, D > :data:`MAX_HEAD_DIM` with D % 4 = 0, any T.
-    Launches the 3xTF32 tensor-core kernel (``csrc/flash_fwd_wide_tf32.cu``)
-    for CUDA tensors and runs :func:`attention_plain` for CPU tensors; the
-    output is f32. Another dtype or head dim is refused on any device (K2s,
-    K2d or a 16-bit kernel takes it)."""
+    [H, T, D], f32, D > :data:`MAX_HEAD_DIM` (any D), any T. Launches the
+    3xTF32 tensor-core kernel (``csrc/flash_fwd_wide_tf32.cu``) for CUDA
+    tensors and runs :func:`attention_plain` for CPU tensors; the output is
+    f32. Another dtype or head dim is refused on any device (K2s or a
+    16-bit kernel takes it)."""
     _check_shapes(q, k, v)
     d = q.shape[-1]
     if q.dtype != torch.float32:
         raise ValueError(f"K2dt takes float32, got {q.dtype}")
-    if d <= MAX_HEAD_DIM or d % 4:
-        raise ValueError(f"K2dt takes a head dim above {MAX_HEAD_DIM} that "
-                         f"is a multiple of 4, got {d}")
+    if not wide_tf32_takes(q.dtype, d):
+        raise ValueError(f"K2dt takes a head dim above {MAX_HEAD_DIM}, got "
+                         f"{d}")
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
     if q.device.type == "cpu":
         return attention_plain(q, k, v, scale, causal)
@@ -581,13 +580,14 @@ def _wide_tf32_launch(q, k, v, scale: float, causal: bool):
     """Launch K2dt on inputs :func:`_cuda_inputs` checked; the output, not
     yet synchronised. Its work list and partial workspace are K2dw's; the
     C entry's pre-pass writes the TF32 parts into three more workspaces,
-    Q's and K's [2H, T, D] and V's transposed [2H, D, Tp] (Tp: T rounded
+    Q's and K's [2H, T, Dp] (Dp: :func:`padded_width`, the pad columns
+    never written or read) and V's transposed [2H, D, Tp] (Tp: T rounded
     up to :data:`BLOCK`)."""
     t, d = q.shape[-2:]
     cols = wide_columns(d)
     out, heads, work, _workspace = _schedule(q, causal, SPLIT, cols)
-    split_q = torch.empty((2 * heads, t, d), dtype=torch.float32,
-                          device=q.device)
+    split_q = torch.empty((2 * heads, t, padded_width(q.dtype, d)),
+                          dtype=torch.float32, device=q.device)
     split_k = torch.empty_like(split_q)
     split_v = torch.empty((2 * heads, d, -(-t // BLOCK) * BLOCK),
                           dtype=torch.float32, device=q.device)
@@ -642,9 +642,8 @@ def flash_attention(q, k, v, sm_scale: float | None = None,
     dtype. On the card the blocks are a tiling hint only: each kernel tiles
     by its own rows. A CUDA input goes to the kernel :func:`kernel_for`
     names: K2 (counted here), K2w (:func:`flash_wgmma`), K2dw
-    (:func:`flash_wide_wgmma`), K2s (:func:`flash_generic`), K2dt
-    (:func:`flash_wide_tf32`) or K2d (:func:`flash_wide`); other dtypes
-    raise.
+    (:func:`flash_wide_wgmma`), K2s (:func:`flash_generic`) or K2dt
+    (:func:`flash_wide_tf32`); other dtypes raise.
     """
     _check_shapes(q, k, v)
     t, d = q.shape[-2:]
@@ -666,8 +665,6 @@ def flash_attention(q, k, v, sm_scale: float | None = None,
         return _wide_wgmma_launch(q, k, v, scale, causal)
     if kernel == "K2dt":
         return _wide_tf32_launch(q, k, v, scale, causal)
-    if kernel == "K2d":
-        return _wide_launch(q, k, v, scale, causal)
     out = flash_launch(q, k, v, scale, causal)
     flash_attention.launches += 1
     return out
