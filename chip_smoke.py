@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port's main path on one CUDA card and check it.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --flash-times   # the timed flash shapes alone
 
 Run from the repository root on a machine with one NVIDIA Hopper card and
 the CUDA toolkit (nvcc). The script builds the port's CUDA kernels from
@@ -17,28 +18,29 @@ most kv tiles a unit of its work takes, and beside every SDPA backend
 (flash, cuDNN, memory-efficient, math) on the 4-D form of the same inputs;
 the fastest is its library time; it is also held and timed at the
 bench's shape, bf16 [16384, 128] causal. K2w (K2's kernel template at
-every other f16 or bf16 input with D ≤ 256, D % 8 = 0), K2dw (the
-D-chunked tensor-core kernel: f16 and bf16 with D > 256, any D), K2s
-(the register-tiled CUDA-core kernel: f32 with D ≤ 512, and 16-bit
-inputs with D % 8 ≠ 0, D ≤ 256) and K2dt (K2dw's schedule on the tensor
-cores in three TF32 products: f32 with D > 512, any D) are held against
-the plain version over f32, f16 and bf16, head dims 64, 96, 128, 256,
-300, 384, 512, 514, 520, 640, 1000, 1001, 1020, 1024 and 2048 (the heads
-off 8 or 4 through K2dw's and K2dt's padded row stride), causal and full,
+every other f16 or bf16 input with D ≤ 256, any D: a head off 8 through a
+padded row stride), K2dw (the D-chunked tensor-core kernel: f16 and bf16
+with D > 256, any D), K2s (the register-tiled CUDA-core kernel: f32 with D
+≤ 256) and K2dt (K2dw's schedule on the tensor cores in three TF32
+products: f32 with D > 256, any D) are held against the plain version
+over f32, f16 and bf16, head dims 3, 64, 96, 100, 128, 250, 256, 300, 384,
+510, 512, 514, 520, 640, 1000, 1001, 1020, 1024 and 2048 (the heads off 8
+or 4 through K2w's, K2dw's and K2dt's padded row stride), causal and full,
 and sequence lengths that 64 does not divide, through their own wrappers
-and through ``flash_attention``'s routing (K2dw also against K2s where
-both take it, K2dw and K2dt each against itself on a second call), and
-timed the same way (K2w also by the keys a kv step takes at D = 256; K2dt
-at f32 [2, 4096, 1024], its shape on the main path, and at [2, 4096,
-1022], causal and full; K2dw at bf16 [2, 4096, 1024] and [2, 4096, 1020],
-causal and full, and at bf16 [4096, 384] and [4096, 300] beside K2s;
-K2s also at bf16 [4096, 100]; K2dt once at f32 [4096, 384] beside K2s,
-whose width it is; EFFICIENT_ATTENTION's kernels by name at K2dt's
-shape). Then it holds the ring kernels
-(K3–K6) against their plain versions and the library sums for 2, 4 and 8
-virtual ranks on the card, in
-one launch and in a launch a rank on streams of their own (the protocol of
-ranks on distinct cards: epochs, the entry barrier between launches), with three
+and through ``flash_attention``'s routing (K2w at D = 100 bit-equal to
+itself at D = 104 on zero-padded heads, K2dw and K2dt each against itself
+on a second call), and timed the same way (K2w also by the keys a kv step
+takes at D = 256, and at bf16 [4096, 100] and f16 [4096, 250], heads off
+8; K2dt at f32 [2, 4096, 1024], its shape on the main path, and at [2,
+4096, 1022], causal and full; K2dw at bf16 [2, 4096, 1024] and [2, 4096,
+1020], causal and full, and at bf16 [4096, 384] and [4096, 300]; K2s at
+f32 [4096, 128] causal, with K2dt called directly beside it; K2dt at f32
+[4096, D], D = 264, 384, 510 and 512, causal and full, the heads it took
+from K2s; EFFICIENT_ATTENTION's kernels by name at K2dt's shape). Then it
+holds the ring kernels (K3–K6) against their plain versions and the
+library sums for 2, 4 and 8 virtual ranks on the card, in one launch and
+in a launch a rank on streams of their own (the protocol of ranks on
+distinct cards: epochs, the entry barrier between launches), with three
 back-to-back launches of one ring on fresh inputs in both, times them at 4
 × 64 MiB (with the bytes their schedules move, a library call that fills
 all n outputs, and a sweep of piece sizes), a launch a rank at 2, 4 and 8
@@ -57,8 +59,9 @@ is also timed beside the same call with each rank's attention dense
 (``attention_plain``), outside the counted run. ``flash_attention`` then
 takes one input of each row of its routing table at T = 4096, each
 launching the one kernel the table names (K2s serves callers there, and
-K2dw and K2dt at heads off 8 and 4). The build phase prints ptxas's registers and spills for every
-kernel (a flash kernel that spills fails).
+K2w, K2dw and K2dt at heads off 8 and 4). The build phase prints
+ptxas's registers and spills for every kernel (a flash kernel that spills
+fails).
 Last, the node health monitor's CLI runs once as its DaemonSet would, on
 the machine's ``/dev`` and NVML with the HBM sweep on K1 at 256 MiB, and
 must publish the node healthy; then each probe is called directly
@@ -580,30 +583,38 @@ def phase_flash(dev, kind) -> dict:
 
 
 # K2w's, K2s's, K2dw's and K2dt's grid: each dtype, the head-dim buckets
-# both K2w and K2s take and one D off them (96), 300, 384 and 512 (K2dw in
-# 16 bits, K2s in f32), and heads past 512 (multiples of 128 and of 256,
-# 520 and 1000 off them: K2dw in 16 bits, K2dt in f32; 514, 1001 and 1020,
-# off 8, and 514 and 1001 off 4, through the padded row stride), causal and
-# full, at T = 1024 and at T that 64 does not divide (with the blocks the
-# reference would take for them), over 2 heads
+# both K2w and K2s take and heads off them (96; 3, 100 and 250, off 8 and 4:
+# K2w in 16 bits through its padded row stride), and heads past 256, where
+# K2dw takes 16 bits and K2dt f32: 300, 384, 510 and 512, multiples of 128
+# and of 256 past 512 and 520 and 1000 off them (514, 1001 and 1020, off
+# 8, and 510, 514 and 1001 off 4, through the padded row stride),
+# causal and full, at T = 1024 and at T that 64 does not divide (with the
+# blocks the reference would take for them), over 2 heads
 GRID_DTYPES = (torch.float32, torch.float16, torch.bfloat16)
-GRID_DIMS = (64, 96, 128, 256, 300, 384, 512, 514, 520, 640, 1000, 1001,
-             1020, 1024, 2048)
+GRID_DIMS = (3, 64, 96, 100, 128, 250, 256, 300, 384, 510, 512, 514, 520,
+             640, 1000, 1001, 1020, 1024, 2048)
 GRID_T = ((1024, (None, None)), (96, (32, 96)), (200, (40, 200)))
+# K2w at D = 100 against itself at D = 104 on the same heads padded with
+# zero columns (the same bucket and kv step), at these T
+PADDED_HEADS = (100, 104)
+PADDED_T = (1024, 200)
 # the shapes timed, (dtype, T, D, heads, causal, kernels timed beside the
-# routed one on the same input): each kernel's first is its entry in the
-# kernels line (Ulysses' head widths where the kernel is on that path: 256
-# on K2w, a rank's two heads of 1024 on K2dt in f32 and K2dw in bf16; K2s
-# at f32 [4096, 128]), then two others on K2w, both attentions at the main
-# path's shapes (Ulysses runs both) and at the heads off 4 and 8 that flash
-# by route drives (f32 1022 on K2dt, bf16 1020 on K2dw), one head of 1024,
-# bf16 384 on K2dw (Ulysses' Dh = 384) and 300 (off 8) beside K2s, K2s at
-# bf16 [4096, 100] (a 16-bit input it keeps), and K2dt beside K2s at f32
-# [4096, 384], a width the routing keeps on K2s
+# routed one on the same input where they are not it): each kernel's first
+# is its entry in the kernels line (Ulysses' head widths where the kernel is
+# on that path: 256 on K2w, a rank's two heads of 1024 on K2dt in f32 and
+# K2dw in bf16; K2s at f32 [4096, 128], where K2dt is timed beside it), then
+# two others on K2w, both attentions at the main path's shapes (Ulysses
+# runs both) and at the heads off 4 and 8 that flash by route drives (f32
+# 1022 on K2dt, bf16 1020 on K2dw), one head of 1024, bf16 384 on K2dw
+# (Ulysses' Dh = 384) and 300 (off 8), K2w at bf16 [4096, 100] and f16
+# [4096, 250] (heads off 8), and the f32 heads from 257 to 512 that K2dt
+# took from K2s (264, whose second 256-column chunk is almost empty, 384,
+# 510, off 4, and 512), K2dt beside where a tree's routing keeps them on
+# K2s (an A/B's parent)
 TIMED = ((torch.bfloat16, 4096, 256, None, True, ()),
          (torch.float16, 4096, 128, None, True, ()),
          (torch.bfloat16, 4096, 64, None, True, ()),
-         (torch.float32, 4096, 128, None, True, ()),
+         (torch.float32, 4096, 128, None, True, ("K2dt",)),
          (torch.float32, 4096, 1024, 2, True, ()),
          (torch.float32, 4096, 1024, 2, False, ()),
          (torch.float32, 4096, 1022, 2, True, ()),
@@ -613,11 +624,13 @@ TIMED = ((torch.bfloat16, 4096, 256, None, True, ()),
          (torch.bfloat16, 4096, 1020, 2, True, ()),
          (torch.bfloat16, 4096, 1020, 2, False, ()),
          (torch.bfloat16, 4096, 1024, None, True, ()),
-         (torch.bfloat16, 4096, 384, None, True, ("K2s",)),
-         (torch.bfloat16, 4096, 384, None, False, ("K2s",)),
-         (torch.bfloat16, 4096, 300, None, True, ("K2s",)),
+         (torch.bfloat16, 4096, 384, None, True, ()),
+         (torch.bfloat16, 4096, 384, None, False, ()),
+         (torch.bfloat16, 4096, 300, None, True, ()),
          (torch.bfloat16, 4096, 100, None, True, ()),
-         (torch.float32, 4096, 384, None, True, ("K2dt",)))
+         (torch.float16, 4096, 250, None, True, ()),
+         *((torch.float32, 4096, d, None, causal, ("K2dt",))
+           for d in (264, 384, 510, 512) for causal in (True, False)))
 # K2w's keys a kv step at DP = 256
 SWEEP_BLOCK_K = (32, 64)
 # the wrapper that counts each kernel's launches
@@ -629,7 +642,7 @@ WRAPPERS = {"K2": "flash_attention", "K2w": "flash_wgmma",
 def direct(name: str):
     """Kernel ``name`` called directly on (q, k, v, causal): its wrapper,
     or for K2dt its launch, so that it can be timed at a width its wrapper
-    refuses (the routing keeps D ≤ 512 on K2s)."""
+    refuses (K2dt beside K2s)."""
     from tpu_operator_torch.ops import flash_attention as flash
     if name == "K2dt":
         return lambda q, k, v, causal: flash._wide_tf32_launch(
@@ -730,19 +743,18 @@ def sdpa_kernel_names(q, k, v, causal, backend: str) -> list[str]:
             if e.device_time_total > 0 and not e.key.startswith("aten::")]
 
 
-def phase_flash_generic(dev, kind) -> list[dict]:
-    """K2w (``csrc/flash_fwd.cu``'s template at any 16-bit input with D ≤
-    256, D % 8 = 0), K2s (``csrc/flash_fwd_generic.cu``), K2dw
+def flash_grid(dev) -> dict:
+    """K2w (``csrc/flash_fwd.cu``'s template at every 16-bit input with D ≤
+    256), K2s (``csrc/flash_fwd_generic.cu``, f32 D ≤ 512), K2dw
     (``csrc/flash_fwd_wide_wgmma.cu``, 16-bit D > 256) and K2dt
     (``csrc/flash_fwd_wide_tf32.cu``, f32 D > 512) against the plain
     version over the grid, through their own wrappers and through
     ``flash_attention``'s routing, with no CUDA call reaching the plain
-    version; K2dw against K2s where both take the input, K2dw and K2dt
-    bit-equal on a second call; the head dims K2s refuses and K2dt (f32,
-    on and off 4) and K2dw (bf16, on and off 8) take; their times beside
-    every SDPA backend at ``TIMED``, with the kernels it names beside the
-    routed one on the same input, and K2w's sweep of kv-step keys at DP =
-    256."""
+    version and the two calls giving the same bits; K2w at D = 100 the
+    bits of K2w at D = 104 on zero-padded heads; what K2s refuses, and the
+    head dims K2dt (f32, on and off 4) and K2dw (bf16, on and off 8) take
+    past it. Returns each kernel's worst share of its limit and the
+    padded-head cases."""
     from tpu_operator_torch.ops import flash_attention as flash
     plain = flash.attention_plain
     plain_calls = []
@@ -753,7 +765,6 @@ def phase_flash_generic(dev, kind) -> list[dict]:
     counters = {name: getattr(flash, fn) for name, fn in WRAPPERS.items()}
     gen = torch.Generator(device=dev).manual_seed(13)
     worst = {"K2w": 0.0, "K2s": 0.0, "K2dw": 0.0, "K2dt": 0.0}
-    vs_k2s = 0.0   # K2dw against K2s where both take it: share of the limit
     n_cases = 0
     for dtype in GRID_DTYPES:
         for d in GRID_DIMS:
@@ -763,24 +774,19 @@ def phase_flash_generic(dev, kind) -> list[dict]:
                                            device=dev).to(dtype)
                                for _ in range(3))
                     route = flash.kernel_for(dtype, d, t)
-                    # each kernel that takes the input, by its own wrapper
-                    own = ([] if d > flash.MAX_HEAD_DIM
-                           else [("K2s", flash.flash_generic)])
-                    if route in ("K2", "K2w"):
-                        own.append(("K2w", flash.flash_wgmma))
-                    if route in ("K2dw", "K2dt"):
-                        own.append((route, getattr(flash, WRAPPERS[route])))
+                    # the kernel's own wrapper (K2's instance has none: K2w
+                    # takes its inputs)
+                    name = "K2w" if route == "K2" else route
                     before = {n: fn.launches for n, fn in counters.items()}
                     flash.attention_plain = counted_plain
                     try:
-                        outs = [(name, fn(q, k, v, causal=causal))
-                                for name, fn in own]
+                        own = counters[name](q, k, v, causal=causal)
                         routed = flash.flash_attention(
                             q, k, v, causal=causal, block_q=bq, block_k=bk)
                     finally:
                         flash.attention_plain = plain
-                    want = {n: sum(1 for name, _ in own if name == n)
-                            + int(n == route) for n in counters}
+                    want = {n: int(n == name) + int(n == route)
+                            for n in counters}
                     got = {n: fn.launches - before[n]
                            for n, fn in counters.items()}
                     label = (f"{str(dtype).removeprefix('torch.')} "
@@ -788,49 +794,68 @@ def phase_flash_generic(dev, kind) -> list[dict]:
                     check(got == want, f"{label}: launches {got}, routing "
                                        f"names {route}, expected {want}")
                     shares = []
-                    for name, out in outs + [(route, routed)]:
+                    for kernel, out in ((name, own), (route, routed)):
                         check(out.shape == q.shape and out.dtype == dtype,
-                              f"{name} {label}: output {tuple(out.shape)} "
+                              f"{kernel} {label}: output {tuple(out.shape)} "
                               f"{out.dtype}")
                         ratio, of = flash_within(out, q, k, v, causal)
                         check(math.isfinite(ratio) and ratio <= 1.0,
-                              f"{name} {label}: error {ratio:.3f} {of}")
-                        if name in worst:
-                            worst[name] = max(worst[name], ratio)
-                        shares.append(f"{name} {ratio:.3f}")
-                    against = ""
-                    by = dict(outs)
-                    if route in ("K2dw", "K2dt"):
-                        check(torch.equal(by[route], routed),
+                              f"{kernel} {label}: error {ratio:.3f} {of}")
+                        if kernel in worst:
+                            worst[kernel] = max(worst[kernel], ratio)
+                        shares.append(f"{kernel} {ratio:.3f}")
+                    same = ""
+                    if route == name:
+                        check(torch.equal(own, routed),
                               f"{route} {label}: two calls differ")
-                        against = "; the same bits twice"
-                    if route == "K2dw" and "K2s" in by:
-                        _, limit = flash.kernel_error_limit(q, k, v,
-                                                            causal=causal)
-                        share = limit_ratio(by["K2dw"], by["K2s"].float(),
-                                            limit)
-                        check(share <= 2.0, f"K2dw {label}: {share:.3f} of "
-                                            "the limit from K2s")
-                        vs_k2s = max(vs_k2s, share)
-                        against += (f"; |K2dw - K2s| {share:.3f} of the "
-                                    "limit")
+                        same = "; the same bits twice"
                     n_cases += 1
                     print(f"[K2w/K2s/K2dw/K2dt] {label} blocks "
-                          f"{bq or 'default'}: "
-                          f"routed to {route}; error "
-                          + ", ".join(shares) + f" {of}{against}")
+                          f"{bq or 'default'}: routed to {route}; error "
+                          + ", ".join(shares) + f" {of}{same}")
+    # K2w at a head off 8 against itself on the same heads padded with zero
+    # columns: the pad columns enter no product and no store passes D
+    narrow, padded_d = PADDED_HEADS
+    n_padded = 0
+    flash.attention_plain = counted_plain
+    try:
+        for dtype in (torch.float16, torch.bfloat16):
+            for t in PADDED_T:
+                q, k, v = (torch.randn((2, t, narrow), generator=gen,
+                                       device=dev).to(dtype)
+                           for _ in range(3))
+                padded = [torch.nn.functional.pad(x, (0, padded_d - narrow))
+                          for x in (q, k, v)]
+                for causal in (True, False):
+                    got = flash.flash_wgmma(q, k, v, sm_scale=narrow ** -0.5,
+                                            causal=causal)
+                    ref = flash.flash_wgmma(*padded, sm_scale=narrow ** -0.5,
+                                            causal=causal)
+                    check(torch.equal(got, ref[..., :narrow]),
+                          f"K2w {dtype} [2, {t}, {narrow}] causal={causal}: "
+                          f"not the bits of D={padded_d} on zero-padded "
+                          "heads")
+                    n_padded += 1
+    finally:
+        flash.attention_plain = plain
     check(not plain_calls, f"{len(plain_calls)} CUDA calls reached the "
                            "plain version")
-    # K2s's own wrapper refuses D = 640; flash_attention takes it on K2dt
+    # K2s's own wrapper refuses 16-bit inputs and f32 past 256 (D = 264,
+    # which it took before K2dt did); flash_attention takes D = 640 on K2dt
     # (f32) and K2dw (bf16), and D = 642 (f32, off 4) and 641 (bf16, off 8,
     # odd) as well
     wide = torch.randn((64, 640), generator=gen, device=dev)
-    try:
-        flash.flash_generic(wide, wide, wide)
-    except ValueError as exc:
-        check("at most 512" in str(exc), f"K2s at D=640: {exc}")
-    else:
-        raise SmokeFailure("flash_generic took D=640")
+    for x, words in ((wide[:, :264], f"at most {flash.MAX_HEAD_DIM}"),
+                     (wide[:, :64].half(), "takes float32"),
+                     (wide[:, :64].bfloat16(), "takes float32")):
+        try:
+            flash.flash_generic(x, x, x)
+        except ValueError as exc:
+            check(words in str(exc), f"K2s at {x.dtype} D={x.shape[-1]}: "
+                                     f"{exc}")
+        else:
+            raise SmokeFailure(f"flash_generic took {x.dtype} "
+                               f"D={x.shape[-1]}")
     shares = []
     off4 = torch.randn((64, 642), generator=gen, device=dev)
     off8 = torch.randn((64, 641), generator=gen, device=dev).to(
@@ -849,14 +874,24 @@ def phase_flash_generic(dev, kind) -> list[dict]:
         shares.append(f"{name} {ratio:.3f} {of}")
     print(f"[K2w/K2s/K2dw/K2dt] {n_cases} cases: within their limits "
           f"(worst share K2w {worst['K2w']:.3f}, K2s {worst['K2s']:.3f}, "
-          f"K2dw {worst['K2dw']:.3f}, K2dt {worst['K2dt']:.3f}); K2dw "
-          f"against K2s where both take it: at most {vs_k2s:.3f} of the "
-          f"limit; K2dw and K2dt the same bits on a second call; no CUDA call "
-          f"reached the plain version; K2s refuses D=640, flash_attention "
-          f"takes it on K2dt in f32 and K2dw in bf16, and D=642 in f32 on "
-          f"K2dt and D=641 in bf16 on K2dw (error " + ", ".join(shares)
-          + ")")
+          f"K2dw {worst['K2dw']:.3f}, K2dt {worst['K2dt']:.3f}); each "
+          f"kernel's wrapper the same bits as the routing; K2w at D={narrow} "
+          f"the bits of D={padded_d} on zero-padded heads in {n_padded} "
+          f"cases; no CUDA call reached the plain version; K2s refuses f16, "
+          f"bf16 and f32 D=264, flash_attention takes D=640 on K2dt in f32 "
+          f"and K2dw in bf16, and D=642 in f32 on K2dt and D=641 in bf16 on "
+          f"K2dw "
+          f"(error " + ", ".join(shares) + ")")
+    return {"worst": worst, "padded_cases": n_padded}
 
+
+def flash_times(dev, kind) -> tuple[dict, dict]:
+    """The ``TIMED`` shapes on the kernel ``kernel_for`` names, each beside
+    every SDPA backend and the kernels the row names (where they are not
+    the routed one), and K2w's sweep of kv-step keys at DP = 256: each
+    kernel's entries, and the sweep."""
+    from tpu_operator_torch.ops import flash_attention as flash
+    gen = torch.Generator(device=dev).manual_seed(17)
     timed = {"K2w": [], "K2s": [], "K2dw": [], "K2dt": []}
     sweep = {}
     for dtype, t, d, heads, causal, beside in TIMED:
@@ -870,6 +905,8 @@ def phase_flash_generic(dev, kind) -> list[dict]:
                            kind, causal, refs)
         timed[route].append(entry)
         for name in beside:
+            if name == route:
+                continue
             other = direct(name)
             got = time_flash(name, lambda: other(q, k, v, causal), q, k, v,
                              kind, causal, refs)
@@ -879,7 +916,7 @@ def phase_flash_generic(dev, kind) -> list[dict]:
             print(f"[{route}] beside it on the same input: {name} "
                   f"{got['ms']:.4f} ms in a graph "
                   f"({got['ms'] / entry['ms']:.2f}x {route}'s time)")
-        if (route == "K2dt" and causal
+        if (route == "K2dt" and causal and heads is not None
                 and "EFFICIENT_ATTENTION" in refs["sdpa"]):
             names = sdpa_kernel_names(q, k, v, causal, "EFFICIENT_ATTENTION")
             print("[K2dt] torch.backends.cuda.matmul.allow_tf32 "
@@ -900,12 +937,25 @@ def phase_flash_generic(dev, kind) -> list[dict]:
                       f"{block_k} keys a step: {sweep[block_k]:.4f} ms "
                       f"(error {ratio:.3f} {of})")
         del q, k, v
-    kw, ks, kdw, kdt = (timed[n] for n in ("K2w", "K2s", "K2dw", "K2dt"))
+    return timed, sweep
+
+
+def phase_flash_generic(dev, kind) -> list[dict]:
+    """The kernels beyond K2 over the grid (:func:`flash_grid`), then
+    timed (:func:`flash_times`): their entries in the kernels line."""
+    grid = flash_grid(dev)
+    timed, sweep = flash_times(dev, kind)
+    worst = grid["worst"]
+    # each kernel's first routed entry leads, the ones timed beside another
+    # kernel last
+    kw, ks, kdw, kdt = (sorted(timed[n], key=lambda e: "beside" in e)
+                        for n in ("K2w", "K2s", "K2dw", "K2dt"))
     return [{"name": "flash_fwd_wgmma", "route": "cuda",
              "source": "tpu_operator_torch/csrc/flash_fwd.cu",
              "replaces": "tpu_operator/ops/flash_attention.py:48",
              **kw[0], "other_shapes": kw[1:], "block_k_sweep": sweep,
-             "grid_worst_share": worst["K2w"]},
+             "grid_worst_share": worst["K2w"],
+             "padded_heads_bit_equal": grid["padded_cases"]},
             {"name": "flash_fwd_generic", "route": "cuda",
              "source": "tpu_operator_torch/csrc/flash_fwd_generic.cu",
              "replaces": "tpu_operator/ops/flash_attention.py:48",
@@ -915,8 +965,7 @@ def phase_flash_generic(dev, kind) -> list[dict]:
              "source": "tpu_operator_torch/csrc/flash_fwd_wide_wgmma.cu",
              "replaces": "tpu_operator/ops/flash_attention.py:48",
              **kdw[0], "other_shapes": kdw[1:],
-             "grid_worst_share": worst["K2dw"],
-             "vs_k2s_limit_share": vs_k2s},
+             "grid_worst_share": worst["K2dw"]},
             {"name": "flash_fwd_wide_tf32", "route": "cuda",
              "source": "tpu_operator_torch/csrc/flash_fwd_wide_tf32.cu",
              "replaces": "tpu_operator/ops/flash_attention.py:48",
@@ -1642,7 +1691,8 @@ ROUTE_SHAPES = ((torch.bfloat16, 1, 128, "K2"),
                 (torch.bfloat16, 2, 256, "K2w"),
                 (torch.bfloat16, 2, 384, "K2dw"),
                 (torch.float32, 2, 128, "K2s"),
-                (torch.bfloat16, 2, 100, "K2s"),
+                (torch.bfloat16, 2, 100, "K2w"),
+                (torch.float32, 2, 384, "K2dt"),
                 (torch.float32, 2, 1024, "K2dt"),
                 (torch.float32, 2, 1022, "K2dt"),
                 (torch.bfloat16, 2, 1020, "K2dw"))
@@ -1653,8 +1703,8 @@ def phase_flash_routes() -> None:
     4096 on one input of each row of ``kernel_for``'s table: each call must
     launch the kernel the table names, once, and no other, and its output
     lie within its limit against the plain version (the path by which K2s,
-    and K2dw and K2dt at heads off 8 and 4, which no Ulysses width reaches,
-    serve a caller)."""
+    and K2w, K2dw and K2dt at heads off 8 and 4, which no Ulysses width
+    reaches, serve a caller)."""
     from tpu_operator_torch.ops import flash_attention as flash
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(19)
@@ -4276,7 +4326,7 @@ def phase_bench() -> None:
           "its CUDA graphs (and the uncaptured ones), not the replays")
 
 
-def main() -> int:
+def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
@@ -4284,9 +4334,20 @@ def main() -> int:
     from tpu_operator_torch.ops import hbm as hbm_mod
     from tpu_operator_torch.parallel import ring as ring_mod
 
+    if argv not in ([], ["--flash-times"]):
+        print(f"chip_smoke: unknown arguments {argv}; takes none, or "
+              "--flash-times", file=sys.stderr)
+        return 2
     dev = torch.device("cuda", 0)
     kind, smi_line = phase_card()
     phase_build()
+    if argv:
+        # the timed flash shapes alone, on whatever routing the package
+        # beside this script has: one side of an A/B between two trees
+        timed, sweep = flash_times(dev, kind)
+        print(smi_line)
+        print(json.dumps({"flash_times": timed, "block_k_sweep": sweep}))
+        return 0
     kernels = [phase_hbm(dev, kind), phase_flash(dev, kind),
                *phase_flash_generic(dev, kind), *phase_ring(dev, kind)]
 
@@ -4310,8 +4371,8 @@ def main() -> int:
           "flash_fwd_wide_wgmma": flash_mod.flash_wide_wgmma,
           "flash_fwd_wide_tf32": flash_mod.flash_wide_tf32}),
         # flash_attention on each row of the routing table: K2s serves
-        # callers there, and K2dw and K2dt at heads off 8 and 4, at widths
-        # no Ulysses call reaches
+        # callers there, and K2w, K2dw and K2dt at heads off 8 and 4, at
+        # widths no Ulysses call reaches
         ("flash by route", (phase_flash_routes,),
          {"flash_fwd": flash_mod.flash_attention,
           "flash_fwd_wgmma": flash_mod.flash_wgmma,
@@ -4407,4 +4468,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

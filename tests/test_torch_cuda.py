@@ -117,7 +117,7 @@ def test_flash_kernel_rejects_what_it_cannot_take(cuda, monkeypatch):
     with pytest.raises(ValueError, match="float32, float16 and bfloat16"):
         flash_mod.flash_attention(xd, xd, xd)
     wide = torch.zeros((256, 640), device=cuda)
-    with pytest.raises(ValueError, match="head dim at most 512"):
+    with pytest.raises(ValueError, match="head dim at most 256"):
         flash_mod.flash_generic(wide, wide, wide)
     wide16 = wide.to(torch.bfloat16)
     with pytest.raises(ValueError, match="at most 256, got 640"):
@@ -156,15 +156,24 @@ def _within(out, q, k, v, causal):
                                    torch.bfloat16])
 def test_generic_kernel_matches_plain(cuda, dtype, d, causal):
     """K2s over its head-dim buckets and D off them, at a T its 64-row
-    tiles divide and ones they do not, with two heads."""
+    tiles divide and ones they do not, with two heads; an input K2s does
+    not take (16-bit, or f32 past its widest head) is refused by its
+    wrapper, launches nothing, and goes to the kernel the routing names."""
     gen = torch.Generator(device=cuda).manual_seed(d)
+    takes = dtype == torch.float32 and d <= flash_mod.MAX_HEAD_DIM
     for t in (1024, 200, 96, 1):
         q, k, v = (torch.randn((2, t, d), generator=gen, device=cuda)
                    .to(dtype) for _ in range(3))
         before = flash_mod.flash_generic.launches
-        out = flash_mod.flash_generic(q, k, v, causal=causal)
+        if takes:
+            out = flash_mod.flash_generic(q, k, v, causal=causal)
+        else:
+            with pytest.raises(ValueError, match="K2s takes"):
+                flash_mod.flash_generic(q, k, v, causal=causal)
+            out = flash_mod.flash_attention(q, k, v, causal=causal,
+                                            block_q=t, block_k=t)
         torch.cuda.synchronize()
-        assert flash_mod.flash_generic.launches == before + 1
+        assert flash_mod.flash_generic.launches == before + takes
         assert out.dtype == dtype and out.shape == q.shape
         assert _within(out, q, k, v, causal), t
 
@@ -204,19 +213,20 @@ def test_wide_kernel_matches_plain(cuda, dtype, d, causal):
                                    torch.bfloat16])
 def test_wide_kernel_against_the_generic_kernel_where_both_take_it(cuda,
                                                                   dtype):
-    """At a head off 8 or 4 that K2s also takes (16-bit D = 300 on K2dw's
-    wrapper, f32 D = 510 on K2dt's launch, which its wrapper keeps for
-    K2s), the two agree within the limit each is held to against the
-    plain version."""
+    """At a head off 8 and 4 below 256 (D = 250), which the routing keeps
+    on K2s (f32) or K2w (16-bit), the wide kernel's launch (K2dt's or
+    K2dw's, which take any D) and the narrow kernel's wrapper agree within
+    the limit each is held to against the plain version."""
     gen = torch.Generator(device=cuda).manual_seed(5)
-    d = 510 if dtype == torch.float32 else 300
+    d = 250
     q, k, v = (torch.randn((2, 1024, d), generator=gen, device=cuda)
                .to(dtype) for _ in range(3))
     if dtype == torch.float32:
         wide = flash_mod._wide_tf32_launch(q, k, v, d ** -0.5, True)
+        generic = flash_mod.flash_generic(q, k, v, causal=True)
     else:
-        wide = flash_mod.flash_wide_wgmma(q, k, v, causal=True)
-    generic = flash_mod.flash_generic(q, k, v, causal=True)
+        wide = flash_mod._wide_wgmma_launch(q, k, v, d ** -0.5, True)
+        generic = flash_mod.flash_wgmma(q, k, v, causal=True)
     assert _within(wide, q, k, v, True) and _within(generic, q, k, v, True)
     if dtype == torch.float32:
         tol = attention_tolerance(dtype, d, "cuda")
@@ -303,12 +313,13 @@ def test_wide_wgmma_wrapper_refuses_what_it_does_not_take(cuda):
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("d", [513, 514, 516, 520, 640, 1000, 1001, 1022,
-                               1024, 2048])
+@pytest.mark.parametrize("d", [264, 510, 513, 514, 516, 520, 640, 1000,
+                               1001, 1022, 1024, 2048])
 def test_wide_tf32_kernel_matches_plain(cuda, monkeypatch, d, causal):
-    """K2dt over f32 heads past 512 (multiples of its 256-column chunks and
-    D off them: a last chunk of 1 to 8, 128 or 232 columns; D = 513, 514,
-    1001 and 1022, off 4, through the padded row stride), at a
+    """K2dt over f32 heads past 256 (multiples of its 256-column chunks and
+    D off them: a last chunk of 1 to 8, 128 or 232 columns; D = 264 and
+    510, heads it took from K2s; D = 510, 513, 514, 1001 and 1022, off 4,
+    through the padded row stride), at a
     T its 64-row tiles divide and ones they do not, two heads: within the
     f32 attention tolerance, through K2dt alone (its wrapper and the
     routing), and the same bits on a second call."""
@@ -373,12 +384,12 @@ def test_wide_tf32_kernel_is_the_tf32_schedule(cuda):
 
 
 def test_wide_tf32_wrapper_refuses_what_it_does_not_take(cuda):
-    """On the card K2dt's wrapper refuses 16-bit, D = 512 and D = 300 and
+    """On the card K2dt's wrapper refuses 16-bit, D = 256 and D = 130 and
     launches nothing; nothing falls back to another kernel or the plain
     version."""
     before = {n: getattr(flash_mod, n).launches for n in WIDE_COUNTERS}
-    for dtype, d in ((torch.bfloat16, 1024), (torch.float32, 512),
-                     (torch.float32, 300)):
+    for dtype, d in ((torch.bfloat16, 1024), (torch.float32, 256),
+                     (torch.float32, 130)):
         x = torch.zeros((128, d), device=cuda, dtype=dtype)
         with pytest.raises(ValueError, match="K2dt takes"):
             flash_mod.flash_wide_tf32(x, x, x)
@@ -464,15 +475,101 @@ def test_wgmma_kernel_matches_plain(cuda, dtype, d, causal):
             assert _within(out, q, k, v, causal), (t, block_k)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [3, 100, 250])
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
+def test_wgmma_kernel_off_8_matches_plain(cuda, monkeypatch, dtype, d,
+                                          causal):
+    """K2w at heads off 8 (3 and 250 also off 4; 3 and 100 in the buckets
+    of 64 and 128), through its padded row stride, at T = 200 and 4096,
+    two heads: within the per-element limit, through K2w alone (its
+    wrapper and the routing), and the same bits on both calls."""
+    def refuse(*a, **kw):
+        raise AssertionError("a CUDA input reached the plain version")
+    plain = flash_mod.attention_plain
+    gen = torch.Generator(device=cuda).manual_seed(d + 10)
+    assert flash_mod.padded_width(dtype, d) != d
+    for t in (200, 4096):
+        q, k, v = (torch.randn((2, t, d), generator=gen, device=cuda)
+                   .to(dtype) for _ in range(3))
+        before = {n: getattr(flash_mod, n).launches for n in WIDE_COUNTERS}
+        monkeypatch.setattr(flash_mod, "attention_plain", refuse)
+        out = flash_mod.flash_wgmma(q, k, v, causal=causal)
+        routed = flash_mod.flash_attention(q, k, v, causal=causal,
+                                           block_q=t, block_k=t)
+        torch.cuda.synchronize()
+        monkeypatch.setattr(flash_mod, "attention_plain", plain)
+        assert {n: getattr(flash_mod, n).launches - before[n]
+                for n in WIDE_COUNTERS} == {
+            n: 2 * (n == "flash_wgmma") for n in WIDE_COUNTERS}, t
+        assert out.dtype == dtype and out.shape == q.shape
+        assert _within(out, q, k, v, causal), t
+        assert torch.equal(out, routed), t
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
+def test_wgmma_kernel_off_8_is_the_kernel_on_zero_padded_heads(cuda, dtype):
+    """K2w at D = 100 (its padded row stride, the tensor maps filling zeros
+    past D, the output stored up to D) gives the bits of K2w at D = 104 on
+    the same heads padded with zero columns at the same scale (the same
+    bucket and kv step), cut back to D: the pad columns enter no product,
+    and no store of a row passes D into the next one."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    for t in (1024, 200):
+        q, k, v = (torch.randn((2, t, 100), generator=gen, device=cuda)
+                   .to(dtype) for _ in range(3))
+        for causal in (True, False):
+            got = flash_mod.flash_wgmma(q, k, v, sm_scale=0.1, causal=causal)
+            padded = flash_mod.flash_wgmma(
+                *(_zero_padded(x, 104) for x in (q, k, v)), sm_scale=0.1,
+                causal=causal)
+            assert _within(got, q, k, v, causal)
+            assert torch.equal(got, padded[..., :100]), (t, causal)
+
+
+def test_wgmma_kernel_refuses_a_missing_pad_workspace(cuda):
+    """K2w's C entry refuses a head off 8 (D = 100) without the padded
+    workspace to copy it into, with cudaErrorInvalidValue and no launch:
+    nothing gives way to another kernel."""
+    from tpu_operator_torch import _native
+    q = torch.randn((1, 256, 100), device=cuda).to(torch.bfloat16)
+    out, heads, work, _workspace = flash_mod._schedule(
+        q, True, flash_mod.SPLIT, 128)
+    before = flash_mod.flash_wgmma.launches
+    err = _native.library().flash_fwd_wgmma(
+        q.data_ptr(), q.data_ptr(), q.data_ptr(), out.data_ptr(), *work,
+        None, flash_mod.DTYPE_CODES[q.dtype], heads, 256, 100, 64,
+        100 ** -0.5, 1, torch.cuda.current_stream().cuda_stream)
+    assert err == 1   # cudaErrorInvalidValue
+    assert flash_mod.flash_wgmma.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
+def test_generic_kernel_refuses_16_bit_inputs(cuda, dtype):
+    """K2s's C entry, f32 only now, refuses dtypes 1 (f16) and 2 (bf16)
+    with cudaErrorInvalidValue and no launch."""
+    from tpu_operator_torch import _native
+    q = torch.randn((1, 256, 100), device=cuda).to(dtype)
+    out, heads, work, _workspace = flash_mod._schedule(
+        q, True, flash_mod.SPLIT, 128)
+    before = flash_mod.flash_generic.launches
+    err = _native.library().flash_fwd_generic(
+        q.data_ptr(), q.data_ptr(), q.data_ptr(), out.data_ptr(), *work,
+        flash_mod.DTYPE_CODES[dtype], heads, 256, 100, 100 ** -0.5, 1,
+        torch.cuda.current_stream().cuda_stream)
+    assert err == 1   # cudaErrorInvalidValue
+    assert flash_mod.flash_generic.launches == before
+
+
 @pytest.mark.parametrize("dtype,d,t,kernel", [
     (torch.bfloat16, 128, 512, "K2"), (torch.bfloat16, 128, 200, "K2w"),
     (torch.float16, 128, 512, "K2w"), (torch.bfloat16, 256, 512, "K2w"),
-    (torch.float16, 100, 512, "K2s"), (torch.bfloat16, 384, 256, "K2dw"),
+    (torch.float16, 100, 512, "K2w"), (torch.bfloat16, 384, 256, "K2dw"),
     (torch.float16, 512, 200, "K2dw"), (torch.bfloat16, 264, 96, "K2dw"),
-    (torch.float32, 128, 512, "K2s"), (torch.float32, 512, 96, "K2s"),
+    (torch.float32, 128, 512, "K2s"), (torch.float32, 512, 96, "K2dt"),
     (torch.bfloat16, 640, 256, "K2dw"), (torch.float16, 1000, 200, "K2dw"),
     (torch.float16, 1001, 200, "K2dw"), (torch.bfloat16, 1001, 96, "K2dw"),
-    (torch.bfloat16, 300, 200, "K2dw"), (torch.float16, 202, 96, "K2s"),
+    (torch.bfloat16, 300, 200, "K2dw"), (torch.float16, 202, 96, "K2w"),
     (torch.float32, 1024, 96, "K2dt"), (torch.float32, 520, 200, "K2dt"),
     (torch.float32, 1022, 96, "K2dt"), (torch.float32, 513, 200, "K2dt")])
 def test_flash_attention_launches_the_kernel_the_routing_names(

@@ -1,12 +1,12 @@
 """Flash attention's inputs beyond K2's: f32, f16 and head dims up to 512
 through the port's ``flash_attention`` (on the CPU, its plain version)
 against the reference's Pallas kernel in interpret mode on the same numpy
-inputs; which CUDA inputs go to K2, which to K2w, K2dw and K2s; what
-each wrapper refuses; and Ulysses at Dh = 256, 384, 512, 640 and 1024,
-which take the flash route as the reference does, and at a Dh off the
-multiples of 128, which runs dense as the reference does. Heads past 512
-(K2dw, K2dt) are held in ``tests/test_torch_flash_wide.py`` and
-``tests/test_torch_flash_tf32.py``."""
+inputs; which CUDA inputs go to K2, which to K2w, K2dw, K2s and K2dt; what
+each wrapper refuses (K2s every 16-bit input, and f32 past 256); and
+Ulysses at Dh = 256, 384, 512, 640 and 1024, which take the flash route as
+the reference does, and at a Dh off the multiples of 128, which runs dense
+as the reference does. Heads past 512 (K2dw, K2dt) are held in
+``tests/test_torch_flash_wide.py`` and ``tests/test_torch_flash_tf32.py``."""
 
 import jax
 import jax.numpy as jnp
@@ -25,6 +25,11 @@ from tpu_operator_torch.parallel.mesh import Mesh
 from tpu_operator_torch.parallel.numerics import attention_tolerance
 from tpu_operator_torch.parallel.ring_attention import ulysses_attention
 
+# each kernel's wrapper, by the name ``kernel_for`` gives it (K2's instance
+# has none: K2w's wrapper takes its inputs)
+WRAPPERS = {"K2": port.flash_wgmma, "K2w": port.flash_wgmma,
+            "K2s": port.flash_generic, "K2dw": port.flash_wide_wgmma,
+            "K2dt": port.flash_wide_tf32}
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "float16": (jnp.float16, torch.float16),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -48,6 +53,10 @@ def _inputs(shape, dtype, seed):
     ("float32", 128, 384, (64, 64)),
     ("bfloat16", 64, 512, (64, 32)),
     ("float16", 64, 40, (32, 64)),
+    # 16-bit heads off 8, which K2w takes through its padded row stride
+    ("float16", 128, 100, (64, 64)),
+    ("bfloat16", 96, 3, (32, 96)),
+    ("bfloat16", 128, 250, (64, 32)),
 ])
 def test_port_matches_the_pallas_kernel(dtype, t, d, blocks, causal):
     (jq, jk, jv), (q, k, v) = _inputs((t, d), dtype, seed=t + d)
@@ -60,13 +69,11 @@ def test_port_matches_the_pallas_kernel(dtype, t, d, blocks, causal):
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want, np.float32), rtol=tol,
                                atol=tol)
-    # K2s's wrapper, and K2w's where it takes the input, compute the same
-    # on the CPU
-    torch.testing.assert_close(port.flash_generic(q, k, v, causal=causal),
-                               got, rtol=0, atol=0)
-    if port.kernel_for(q.dtype, d, t) == "K2w":
-        torch.testing.assert_close(port.flash_wgmma(q, k, v, causal=causal),
-                                   got, rtol=0, atol=0)
+    # the wrapper of the kernel the routing names computes the same on the
+    # CPU (K2's inputs: K2w's)
+    wrapper = WRAPPERS[port.kernel_for(q.dtype, d, t)]
+    torch.testing.assert_close(wrapper(q, k, v, causal=causal), got, rtol=0,
+                               atol=0)
 
 
 @pytest.mark.parametrize("dtype,t,d,wgmma", [
@@ -91,12 +98,12 @@ def test_routing_between_the_two_kernels(dtype, t, d, wgmma):
     (torch.bfloat16, 64, 4096, "K2w"),
     (torch.float16, 96, 96, "K2w"),
     (torch.bfloat16, 8, 1, "K2w"),
-    (torch.float16, 100, 256, "K2s"),       # D % 8 != 0 up to 256
-    (torch.bfloat16, 3, 256, "K2s"),
+    (torch.float16, 100, 256, "K2w"),       # D % 8 != 0 up to 256
+    (torch.bfloat16, 3, 256, "K2w"),
     (torch.bfloat16, 384, 4096, "K2dw"),    # past K2w's widest bucket
     (torch.float16, 512, 1024, "K2dw"),
     (torch.float32, 128, 4096, "K2s"),
-    (torch.float32, 512, 96, "K2s"),
+    (torch.float32, 512, 96, "K2dt"),       # past K2s's widest bucket
     (torch.float32, 5, 7, "K2s"),
 ])
 def test_kernel_for_routes_each_input(dtype, d, t, kernel):
@@ -105,29 +112,31 @@ def test_kernel_for_routes_each_input(dtype, d, t, kernel):
 
 @pytest.mark.parametrize("d,bucket", [(1, 64), (64, 64), (96, 128),
                                       (128, 128), (200, 256), (256, 256),
-                                      (264, 384), (384, 384), (385, 512),
-                                      (512, 512)])
+                                      (264, None), (384, None), (385, None),
+                                      (512, None)])
 def test_head_dim_buckets(d, bucket):
-    assert port.head_bucket(d) == bucket
-    if d <= port.WGMMA_MAX_HEAD_DIM:
-        assert port.head_bucket(d, port.WGMMA_MAX_HEAD_DIM) == bucket
+    """K2w's and K2s's buckets, 64, 128 and 256; no kernel that takes a
+    bucket takes a wider head (K2dw and K2dt do, by chunks)."""
+    if bucket is not None:
+        assert port.head_bucket(d) == bucket
+        assert d <= port.MAX_HEAD_DIM and d <= port.WGMMA_MAX_HEAD_DIM
     else:
-        with pytest.raises(ValueError, match="above 256"):
-            port.head_bucket(d, port.WGMMA_MAX_HEAD_DIM)
+        with pytest.raises(ValueError, match=f"head dim {d} above 256"):
+            port.head_bucket(d)
 
 
 @pytest.mark.parametrize("dtype,d,match", [
-    (torch.float32, 640, "head dim at most 512, got 640"),
-    (torch.bfloat16, 520, "head dim at most 512"),
+    (torch.float32, 640, "head dim at most 256, got 640"),
+    (torch.bfloat16, 520, "K2s takes float32, got torch.bfloat16"),
     (torch.float64, 64, "take float32, float16 and bfloat16"),
     (torch.int8, 64, "take float32, float16 and bfloat16"),
     (torch.float32, 256, "unsupported device"),
 ])
 def test_what_the_kernels_refuse_raises(dtype, d, match):
     """Off the CPU, only a dtype outside f32/f16/bf16 is refused for what it
-    is, and by K2s's own wrapper a head dim past 512 (``flash_attention``
-    takes those on K2dw or K2dt); a meta tensor, which no kernel takes, is
-    refused for its device."""
+    is, and by K2s's own wrapper a 16-bit input or an f32 head dim past 256
+    (``flash_attention`` takes those on K2w, K2dw or K2dt); a meta tensor,
+    which no kernel takes, is refused for its device."""
     x = torch.empty((64, d), dtype=dtype, device="meta")
     wide = d > port.MAX_HEAD_DIM
     for fn in (port.flash_attention, port.flash_generic):
@@ -139,17 +148,51 @@ def test_what_the_kernels_refuse_raises(dtype, d, match):
 
 @pytest.mark.parametrize("dtype,d,match", [
     (torch.float32, 128, "K2w takes float16 and bfloat16"),
-    (torch.float16, 100, "multiple of 8 and at most 256, got 100"),
-    (torch.bfloat16, 384, "multiple of 8 and at most 256, got 384"),
+    (torch.float16, 257, "head dim at most 256, got 257"),
+    (torch.bfloat16, 384, "head dim at most 256, got 384"),
 ])
 def test_what_k2w_refuses_raises(dtype, d, match):
-    """K2w's own wrapper refuses, on any device, what its tensor maps and
-    wgmma shapes cannot take; ``flash_attention`` sends those to K2s, and
-    16-bit heads past 256 with D % 8 = 0 to K2dw."""
+    """K2w's own wrapper refuses, on any device, what its wgmma shapes
+    cannot take; ``flash_attention`` sends f32 to K2s or K2dt, and 16-bit
+    heads past 256 to K2dw."""
     for device in ("cpu", "meta"):
         x = torch.zeros((64, d), dtype=dtype, device=device)
         with pytest.raises(ValueError, match=match):
             port.flash_wgmma(x, x, x)
+
+
+@pytest.mark.parametrize("d", [3, 100, 250])
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
+def test_k2w_takes_heads_off_8(dtype, d):
+    """K2w's wrapper takes a 16-bit head off 8 up to 256, which it used to
+    refuse (a meta tensor then fails only for its device), the routing
+    sends it there, and on the CPU it is the plain version, bit for bit."""
+    x = torch.empty((64, d), dtype=dtype, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        port.flash_wgmma(x, x, x)
+    assert port.kernel_for(dtype, d, 64) == "K2w"
+    rng = np.random.default_rng(d)
+    q, k, v = (torch.from_numpy(rng.standard_normal((96, d),
+                                                    dtype=np.float32))
+               .to(dtype) for _ in range(3))
+    torch.testing.assert_close(port.flash_wgmma(q, k, v, causal=True),
+                               port.attention_plain(q, k, v, causal=True),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+@pytest.mark.parametrize("dtype,d,match", [
+    (torch.float16, 64, "K2s takes float32, got torch.float16"),
+    (torch.bfloat16, 100, "K2s takes float32, got torch.bfloat16"),
+    (torch.float16, 256, "K2s takes float32, got torch.float16"),
+    (torch.float32, 257, "head dim at most 256, got 257")])
+def test_k2s_refuses_what_moved_off_it(dtype, d, match, device):
+    """K2s takes f32 up to 256 only: its wrapper refuses f16 and bf16 (K2w
+    or K2dw takes them) and f32 past 256 (K2dt takes it) on any device,
+    the CPU included."""
+    x = torch.zeros((64, d), dtype=dtype, device=device)
+    with pytest.raises(ValueError, match=match):
+        port.flash_generic(x, x, x)
 
 
 def test_mixed_inputs_are_refused():
@@ -172,7 +215,7 @@ def test_cpu_calls_launch_no_kernel():
     counters = (port.flash_attention, port.flash_wgmma, port.flash_generic)
     before = [fn.launches for fn in counters]
     x = torch.ones((2, 96, 256), dtype=torch.float16)
-    port.flash_generic(x, x, x, causal=True)
+    port.flash_generic(x.float(), x.float(), x.float(), causal=True)
     port.flash_wgmma(x, x, x, causal=True)
     port.flash_attention(x, x, x, block_q=32, block_k=32)
     assert [fn.launches for fn in counters] == before
@@ -220,7 +263,7 @@ def test_ulysses_head_dim_256_takes_flash_as_the_reference(causal,
 @pytest.mark.parametrize("dh", [384, 512])
 def test_ulysses_wide_heads_take_flash_as_the_reference(dh, causal,
                                                         monkeypatch):
-    """Dh = 384 and 512: multiples of 128 that K2dw (16-bit) and K2s (f32)
+    """Dh = 384 and 512: multiples of 128 that K2dw (16-bit) and K2dt (f32)
     take on the card; the reference takes its flash kernel for them too."""
     _ulysses_takes_flash(dh, causal, monkeypatch)
 
@@ -229,16 +272,16 @@ def test_ulysses_wide_heads_take_flash_as_the_reference(dh, causal,
 @pytest.mark.parametrize("dh", [640, 1024])
 def test_ulysses_heads_past_512_take_flash_as_the_reference(dh, causal,
                                                             monkeypatch):
-    """Dh = 640 and 1024: multiples of 128 past K2s's widest head, which
-    K2dw (16-bit) and K2dt (f32) take on the card; the reference takes its
-    flash kernel for them too."""
+    """Dh = 640 and 1024: multiples of 128 past 512, which K2dw (16-bit)
+    and K2dt (f32) take on the card; the reference takes its flash kernel
+    for them too."""
     _ulysses_takes_flash(dh, causal, monkeypatch)
 
 
 def test_ulysses_past_the_widest_kernel_head_runs_dense(monkeypatch):
-    """Dh = 600, past K2s's widest head but not a multiple of 128: dense,
-    by the reference's rule (K2dw or K2dt would take it, but the rule does
-    not send it), and equal to the reference's dense Ulysses."""
+    """Dh = 600, not a multiple of 128: dense, by the reference's rule (K2dw
+    or K2dt would take it, but the rule does not send it), and equal to the
+    reference's dense Ulysses."""
     def refuse(*a, **kw):
         raise AssertionError("flash path taken")
     n, t, h, dh = 2, 16, 2, 600

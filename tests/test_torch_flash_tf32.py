@@ -1,4 +1,4 @@
-"""K2dt's arithmetic and the routing after it: f32 heads past 512 on the
+"""K2dt's arithmetic and the routing after it: f32 heads past 256 on the
 tensor cores in three TF32 products (3xTF32), 16-bit heads past 256 on
 K2dw.
 
@@ -25,9 +25,11 @@ from tpu_operator_torch.ops import flash_attention as port
 from tpu_operator_torch.parallel.numerics import attention_tolerance
 
 # (T, D, the reference's blocks): T = 128 and T = 200, which 64 does not
-# divide (four q tiles, the last one short)
+# divide (four q tiles, the last one short); D = 264, 384 and 510 (off 4),
+# the heads from 257 to 512 that K2dt took from K2s
 CASES = [(128, 520, (64, 64)), (128, 1024, (128, 64)),
-         (200, 520, (40, 200)), (200, 1024, (40, 200))]
+         (200, 520, (40, 200)), (200, 1024, (40, 200)),
+         (128, 264, (64, 64)), (128, 384, (64, 64)), (128, 510, (64, 64))]
 
 
 @functools.lru_cache(maxsize=None)
@@ -159,9 +161,9 @@ ROUTES = [
     (torch.float16, 256, "K2w"), (torch.bfloat16, 64, "K2w"),
     (torch.bfloat16, 264, "K2dw"), (torch.float16, 384, "K2dw"),
     (torch.bfloat16, 512, "K2dw"), (torch.bfloat16, 1024, "K2dw"),
-    (torch.float32, 128, "K2s"), (torch.float32, 384, "K2s"),
-    (torch.float32, 512, "K2s"), (torch.float16, 100, "K2s"),
-    (torch.bfloat16, 250, "K2s"), (torch.float32, 300, "K2s"),
+    (torch.float32, 128, "K2s"), (torch.float32, 384, "K2dt"),
+    (torch.float32, 512, "K2dt"), (torch.float16, 100, "K2w"),
+    (torch.bfloat16, 250, "K2w"), (torch.float32, 300, "K2dt"),
     (torch.bfloat16, 510, "K2dw"), (torch.bfloat16, 300, "K2dw"),
     (torch.float16, 257, "K2dw"),
     (torch.float32, 516, "K2dt"), (torch.float32, 1024, "K2dt"),
@@ -180,9 +182,9 @@ def test_kernel_for_gives_the_routing_table(dtype, d, kernel, t):
 @pytest.mark.parametrize("dtype,d,match", [
     (torch.float16, 1024, "K2dt takes float32, got torch.float16"),
     (torch.bfloat16, 1024, "K2dt takes float32"),
-    (torch.float32, 512, "above 512, got 512"),
+    (torch.float32, 256, "above 256, got 256"),
     (torch.bfloat16, 1001, "K2dt takes float32, got torch.bfloat16"),
-    (torch.float32, 302, "above 512, got 302")])
+    (torch.float32, 130, "above 256, got 130")])
 def test_tf32_wrapper_refuses_what_it_does_not_take(dtype, d, match):
     """Refused before any device is asked: K2s or a 16-bit kernel takes
     these, never K2dt."""

@@ -233,15 +233,16 @@ def test_kernel_for_sends_every_head_past_512_to_a_tensor_core_kernel(
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
                                    torch.bfloat16])
 def test_kernel_for_keeps_512_and_below_where_they_were(dtype):
-    """K2w and K2s keep the inputs up to 512 they took, but for 16-bit
-    heads past 256, which K2dw takes at any D."""
-    wide = "K2s" if dtype == torch.float32 else "K2dw"
+    """Up to 256, f32 stays on K2s and 16-bit heads go to K2w, off 8 or
+    not; past 256 up to 512, K2dt takes f32 and K2dw 16-bit, at any D."""
+    wide = "K2dt" if dtype == torch.float32 else "K2dw"
     assert port.kernel_for(dtype, 512, 4096) == wide
     assert port.kernel_for(dtype, 384, 4096) == wide
     assert port.kernel_for(dtype, 300, 4096) == wide
     assert port.kernel_for(dtype, 256, 4096) == (
         "K2s" if dtype == torch.float32 else "K2w")
-    assert port.kernel_for(dtype, 250, 4096) == "K2s"
+    assert port.kernel_for(dtype, 250, 4096) == (
+        "K2s" if dtype == torch.float32 else "K2w")
 
 
 COUNTERS = ("flash_attention", "flash_wgmma", "flash_generic",

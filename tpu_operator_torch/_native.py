@@ -48,8 +48,8 @@ _SIGNATURES = {
     "hbm_read_sum": (_P, _LL, _I, _P, _I, _P, _P),
     "flash_fwd_bf16": (_P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _F,
                        _I, _P),
-    "flash_fwd_wgmma": (_P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I,
-                        _I, _I, _F, _I, _P),
+    "flash_fwd_wgmma": (_P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _I,
+                        _I, _I, _I, _F, _I, _P),
     "flash_fwd_generic": (_P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I,
                           _I, _F, _I, _P),
     "flash_fwd_wide_wgmma": (_P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _P,

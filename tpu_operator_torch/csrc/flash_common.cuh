@@ -5,7 +5,8 @@
 // columns) and merge the units of a split q tile with the same kernel, whose
 // row stride is an argument. The tensor-core kernels (K2, K2w, K2dw, K2dt)
 // share their mbarrier, TMA and wgmma tools, the tensor maps and the online
-// softmax on a wgmma fragment.
+// softmax on a wgmma fragment; K2w and K2dw the copy of a 16-bit head off 8
+// into a padded row stride.
 //
 // A unit is an int4 (row tile, first kv tile, end kv tile, slot): row tile =
 // head * ceil(T / 64) + q tile, kv tiles of 64 keys, slot -1 where the unit
@@ -33,12 +34,6 @@ __device__ __forceinline__ float exp2_approx(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
-}
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
 }
 
 template <typename T>
@@ -172,6 +167,65 @@ void launch_combine(const void* merges, int n_merges, const void* part_acc,
           static_cast<const float*>(part_acc),
           static_cast<const float*>(part_ml), static_cast<T*>(o), t_len, d,
           stride);
+}
+
+// ---- the copy into a padded row stride (K2w, K2dw) -------------------------
+
+// q, k, v [rows][d] of a 16-bit type T -> out [3][rows][dp], dp a multiple
+// of 8 and above d: thread i writes one 16-byte group of 8 columns of one
+// row, read element by element (a source row starts on a 2-byte boundary
+// only), the columns past d as zeros. Block y takes tensor y. A template
+// only so that every source that includes this header may instantiate it.
+template <typename T>
+__global__ void __launch_bounds__(256)
+pad_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                const T* __restrict__ v, uint4* __restrict__ out, int rows,
+                int d, int dp) {
+  static_assert(sizeof(T) == 2, "the copy moves 16-bit elements");
+  const uint16_t* src = reinterpret_cast<const uint16_t*>(
+      blockIdx.y == 0 ? q : blockIdx.y == 1 ? k : v);
+  const int groups = dp / 8;
+  const size_t n = static_cast<size_t>(rows) * groups;
+  uint4* dst = out + blockIdx.y * n;
+  for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
+       i < n; i += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    const size_t r = i / groups;
+    const int c0 = 8 * static_cast<int>(i - r * groups);
+    const uint16_t* row = src + r * d;
+    uint32_t w[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = c0 + 2 * e;
+      const uint32_t lo = c < d ? row[c] : 0u;
+      const uint32_t hi = c + 1 < d ? row[c + 1] : 0u;
+      w[e] = lo | (hi << 16);
+    }
+    dst[i] = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
+// The row stride, in elements, at which a [heads][T][d] 16-bit operand goes
+// to TMA: d rounded up to 8, a multiple of 16 bytes.
+constexpr int padded_width(int d) {
+  return (d + 7) / 8 * 8;
+}
+
+// Where d % 8 != 0, copies q, k and v into `padded` ([3][rows][dp], dp =
+// padded_width(d)) and points them at its three planes; else leaves them.
+// Returns the launch's error.
+template <typename T>
+cudaError_t pad_rows(const void*& q, const void*& k, const void*& v,
+                     void* padded, int rows, int d, cudaStream_t s) {
+  const int dp = padded_width(d);
+  if (dp == d) return cudaSuccess;
+  pad_rows_kernel<T><<<dim3(132 * 8, 3), 256, 0, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<uint4*>(padded), rows, d, dp);
+  const size_t plane = static_cast<size_t>(rows) * dp * sizeof(T);
+  q = padded;
+  k = static_cast<const char*>(padded) + plane;
+  v = static_cast<const char*>(padded) + 2 * plane;
+  return cudaGetLastError();
 }
 
 // ---- the tensor-core kernels' tools (K2, K2w in flash_fwd.cu; K2dw in

@@ -3,8 +3,8 @@
 // never reaches device memory. One kernel template, two names:
 //   - K2, the instance (bf16, D = 128, T a multiple of 64) that the node
 //     validator's flash leg runs: flash_fwd_bf16;
-//   - K2w, every other bf16 or f16 input with D <= 256 and D % 8 == 0, any
-//     T >= 1: flash_fwd_wgmma.
+//   - K2w, every other bf16 or f16 input with D <= 256, any T >= 1:
+//     flash_fwd_wgmma.
 //
 // Replaces tpu_operator/ops/flash_attention.py::_flash_kernel (a Pallas kernel
 // whose grid walks (q block, kv block) in order on one TPU core, with the
@@ -56,8 +56,15 @@
 //   - Ragged shapes. The tensor maps are 3-D, (D, T, heads), so TMA fills
 //     zeros past D and past T inside each head: zero columns add nothing to
 //     Q K^T, zero rows of V nothing to P V. Keys past T are masked with the
-//     reference's -1e30, rows past T and columns past D are not stored. TMA
-//     needs a 16-byte row stride, hence D % 8 == 0.
+//     reference's -1e30, rows past T and columns past D are not stored.
+//   - TMA needs a row stride of a multiple of 16 bytes. Where D % 8 != 0
+//     (K2w only), q, k and v are first copied into a workspace [3][H][T][Dp],
+//     Dp = D rounded up to 8 (flash_common.cuh::pad_rows_kernel, K2dw's
+//     copy: about 5 MB at [4096, 100], 2 us at 3.35 TB/s), and the maps read
+//     it at that stride with D as their inner dim, so the pad columns are
+//     never read and TMA's zero fill keeps them out of Q K^T and P V. The
+//     output's rows are D elements: a pair of columns goes as one 32-bit word
+//     where D is even, else element by element.
 //   - The tensor maps come from cuTensorMapEncodeTiled, reached through
 //     cudaGetDriverEntryPoint so that the library needs no -lcuda.
 //   - Causal tiles fall in the reference's three classes: tiles above the
@@ -251,10 +258,17 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
     T* dst = o + (static_cast<size_t>(head) * t_len + row) * ld;
 #pragma unroll
     for (int c8 = 0; c8 < DP / 8; ++c8) {
-      if (kBounded && 8 * c8 >= d) break;
-      *reinterpret_cast<uint32_t*>(dst + 8 * c8 + 2 * quad) =
-          flash::pack2<T>(acc[4 * c8 + 2 * h] * inv,
-                          acc[4 * c8 + 2 * h + 1] * inv);
+      const int col = 8 * c8 + 2 * quad;
+      if (kBounded && col >= d) break;
+      const float a = acc[4 * c8 + 2 * h] * inv;
+      const float b = acc[4 * c8 + 2 * h + 1] * inv;
+      if (!kBounded || d % 2 == 0) {
+        // an even row: the pair is 4-byte aligned and ends inside it
+        *reinterpret_cast<uint32_t*>(dst + col) = flash::pack2<T>(a, b);
+      } else {
+        dst[col] = flash::from_float<T>(a);
+        if (col + 1 < d) dst[col + 1] = flash::from_float<T>(b);
+      }
     }
   }
 }
@@ -269,6 +283,7 @@ struct Args {
   const void* merges;
   int n_merges;
   void *part_acc, *part_ml;
+  void* padded;  // K2w's [3][heads][T][Dp] workspace where D % 8 != 0
   int heads, t_len, d;
   float scale;
   int causal;
@@ -278,13 +293,18 @@ struct Args {
 template <typename T, int DP, int BK, bool kBounded>
 int launch(const Args& a) {
   using L = Smem<DP, BK>;
+  const void *q = a.q, *k = a.k, *v = a.v;
+  const int dp = flash::padded_width(a.d);
+  cudaError_t err =
+      flash::pad_rows<T>(q, k, v, a.padded, a.heads * a.t_len, a.d, a.stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
   CUtensorMap tq, tk, tv;
-  if (!flash::tile_map<T>(&tq, a.q, a.heads, a.t_len, a.d, a.d, kBlockQ) ||
-      !flash::tile_map<T>(&tk, a.k, a.heads, a.t_len, a.d, a.d, BK) ||
-      !flash::tile_map<T>(&tv, a.v, a.heads, a.t_len, a.d, a.d, BK))
+  if (!flash::tile_map<T>(&tq, q, a.heads, a.t_len, a.d, dp, kBlockQ) ||
+      !flash::tile_map<T>(&tk, k, a.heads, a.t_len, a.d, dp, BK) ||
+      !flash::tile_map<T>(&tv, v, a.heads, a.t_len, a.d, dp, BK))
     return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = flash_fwd_kernel<T, DP, BK, kBounded>;
-  cudaError_t err = cudaFuncSetAttribute(
+  err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::alloc);
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<a.n_units, kThreads, L::alloc, a.stream>>>(
@@ -332,23 +352,28 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
   if (D != 128 || T < 1 || T % kBlockQ || heads < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{q, k, v, o, units, n_units, merges, n_merges, part_acc,
-               part_ml, heads, T, D, scale, causal,
+               part_ml, nullptr, heads, T, D, scale, causal,
                static_cast<cudaStream_t>(stream)};
   return launch<__nv_bfloat16, 128, 64, false>(a);
 }
 
-// K2w: dtype 1 f16, 2 bf16; 1 <= D <= 256 with D % 8 == 0; any T >= 1;
-// block_k the keys of a kv step, 64, or 32 at D > 128 (DP = 256).
+// K2w: dtype 1 f16, 2 bf16; 1 <= D <= 256; any T >= 1; block_k the keys
+// of a kv step, 64, or 32 at D > 128 (DP = 256). padded: where D % 8 != 0,
+// a workspace of the input type [3][heads][T][Dp], Dp = D rounded up to 8,
+// that q, k and v are copied into (unused, and may be null, where D % 8 ==
+// 0).
 extern "C" int flash_fwd_wgmma(const void* q, const void* k, const void* v,
                                void* o, const void* units, int n_units,
                                const void* merges, int n_merges,
-                               void* part_acc, void* part_ml, int dtype,
-                               int heads, int T, int D, int block_k,
-                               float scale, int causal, void* stream) {
-  if (D < 8 || D > 256 || D % 8 || T < 1 || heads < 1)
+                               void* part_acc, void* part_ml, void* padded,
+                               int dtype, int heads, int T, int D,
+                               int block_k, float scale, int causal,
+                               void* stream) {
+  if (D < 1 || D > 256 || T < 1 || heads < 1 ||
+      (D % 8 != 0 && padded == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{q, k, v, o, units, n_units, merges, n_merges, part_acc,
-               part_ml, heads, T, D, scale, causal,
+               part_ml, padded, heads, T, D, scale, causal,
                static_cast<cudaStream_t>(stream)};
   switch (dtype) {
     case 1:

@@ -58,10 +58,11 @@
 //     -1e30, rows past T and columns past D are not stored. TMA needs a row
 //     stride of a multiple of 16 bytes: where D % 8 != 0, q, k and v are
 //     first copied into a workspace [3][H][T][Dp], Dp = D rounded up to 8
-//     (pad_rows_kernel, 0.1 GB at [2, 4096, 1020]: about 0.03 ms at 3.35
-//     TB/s against the kernel's 0.5; measured faster than three
-//     cudaMemcpy2DAsync calls, PERF.md), and the maps read it at that stride
-//     with D as their inner dim, so the pad columns are never read. The
+//     (flash_common.cuh::pad_rows_kernel, shared with K2w; 0.1 GB at [2,
+//     4096, 1020]: about 0.03 ms at 3.35 TB/s against the kernel's 0.5;
+//     measured faster than three cudaMemcpy2DAsync calls, PERF.md), and the
+//     maps read it at that stride with D as their inner dim, so the pad
+//     columns are never read. The
 //     output's rows are D elements: a pair of columns goes as one 32-bit
 //     word where D is even, else element by element.
 //   - m and l agree bit for bit across a unit's chunk blocks: each forms S
@@ -125,37 +126,6 @@ constexpr int kSmem = kOffBars + 8 * kBars + 1024;      // room to align
 __device__ __forceinline__ void bar_arrive(uint32_t bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" :: "r"(bar)
                : "memory");
-}
-
-// ---- the copy into a padded row stride --------------------------------------
-
-// q, k, v [rows][d] 16-bit -> out [3][rows][dp], dp a multiple of 8 and
-// above d: thread i writes one 16-byte group of 8 columns of one row, read
-// element by element (a source row starts on a 2-byte boundary only), the
-// columns past d as zeros. Block y takes tensor y.
-__global__ void __launch_bounds__(256)
-pad_rows_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
-                const uint16_t* __restrict__ v, uint4* __restrict__ out,
-                int rows, int d, int dp) {
-  const uint16_t* src = blockIdx.y == 0 ? q : blockIdx.y == 1 ? k : v;
-  const int groups = dp / 8;
-  const size_t n = static_cast<size_t>(rows) * groups;
-  uint4* dst = out + blockIdx.y * n;
-  for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
-       i < n; i += static_cast<size_t>(gridDim.x) * blockDim.x) {
-    const size_t r = i / groups;
-    const int c0 = 8 * static_cast<int>(i - r * groups);
-    const uint16_t* row = src + r * d;
-    uint32_t w[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int c = c0 + 2 * e;
-      const uint32_t lo = c < d ? row[c] : 0u;
-      const uint32_t hi = c + 1 < d ? row[c + 1] : 0u;
-      w[e] = lo | (hi << 16);
-    }
-    dst[i] = make_uint4(w[0], w[1], w[2], w[3]);
-  }
 }
 
 // ---- the kernel -------------------------------------------------------------
@@ -355,26 +325,16 @@ int launch(const void* q, const void* k, const void* v, void* o,
            void* part_acc, void* part_ml, int acc_cols, void* padded,
            int heads, int t_len, int d, float scale, int causal,
            cudaStream_t s) {
-  const int dp = (d + 7) / 8 * 8;
-  if (dp != d) {
-    pad_rows_kernel<<<dim3(132 * 8, 3), 256, 0, s>>>(
-        static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
-        static_cast<const uint16_t*>(v), static_cast<uint4*>(padded),
-        heads * t_len, d, dp);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const size_t plane = static_cast<size_t>(heads) * t_len * dp * 2;
-    q = padded;
-    k = static_cast<const char*>(padded) + plane;
-    v = static_cast<const char*>(padded) + 2 * plane;
-  }
+  const int dp = flash::padded_width(d);
+  cudaError_t err = flash::pad_rows<T>(q, k, v, padded, heads * t_len, d, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
   CUtensorMap tq, tk, tv;
   if (!flash::tile_map<T>(&tq, q, heads, t_len, d, dp, kBlockQ) ||
       !flash::tile_map<T>(&tk, k, heads, t_len, d, dp, kBK) ||
       !flash::tile_map<T>(&tv, v, heads, t_len, d, dp, kBK))
     return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = flash_wide_wgmma_kernel<T>;
-  cudaError_t err = cudaFuncSetAttribute(
+  err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_chunks = (d + kDC - 1) / kDC;

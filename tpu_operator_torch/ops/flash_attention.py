@@ -27,27 +27,26 @@ Five kernels run that schedule (:func:`kernel_for` routes a CUDA input):
 - K2 (``csrc/flash_fwd.cu``, the instance the node validator runs): bf16,
   D = 128, T a multiple of 64; wgmma and TMA.
 - K2w (:func:`flash_wgmma`, the same kernel template): f16 and bf16, D ≤
-  :data:`WGMMA_MAX_HEAD_DIM` with D % 8 = 0, any T.
+  :data:`WGMMA_MAX_HEAD_DIM`, any T.
 - K2dw (:func:`flash_wide_wgmma`, ``csrc/flash_fwd_wide_wgmma.cu``): f16
   and bf16 with D > :data:`WGMMA_MAX_HEAD_DIM`, any T; wgmma and TMA. The
   output's head dim is cut into chunks of :data:`WIDE_CHUNK` columns, one
   block a (unit, chunk), and each block forms the scores from all of D
   again; :func:`flash_chunked_plain` is that schedule in plain PyTorch.
 - K2dt (:func:`flash_wide_tf32`, ``csrc/flash_fwd_wide_tf32.cu``): f32
-  with D > :data:`MAX_HEAD_DIM`, any T; K2dw's schedule on the tensor
+  with D > :data:`WGMMA_MAX_HEAD_DIM`, any T; K2dw's schedule on the tensor
   cores, every product split into three TF32 products (3xTF32) so that it
   keeps f32 grade; :func:`flash_chunked_tf32_plain` is its arithmetic in
   plain PyTorch.
 - K2s (:func:`flash_generic`, ``csrc/flash_fwd_generic.cu``): f32 with D ≤
-  :data:`MAX_HEAD_DIM`, and 16-bit inputs with D % 8 ≠ 0 and D ≤
-  :data:`WGMMA_MAX_HEAD_DIM`, any T; CUDA cores, register-tiled.
+  :data:`MAX_HEAD_DIM`, any T; CUDA cores, register-tiled.
 
-TMA, which feeds K2dw and K2dt, needs a row stride of a multiple of 16
-bytes. They take a head dim off it through a padded row stride of
-:func:`padded_width` columns, the tensor maps' width staying D: K2dw copies
-q, k and v into a padded workspace, K2dt's pre-pass writes its split copies
-at that stride. So every head dim the reference's Pallas kernel takes has a
-kernel.
+TMA, which feeds K2w, K2dw and K2dt, needs a row stride of a multiple of
+16 bytes. They take a head dim off it through a padded row stride of
+:func:`padded_width` columns, the tensor maps' width staying D: K2w and
+K2dw copy q, k and v into a padded workspace, K2dt's pre-pass writes its
+split copies at that stride. So every head dim the reference's Pallas
+kernel takes has a kernel.
 :func:`flash_attention` runs the plain PyTorch version,
 :func:`attention_plain`, only for CPU tensors.
 """
@@ -69,9 +68,9 @@ BLOCK = 64          # the kernels' q tile rows and the work list's kv tiles
 HEAD_DIM = 128      # K2's head dimension
 SPLIT = 8           # kv tiles per unit at most, from chip_smoke.py's sweep
 MASK_FILL = -1e30   # the causal mask's fill, as in the reference
-MAX_HEAD_DIM = 512  # the largest D K2s takes in f32; K2dt takes f32 above it
-WGMMA_MAX_HEAD_DIM = 256  # the largest D K2w and K2s take in 16 bits;
-# K2dw takes 16-bit above it
+MAX_HEAD_DIM = 256  # the largest D K2s takes (f32)
+# the largest D K2w takes (16-bit); past it K2dw takes 16-bit and K2dt f32
+WGMMA_MAX_HEAD_DIM = 256
 # K2dw's and K2dt's output columns a block (``kDC`` in
 # ``csrc/flash_fwd_wide*.cu``, whose C entries refuse a workspace narrower
 # than D rounded up to it)
@@ -82,29 +81,30 @@ DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 WGMMA_BLOCK_K = {64: 64, 128: 64, 256: 32}
 
 
-def head_bucket(d: int, widest: int = MAX_HEAD_DIM) -> int:
-    """The padded head dim DP a kernel is built for: the smallest of 64,
-    128, 256, 384 and 512 that holds ``d`` (K2w's widest is 256)."""
-    for dp in (64, 128, 256, 384, 512):
-        if d <= dp <= widest:
+def head_bucket(d: int) -> int:
+    """The padded head dim DP that K2w and K2s are built for: the smallest
+    of 64, 128 and 256 that holds ``d``."""
+    for dp in (64, 128, 256):
+        if d <= dp:
             return dp
-    raise ValueError(f"head dim {d} above {widest}")
+    raise ValueError(f"head dim {d} above 256")
 
 
 def kernel_for(dtype: torch.dtype, d: int, t: int) -> str:
     """Which kernel a CUDA input of ``dtype`` and shape [.., t, d] goes to:
     "K2" (bf16, D = 128, T a multiple of 64); for the other f16 and bf16
-    inputs, "K2dw" past :data:`WGMMA_MAX_HEAD_DIM` (any D), below it "K2w"
-    (D % 8 = 0) or "K2s" (D % 8 ≠ 0); for f32, "K2s" up to
-    :data:`MAX_HEAD_DIM` and "K2dt" past it (any D). Each wrapper takes
-    exactly its rows (:func:`wide_wgmma_takes`, :func:`wide_tf32_takes`)."""
+    inputs, "K2w" up to :data:`WGMMA_MAX_HEAD_DIM` and "K2dw" past it; for
+    f32, "K2s" up to :data:`MAX_HEAD_DIM` and "K2dt" past the same cut; any
+    D (a head off 16 bytes a row goes through :func:`padded_width`). Each
+    wrapper takes exactly its rows (:func:`wide_wgmma_takes`,
+    :func:`wide_tf32_takes`)."""
     if dtype == torch.bfloat16 and d == HEAD_DIM and t % BLOCK == 0:
         return "K2"
     if wide_wgmma_takes(dtype, d):
         return "K2dw"
     if wide_tf32_takes(dtype, d):
         return "K2dt"
-    if dtype in (torch.float16, torch.bfloat16) and d % 8 == 0:
+    if dtype in (torch.float16, torch.bfloat16):
         return "K2w"
     return "K2s"
 
@@ -115,14 +115,15 @@ def wide_wgmma_takes(dtype: torch.dtype, d: int) -> bool:
 
 
 def wide_tf32_takes(dtype: torch.dtype, d: int) -> bool:
-    """K2dt's range: f32 past :data:`MAX_HEAD_DIM`, any D."""
-    return dtype == torch.float32 and d > MAX_HEAD_DIM
+    """K2dt's range: f32 past :data:`WGMMA_MAX_HEAD_DIM` (K2dw's cut), any
+    D."""
+    return dtype == torch.float32 and d > WGMMA_MAX_HEAD_DIM
 
 
 def padded_width(dtype: torch.dtype, d: int) -> int:
-    """The row stride, in elements, at which K2dw and K2dt hand a [.., D]
-    operand to TMA: D rounded up to 8 (16-bit) or 4 (f32), so that a row
-    is a multiple of 16 bytes. The tensor maps' width stays D, so TMA
+    """The row stride, in elements, at which K2w, K2dw and K2dt hand a
+    [.., D] operand to TMA: D rounded up to 8 (16-bit) or 4 (f32), so that
+    a row is a multiple of 16 bytes. The tensor maps' width stays D, so TMA
     fills zeros past it and never reads a pad column."""
     per_16_bytes = 16 // torch.empty((), dtype=dtype).element_size()
     return -(-d // per_16_bytes) * per_16_bytes
@@ -423,17 +424,18 @@ def flash_launch(q, k, v, scale: float, causal: bool, split: int = SPLIT):
 def flash_wgmma(q, k, v, sm_scale: float | None = None,
                 causal: bool = False):
     """K2w's wrapper: softmax(q·Kᵀ·scale)·V for q, k, v of shape [T, D] or
-    [H, T, D], f16 or bf16, D ≤ :data:`WGMMA_MAX_HEAD_DIM` with D % 8 = 0,
-    any T. Launches the tensor-core kernel (``csrc/flash_fwd.cu``) for CUDA
+    [H, T, D], f16 or bf16, D ≤ :data:`WGMMA_MAX_HEAD_DIM` (any D), any T.
+    Launches the tensor-core kernel (``csrc/flash_fwd.cu``) for CUDA
     tensors and runs :func:`attention_plain` for CPU tensors; the output
-    has the input dtype."""
+    has the input dtype. Another dtype or a wider head is refused on any
+    device (K2s, K2dw or K2dt takes it)."""
     _check_shapes(q, k, v)
-    t, d = q.shape[-2:]
+    d = q.shape[-1]
     if q.dtype not in (torch.float16, torch.bfloat16):
         raise ValueError(f"K2w takes float16 and bfloat16, got {q.dtype}")
-    if d > WGMMA_MAX_HEAD_DIM or d % 8:
-        raise ValueError(f"K2w takes a head dim that is a multiple of 8 and "
-                         f"at most {WGMMA_MAX_HEAD_DIM}, got {d}")
+    if d > WGMMA_MAX_HEAD_DIM:
+        raise ValueError(f"K2w takes a head dim at most "
+                         f"{WGMMA_MAX_HEAD_DIM}, got {d}")
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
     if q.device.type == "cpu":
         return attention_plain(q, k, v, scale, causal)
@@ -448,14 +450,20 @@ def _wgmma_launch(q, k, v, scale: float, causal: bool,
     """Launch K2w on inputs :func:`_cuda_inputs` checked, with kv steps of
     ``block_k`` keys (the bucket's :data:`WGMMA_BLOCK_K` by default;
     ``chip_smoke.py`` sweeps it at DP = 256); the output, not yet
-    synchronised."""
-    dp = head_bucket(q.shape[-1], WGMMA_MAX_HEAD_DIM)
+    synchronised. Where D is off :func:`padded_width`, the C entry first
+    copies q, k and v into a [3, H, T, Dp] workspace (Dp = that width), as
+    K2dw's does."""
+    t, d = q.shape[-2:]
+    dp = head_bucket(d)
     out, heads, work, _workspace = _schedule(q, causal, SPLIT, dp)
+    padded = _padded_workspace(q, heads)
     lib = _native.library()
     with torch.cuda.device(q.device):
         err = lib.flash_fwd_wgmma(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                  out.data_ptr(), *work, DTYPE_CODES[q.dtype],
-                                  heads, q.shape[-2], q.shape[-1],
+                                  out.data_ptr(), *work,
+                                  None if padded is None
+                                  else padded.data_ptr(),
+                                  DTYPE_CODES[q.dtype], heads, t, d,
                                   block_k or WGMMA_BLOCK_K[dp], scale,
                                   int(causal),
                                   torch.cuda.current_stream().cuda_stream)
@@ -464,17 +472,28 @@ def _wgmma_launch(q, k, v, scale: float, causal: bool,
     return out
 
 
+def _padded_workspace(q, heads: int):
+    """The [3, H, T, Dp] workspace that K2w's and K2dw's C entries copy a
+    16-bit head off 8 into (Dp: :func:`padded_width`), or None where D is a
+    multiple of 8."""
+    t, d = q.shape[-2:]
+    dp = padded_width(q.dtype, d)
+    return (None if dp == d else
+            torch.empty((3, heads, t, dp), dtype=q.dtype, device=q.device))
+
+
 def flash_generic(q, k, v, sm_scale: float | None = None,
                   causal: bool = False):
     """K2s's wrapper: softmax(q·Kᵀ·scale)·V for q, k, v of shape [T, D] or
-    [H, T, D], f32, f16 or bf16, D ≤ :data:`MAX_HEAD_DIM`, any T (the
-    routing sends it f32, and 16-bit with D % 8 ≠ 0 up to
-    :data:`WGMMA_MAX_HEAD_DIM`). Launches ``csrc/flash_fwd_generic.cu``
-    for CUDA tensors and runs :func:`attention_plain` for CPU tensors; the
-    output has the input dtype. A wider head is refused on any device
-    (K2dw or K2dt takes it)."""
+    [H, T, D], f32, D ≤ :data:`MAX_HEAD_DIM`, any T. Launches
+    ``csrc/flash_fwd_generic.cu`` for CUDA tensors and runs
+    :func:`attention_plain` for CPU tensors; the output is f32. A 16-bit
+    input or a wider head is refused on any device (K2w, K2dw or K2dt takes
+    it)."""
     _check_shapes(q, k, v)
     d = q.shape[-1]
+    if q.dtype in (torch.float16, torch.bfloat16):
+        raise ValueError(f"K2s takes float32, got {q.dtype}")
     if d > MAX_HEAD_DIM:
         raise ValueError(f"K2s takes head dim at most {MAX_HEAD_DIM}, got "
                          f"{d}")
@@ -534,18 +553,16 @@ def _wide_wgmma_launch(q, k, v, scale: float, causal: bool):
     :func:`wide_columns`; where D is off :func:`padded_width`, the C entry
     first copies q, k and v into a [3, H, T, Dp] workspace (Dp = that
     width)."""
-    t, d = q.shape[-2:]
+    d = q.shape[-1]
     out, heads, work, _workspace = _schedule(q, causal, SPLIT,
                                              wide_columns(d))
-    dp = padded_width(q.dtype, d)
-    padded = (None if dp == d else
-              torch.empty((3, heads, t, dp), dtype=q.dtype, device=q.device))
+    padded = _padded_workspace(q, heads)
     lib = _native.library()
     with torch.cuda.device(q.device):
         err = lib.flash_fwd_wide_wgmma(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *work,
             wide_columns(d), None if padded is None else padded.data_ptr(),
-            DTYPE_CODES[q.dtype], heads, t, d, scale, int(causal),
+            DTYPE_CODES[q.dtype], heads, q.shape[-2], d, scale, int(causal),
             torch.cuda.current_stream().cuda_stream)
     _native.check(err, "flash_fwd_wide_wgmma")
     flash_wide_wgmma.launches += 1
@@ -555,18 +572,18 @@ def _wide_wgmma_launch(q, k, v, scale: float, causal: bool):
 def flash_wide_tf32(q, k, v, sm_scale: float | None = None,
                     causal: bool = False):
     """K2dt's wrapper: softmax(q·Kᵀ·scale)·V for q, k, v of shape [T, D] or
-    [H, T, D], f32, D > :data:`MAX_HEAD_DIM` (any D), any T. Launches the
-    3xTF32 tensor-core kernel (``csrc/flash_fwd_wide_tf32.cu``) for CUDA
-    tensors and runs :func:`attention_plain` for CPU tensors; the output is
-    f32. Another dtype or head dim is refused on any device (K2s or a
-    16-bit kernel takes it)."""
+    [H, T, D], f32, D > :data:`WGMMA_MAX_HEAD_DIM` (any D), any T.
+    Launches the 3xTF32 tensor-core kernel (``csrc/flash_fwd_wide_tf32.cu``)
+    for CUDA tensors and runs :func:`attention_plain` for CPU tensors; the
+    output is f32. Another dtype or head dim is refused on any device (K2s
+    or a 16-bit kernel takes it)."""
     _check_shapes(q, k, v)
     d = q.shape[-1]
     if q.dtype != torch.float32:
         raise ValueError(f"K2dt takes float32, got {q.dtype}")
     if not wide_tf32_takes(q.dtype, d):
-        raise ValueError(f"K2dt takes a head dim above {MAX_HEAD_DIM}, got "
-                         f"{d}")
+        raise ValueError(f"K2dt takes a head dim above "
+                         f"{WGMMA_MAX_HEAD_DIM}, got {d}")
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
     if q.device.type == "cpu":
         return attention_plain(q, k, v, scale, causal)

@@ -183,8 +183,8 @@ def ulysses_attention(q, k, v, mesh: Mesh, axis_name: str = "model",
     K/V rotations. The per-head attention runs at platform precision, not the
     oracle's pin: on flash attention ([H/n, T, Dh], made contiguous for it)
     by the reference's rule, a Dh that is a multiple of 128 and a full T
-    that the blocks divide, at any Dh (K2dw and K2dt take the heads wider
-    than K2w's and K2s's); else dense."""
+    that the blocks divide, at any Dh (K2, K2w and K2s take heads up to 256,
+    K2dw and K2dt the wider ones); else dense."""
     # here, not at the top: ops.flash_attention imports this module
     from tpu_operator_torch.ops.flash_attention import BLOCK, flash_attention
     n = mesh.shape[axis_name]
