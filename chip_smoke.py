@@ -20,9 +20,9 @@ the fastest is its library time; it is also held and timed at the
 bench's shape, bf16 [16384, 128] causal. K2w (K2's kernel template at
 every other f16 or bf16 input with D ≤ 256, any D: a head off 8 through a
 padded row stride), K2dw (the D-chunked tensor-core kernel: f16 and bf16
-with D > 256, any D), K2s (the register-tiled CUDA-core kernel: f32 with D
-≤ 256) and K2dt (K2dw's schedule on the tensor cores in three TF32
-products: f32 with D > 256, any D) are held against the plain version
+with D > 256, any D) and K2dt (K2dw's schedule on the tensor cores in
+three TF32 products, at a chunk as wide as the head up to 256: f32, any
+D) are held against the plain version
 over f32, f16 and bf16, head dims 3, 64, 96, 100, 128, 250, 256, 300, 384,
 510, 512, 514, 520, 640, 1000, 1001, 1020, 1024 and 2048 (the heads off 8
 or 4 through K2w's, K2dw's and K2dt's padded row stride), causal and full,
@@ -33,10 +33,13 @@ on a second call), and timed the same way (K2w also by the keys a kv step
 takes at D = 256, and at bf16 [4096, 100] and f16 [4096, 250], heads off
 8; K2dt at f32 [2, 4096, 1024], its shape on the main path, and at [2,
 4096, 1022], causal and full; K2dw at bf16 [2, 4096, 1024] and [2, 4096,
-1020], causal and full, and at bf16 [4096, 384] and [4096, 300]; K2s at
-f32 [4096, 128] causal, with K2dt called directly beside it; K2dt at f32
-[4096, D], D = 264, 384, 510 and 512, causal and full, the heads it took
-from K2s; EFFICIENT_ATTENTION's kernels by name at K2dt's shape). Then it
+1020], causal and full, and at bf16 [4096, 384] and [4096, 300]; K2dt at
+f32 [4096, D], D = 264, 384, 510 and 512, and D = 64, 96, 128, 250 and
+256 (the CUDA-core K2s's inputs until it was retired; K2s beside where a
+tree still has it), causal and full, with its pre-pass's share of the
+call at [4096, 128] and K2w's copy's at bf16 [4096, 100] by
+torch.profiler; EFFICIENT_ATTENTION's kernels by name at K2dt's shape).
+Then it
 holds the ring kernels (K3–K6) against their plain versions and the
 library sums for 2, 4 and 8 virtual ranks on the card, in one launch and
 in a launch a rank on streams of their own (the protocol of ranks on
@@ -58,10 +61,11 @@ single-device computation; at Dh = 384 and 1024 (bf16) and 1024 (f32) it
 is also timed beside the same call with each rank's attention dense
 (``attention_plain``), outside the counted run. ``flash_attention`` then
 takes one input of each row of its routing table at T = 4096, each
-launching the one kernel the table names (K2s serves callers there, and
-K2w, K2dw and K2dt at heads off 8 and 4). The build phase prints
-ptxas's registers and spills for every kernel (a flash kernel that spills
-fails).
+launching the one kernel the table names (K2dt at f32 D = 128 serves
+callers there, and K2w, K2dw and K2dt at heads off 8 and 4). The build
+phase prints ptxas's registers and spills for every kernel (a flash
+kernel that spills fails, and so does a build without K2dt's three
+chunk-width instances).
 Last, the node health monitor's CLI runs once as its DaemonSet would, on
 the machine's ``/dev`` and NVML with the HBM sweep on K1 at 256 MiB, and
 must publish the node healthy; then each probe is called directly
@@ -302,9 +306,11 @@ def demangle(names: list[str]) -> list[str]:
         return names
 
 
-def phase_build() -> None:
+def phase_build(tf32_chunks: int | None = 3) -> None:
     """Builds the kernels, and prints ptxas's registers and spills for each
-    kernel; a flash-attention kernel that spills fails."""
+    kernel; a flash-attention kernel that spills fails, and so does a build
+    without ``tf32_chunks`` instances of K2dt (one a chunk width; None on a
+    parent's tree, whatever it has)."""
     from tpu_operator_torch import _native
     t0 = time.perf_counter()
     _native.library()
@@ -327,6 +333,9 @@ def phase_build() -> None:
                            ("K2dt's pre-pass", "tf32_split_kernel")):
         check(any(source in name for name in flash),
               f"no {kernel} ({source}) in ptxas's report")
+    instances = sum("flash_wide_tf32_kernel" in name for name in flash)
+    check(tf32_chunks in (None, instances),
+          f"{instances} instances of K2dt, expected {tf32_chunks}")
     # ptxas's notes on wgmma it had to serialise: none may stand
     serialised = [line.strip() for line
                   in _native.log_path().read_text().splitlines()
@@ -474,24 +483,56 @@ def flash_sweep(q, k, v, causal, ref32, limit) -> dict:
     return times
 
 
-def flash_profile(q, k, v, causal) -> dict:
-    """Device microseconds per call of each K2 kernel (the unit kernel and
-    the merge), from torch.profiler over 10 wrapper calls; empty where the
-    profiler saw no device time."""
+def device_us(run, calls: int = 10) -> dict:
+    """Device microseconds a call of each kernel ``run()`` launches, by the
+    kernel's name (its ``\\w*kernel`` part), from torch.profiler over
+    ``calls`` calls after one untimed; empty where the profiler saw no
+    device time."""
     from torch.profiler import ProfilerActivity, profile
-    from tpu_operator_torch.ops.flash_attention import flash_attention
-    flash_attention(q, k, v, causal=causal)
+    run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(10):
-            flash_attention(q, k, v, causal=causal)
+        for _ in range(calls):
+            run()
         torch.cuda.synchronize()
     times = {}
     for e in prof.key_averages():
-        name = re.search(r"flash_\w*kernel", e.key)
+        name = re.search(r"\w*kernel", e.key)
         if name and e.device_time_total > 0:
-            times[name.group()] = e.device_time_total / 10
+            times[name.group()] = (times.get(name.group(), 0.0)
+                                   + e.device_time_total / calls)
     return times
+
+
+def flash_profile(q, k, v, causal) -> dict:
+    """Device microseconds per call of each K2 kernel (the unit kernel and
+    the merge) over 10 wrapper calls (:func:`device_us`)."""
+    from tpu_operator_torch.ops.flash_attention import flash_attention
+    return {name: us for name, us in device_us(
+        lambda: flash_attention(q, k, v, causal=causal)).items()
+        if name.startswith("flash_")}
+
+
+# (kernel, D, causal) of the timed inputs whose copy kernels are timed
+# alone: K2dt's pre-pass (the TF32 split copies) and K2w's copy of a head
+# off 8 into its padded row stride
+COPY_SHARES = {("K2dt", 128, True): ("tf32_split_kernel",
+                                     "tf32_split_transpose_kernel"),
+               ("K2w", 100, True): ("pad_rows_kernel",)}
+
+
+def copy_share(run, copies: tuple, label: str) -> dict:
+    """The ``copies`` kernels of one ``run()`` alone: their device µs a
+    call and their share of the call's device time (:func:`device_us`)."""
+    times = device_us(run)
+    copy = sum(us for name, us in times.items() if name in copies)
+    total = sum(times.values())
+    share = copy / total if total else float("nan")
+    print(f"{label}: its copies ({', '.join(copies)}) "
+          f"{copy:.2f} us of {total:.2f} us device time a call ({share:.3f} "
+          "of it), by torch.profiler over 10 calls; by kernel: "
+          + ", ".join(f"{name} {us:.2f} us" for name, us in times.items()))
+    return {"copy_us": copy, "call_us": total, "share": share}
 
 
 def phase_flash(dev, kind) -> dict:
@@ -582,9 +623,9 @@ def phase_flash(dev, kind) -> dict:
     return main
 
 
-# K2w's, K2s's, K2dw's and K2dt's grid: each dtype, the head-dim buckets
-# both K2w and K2s take and heads off them (96; 3, 100 and 250, off 8 and 4:
-# K2w in 16 bits through its padded row stride), and heads past 256, where
+# K2w's, K2dw's and K2dt's grid: each dtype, the head-dim buckets K2w and
+# K2dt's narrow chunks take and heads off them (96; 3, 100 and 250, off 8
+# and 4, through the padded row stride), and heads past 256, where
 # K2dw takes 16 bits and K2dt f32: 300, 384, 510 and 512, multiples of 128
 # and of 256 past 512 and 520 and 1000 off them (514, 1001 and 1020, off
 # 8, and 510, 514 and 1001 off 4, through the padded row stride),
@@ -602,19 +643,20 @@ PADDED_T = (1024, 200)
 # routed one on the same input where they are not it): each kernel's first
 # is its entry in the kernels line (Ulysses' head widths where the kernel is
 # on that path: 256 on K2w, a rank's two heads of 1024 on K2dt in f32 and
-# K2dw in bf16; K2s at f32 [4096, 128], where K2dt is timed beside it), then
+# K2dw in bf16), then
 # two others on K2w, both attentions at the main path's shapes (Ulysses
 # runs both) and at the heads off 4 and 8 that flash by route drives (f32
 # 1022 on K2dt, bf16 1020 on K2dw), one head of 1024, bf16 384 on K2dw
 # (Ulysses' Dh = 384) and 300 (off 8), K2w at bf16 [4096, 100] and f16
 # [4096, 250] (heads off 8), and the f32 heads from 257 to 512 that K2dt
-# took from K2s (264, whose second 256-column chunk is almost empty, 384,
-# 510, off 4, and 512), K2dt beside where a tree's routing keeps them on
-# K2s (an A/B's parent)
+# took from K2s first (264, whose second 256-column chunk is almost
+# empty, 384, 510, off 4, and 512) and the ten up to 256 it took last (64,
+# 96, 128, 250, 256: the chunk widths 64, 128 and 256 and heads between
+# and off them), K2dt beside where a tree's routing keeps them on K2s and
+# K2s beside where a tree has it (an A/B's parent)
 TIMED = ((torch.bfloat16, 4096, 256, None, True, ()),
          (torch.float16, 4096, 128, None, True, ()),
          (torch.bfloat16, 4096, 64, None, True, ()),
-         (torch.float32, 4096, 128, None, True, ("K2dt",)),
          (torch.float32, 4096, 1024, 2, True, ()),
          (torch.float32, 4096, 1024, 2, False, ()),
          (torch.float32, 4096, 1022, 2, True, ()),
@@ -630,24 +672,31 @@ TIMED = ((torch.bfloat16, 4096, 256, None, True, ()),
          (torch.bfloat16, 4096, 100, None, True, ()),
          (torch.float16, 4096, 250, None, True, ()),
          *((torch.float32, 4096, d, None, causal, ("K2dt",))
-           for d in (264, 384, 510, 512) for causal in (True, False)))
+           for d in (264, 384, 510, 512) for causal in (True, False)),
+         *((torch.float32, 4096, d, None, causal, ("K2s", "K2dt"))
+           for d in (64, 96, 128, 250, 256) for causal in (True, False)))
 # K2w's keys a kv step at DP = 256
 SWEEP_BLOCK_K = (32, 64)
 # the wrapper that counts each kernel's launches
 WRAPPERS = {"K2": "flash_attention", "K2w": "flash_wgmma",
-            "K2s": "flash_generic", "K2dw": "flash_wide_wgmma",
-            "K2dt": "flash_wide_tf32"}
+            "K2dw": "flash_wide_wgmma", "K2dt": "flash_wide_tf32"}
+# retired kernels, timed beside another on a tree that still has them (an
+# A/B's parent)
+RETIRED = {"K2s": "flash_generic"}
 
 
 def direct(name: str):
     """Kernel ``name`` called directly on (q, k, v, causal): its wrapper,
     or for K2dt its launch, so that it can be timed at a width its wrapper
-    refuses (K2dt beside K2s)."""
+    refuses (K2dt beside K2s on a parent's tree); None where the package
+    beside this script has no such kernel."""
     from tpu_operator_torch.ops import flash_attention as flash
     if name == "K2dt":
         return lambda q, k, v, causal: flash._wide_tf32_launch(
             *flash._cuda_inputs(q, k, v), q.shape[-1] ** -0.5, causal)
-    wrapper = getattr(flash, WRAPPERS[name])
+    wrapper = getattr(flash, {**RETIRED, **WRAPPERS}[name], None)
+    if wrapper is None:
+        return None
     return lambda q, k, v, causal: wrapper(q, k, v, causal=causal)
 
 
@@ -745,16 +794,15 @@ def sdpa_kernel_names(q, k, v, causal, backend: str) -> list[str]:
 
 def flash_grid(dev) -> dict:
     """K2w (``csrc/flash_fwd.cu``'s template at every 16-bit input with D ≤
-    256), K2s (``csrc/flash_fwd_generic.cu``, f32 D ≤ 512), K2dw
-    (``csrc/flash_fwd_wide_wgmma.cu``, 16-bit D > 256) and K2dt
-    (``csrc/flash_fwd_wide_tf32.cu``, f32 D > 512) against the plain
+    256), K2dw (``csrc/flash_fwd_wide_wgmma.cu``, 16-bit D > 256) and K2dt
+    (``csrc/flash_fwd_wide_tf32.cu``, every f32 input) against the plain
     version over the grid, through their own wrappers and through
     ``flash_attention``'s routing, with no CUDA call reaching the plain
     version and the two calls giving the same bits; K2w at D = 100 the
-    bits of K2w at D = 104 on zero-padded heads; what K2s refuses, and the
-    head dims K2dt (f32, on and off 4) and K2dw (bf16, on and off 8) take
-    past it. Returns each kernel's worst share of its limit and the
-    padded-head cases."""
+    bits of K2w at D = 104 on zero-padded heads; what K2dt and K2w refuse,
+    and the head dims K2dt (f32, on and off 4) and K2dw (bf16, on and off
+    8) take past 512. Returns each kernel's worst share of its limit (K2dt's
+    also by chunk width) and the padded-head cases."""
     from tpu_operator_torch.ops import flash_attention as flash
     plain = flash.attention_plain
     plain_calls = []
@@ -764,7 +812,9 @@ def flash_grid(dev) -> dict:
         return plain(*a, **kw)
     counters = {name: getattr(flash, fn) for name, fn in WRAPPERS.items()}
     gen = torch.Generator(device=dev).manual_seed(13)
-    worst = {"K2w": 0.0, "K2s": 0.0, "K2dw": 0.0, "K2dt": 0.0}
+    worst = {name: 0.0 for name in WRAPPERS if name != "K2"}
+    # K2dt's worst share at each chunk width
+    worst_dc = {}
     n_cases = 0
     for dtype in GRID_DTYPES:
         for d in GRID_DIMS:
@@ -803,6 +853,9 @@ def flash_grid(dev) -> dict:
                               f"{kernel} {label}: error {ratio:.3f} {of}")
                         if kernel in worst:
                             worst[kernel] = max(worst[kernel], ratio)
+                        if kernel == "K2dt":
+                            dc = flash.tf32_chunk(d)
+                            worst_dc[dc] = max(worst_dc.get(dc, 0.0), ratio)
                         shares.append(f"{kernel} {ratio:.3f}")
                     same = ""
                     if route == name:
@@ -810,7 +863,7 @@ def flash_grid(dev) -> dict:
                               f"{route} {label}: two calls differ")
                         same = "; the same bits twice"
                     n_cases += 1
-                    print(f"[K2w/K2s/K2dw/K2dt] {label} blocks "
+                    print(f"[K2w/K2dw/K2dt] {label} blocks "
                           f"{bq or 'default'}: routed to {route}; error "
                           + ", ".join(shares) + f" {of}{same}")
     # K2w at a head off 8 against itself on the same heads padded with zero
@@ -840,22 +893,22 @@ def flash_grid(dev) -> dict:
         flash.attention_plain = plain
     check(not plain_calls, f"{len(plain_calls)} CUDA calls reached the "
                            "plain version")
-    # K2s's own wrapper refuses 16-bit inputs and f32 past 256 (D = 264,
-    # which it took before K2dt did); flash_attention takes D = 640 on K2dt
-    # (f32) and K2dw (bf16), and D = 642 (f32, off 4) and 641 (bf16, off 8,
-    # odd) as well
+    # K2dt's own wrapper refuses 16-bit inputs, K2w's f32 (K2dt takes
+    # every f32 head); flash_attention takes D = 640 on K2dt (f32) and K2dw
+    # (bf16), and D = 642 (f32, off 4) and 641 (bf16, off 8, odd) as well
     wide = torch.randn((64, 640), generator=gen, device=dev)
-    for x, words in ((wide[:, :264], f"at most {flash.MAX_HEAD_DIM}"),
-                     (wide[:, :64].half(), "takes float32"),
-                     (wide[:, :64].bfloat16(), "takes float32")):
+    for x, wrapper, words in (
+            (wide[:, :64].half(), "flash_wide_tf32", "K2dt takes float32"),
+            (wide[:, :100].bfloat16(), "flash_wide_tf32",
+             "K2dt takes float32"),
+            (wide[:, :128], "flash_wgmma", "K2w takes float16")):
         try:
-            flash.flash_generic(x, x, x)
+            getattr(flash, wrapper)(x, x, x)
         except ValueError as exc:
-            check(words in str(exc), f"K2s at {x.dtype} D={x.shape[-1]}: "
-                                     f"{exc}")
+            check(words in str(exc), f"{wrapper} at {x.dtype} "
+                                     f"D={x.shape[-1]}: {exc}")
         else:
-            raise SmokeFailure(f"flash_generic took {x.dtype} "
-                               f"D={x.shape[-1]}")
+            raise SmokeFailure(f"{wrapper} took {x.dtype} D={x.shape[-1]}")
     shares = []
     off4 = torch.randn((64, 642), generator=gen, device=dev)
     off8 = torch.randn((64, 641), generator=gen, device=dev).to(
@@ -872,17 +925,21 @@ def flash_grid(dev) -> dict:
         check(ratio <= 1.0, f"flash_attention at {x.dtype} D={x.shape[-1]}:"
                             f" error {ratio:.3f} {of}")
         shares.append(f"{name} {ratio:.3f} {of}")
-    print(f"[K2w/K2s/K2dw/K2dt] {n_cases} cases: within their limits "
-          f"(worst share K2w {worst['K2w']:.3f}, K2s {worst['K2s']:.3f}, "
+    print(f"[K2w/K2dw/K2dt] {n_cases} cases: within their limits "
+          f"(worst share K2w {worst['K2w']:.3f}, "
           f"K2dw {worst['K2dw']:.3f}, K2dt {worst['K2dt']:.3f}); each "
           f"kernel's wrapper the same bits as the routing; K2w at D={narrow} "
           f"the bits of D={padded_d} on zero-padded heads in {n_padded} "
-          f"cases; no CUDA call reached the plain version; K2s refuses f16, "
-          f"bf16 and f32 D=264, flash_attention takes D=640 on K2dt in f32 "
+          f"cases; no CUDA call reached the plain version; K2dt refuses f16 "
+          f"and bf16, K2w f32; flash_attention takes D=640 on K2dt in f32 "
           f"and K2dw in bf16, and D=642 in f32 on K2dt and D=641 in bf16 on "
           f"K2dw "
           f"(error " + ", ".join(shares) + ")")
-    return {"worst": worst, "padded_cases": n_padded}
+    print("[K2w/K2dw/K2dt] K2dt's worst share by chunk width: "
+          + ", ".join(f"DC={dc} {share:.3f}"
+                      for dc, share in sorted(worst_dc.items())))
+    return {"worst": worst, "worst_by_chunk": worst_dc,
+            "padded_cases": n_padded}
 
 
 def flash_times(dev, kind) -> tuple[dict, dict]:
@@ -892,7 +949,7 @@ def flash_times(dev, kind) -> tuple[dict, dict]:
     kernel's entries, and the sweep."""
     from tpu_operator_torch.ops import flash_attention as flash
     gen = torch.Generator(device=dev).manual_seed(17)
-    timed = {"K2w": [], "K2s": [], "K2dw": [], "K2dt": []}
+    timed = {}
     sweep = {}
     for dtype, t, d, heads, causal, beside in TIMED:
         shape = (t, d) if heads is None else (heads, t, d)
@@ -903,15 +960,20 @@ def flash_times(dev, kind) -> tuple[dict, dict]:
         run = direct(route)
         entry = time_flash(route, lambda: run(q, k, v, causal), q, k, v,
                            kind, causal, refs)
-        timed[route].append(entry)
+        timed.setdefault(route, []).append(entry)
+        copies = COPY_SHARES.get((route, d, causal))
+        if copies:
+            entry["copy_share"] = copy_share(lambda: run(q, k, v, causal),
+                                             copies,
+                                             f"[{route}] {entry['shape']}")
         for name in beside:
-            if name == route:
-                continue
             other = direct(name)
+            if name == route or other is None:
+                continue
             got = time_flash(name, lambda: other(q, k, v, causal), q, k, v,
                              kind, causal, refs)
             got["beside"] = route
-            timed[name].append(got)
+            timed.setdefault(name, []).append(got)
             entry.setdefault("beside_ms", {})[name] = got["ms"]
             print(f"[{route}] beside it on the same input: {name} "
                   f"{got['ms']:.4f} ms in a graph "
@@ -940,37 +1002,34 @@ def flash_times(dev, kind) -> tuple[dict, dict]:
     return timed, sweep
 
 
-def phase_flash_generic(dev, kind) -> list[dict]:
+def phase_flash_beyond_k2(dev, kind) -> list[dict]:
     """The kernels beyond K2 over the grid (:func:`flash_grid`), then
     timed (:func:`flash_times`): their entries in the kernels line."""
     grid = flash_grid(dev)
     timed, sweep = flash_times(dev, kind)
     worst = grid["worst"]
-    # each kernel's first routed entry leads, the ones timed beside another
-    # kernel last
-    kw, ks, kdw, kdt = (sorted(timed[n], key=lambda e: "beside" in e)
-                        for n in ("K2w", "K2s", "K2dw", "K2dt"))
-    return [{"name": "flash_fwd_wgmma", "route": "cuda",
-             "source": "tpu_operator_torch/csrc/flash_fwd.cu",
-             "replaces": "tpu_operator/ops/flash_attention.py:48",
-             **kw[0], "other_shapes": kw[1:], "block_k_sweep": sweep,
-             "grid_worst_share": worst["K2w"],
-             "padded_heads_bit_equal": grid["padded_cases"]},
-            {"name": "flash_fwd_generic", "route": "cuda",
-             "source": "tpu_operator_torch/csrc/flash_fwd_generic.cu",
-             "replaces": "tpu_operator/ops/flash_attention.py:48",
-             **ks[0], "other_shapes": ks[1:],
-             "grid_worst_share": worst["K2s"]},
-            {"name": "flash_fwd_wide_wgmma", "route": "cuda",
-             "source": "tpu_operator_torch/csrc/flash_fwd_wide_wgmma.cu",
-             "replaces": "tpu_operator/ops/flash_attention.py:48",
-             **kdw[0], "other_shapes": kdw[1:],
-             "grid_worst_share": worst["K2dw"]},
-            {"name": "flash_fwd_wide_tf32", "route": "cuda",
-             "source": "tpu_operator_torch/csrc/flash_fwd_wide_tf32.cu",
-             "replaces": "tpu_operator/ops/flash_attention.py:48",
-             **kdt[0], "other_shapes": kdt[1:],
-             "grid_worst_share": worst["K2dt"]}]
+    extra = {"K2w": {"block_k_sweep": sweep,
+                     "padded_heads_bit_equal": grid["padded_cases"]},
+             "K2dt": {"grid_worst_share_by_chunk": grid["worst_by_chunk"]}}
+    entries = []
+    for kernel, name, source in FLASH_ENTRIES:
+        # the first routed entry leads, the ones timed beside another
+        # kernel last
+        shapes = sorted(timed[kernel], key=lambda e: "beside" in e)
+        entries.append({"name": name, "route": "cuda",
+                        "source": f"tpu_operator_torch/csrc/{source}",
+                        "replaces": "tpu_operator/ops/flash_attention.py:48",
+                        **shapes[0], "other_shapes": shapes[1:],
+                        "grid_worst_share": worst[kernel],
+                        **extra.get(kernel, {})})
+    return entries
+
+
+# the kernels beyond K2 in the kernels line: (kernel, the line's name, its
+# source under csrc/)
+FLASH_ENTRIES = (("K2w", "flash_fwd_wgmma", "flash_fwd.cu"),
+                 ("K2dw", "flash_fwd_wide_wgmma", "flash_fwd_wide_wgmma.cu"),
+                 ("K2dt", "flash_fwd_wide_tf32", "flash_fwd_wide_tf32.cu"))
 
 
 # (name, wrapper, plain version, TPU kernel it replaces, rows per rank
@@ -1690,7 +1749,7 @@ def phase_ulysses_dense() -> dict:
 ROUTE_SHAPES = ((torch.bfloat16, 1, 128, "K2"),
                 (torch.bfloat16, 2, 256, "K2w"),
                 (torch.bfloat16, 2, 384, "K2dw"),
-                (torch.float32, 2, 128, "K2s"),
+                (torch.float32, 2, 128, "K2dt"),
                 (torch.bfloat16, 2, 100, "K2w"),
                 (torch.float32, 2, 384, "K2dt"),
                 (torch.float32, 2, 1024, "K2dt"),
@@ -1702,9 +1761,9 @@ def phase_flash_routes() -> None:
     """``flash_attention``, the port's single-card attention, causal at T =
     4096 on one input of each row of ``kernel_for``'s table: each call must
     launch the kernel the table names, once, and no other, and its output
-    lie within its limit against the plain version (the path by which K2s,
-    and K2w, K2dw and K2dt at heads off 8 and 4, which no Ulysses width
-    reaches, serve a caller)."""
+    lie within its limit against the plain version (the path by which K2dt
+    at f32 heads up to 256, and K2w, K2dw and K2dt at heads off 8 and 4,
+    which no Ulysses width reaches, serve a caller)."""
     from tpu_operator_torch.ops import flash_attention as flash
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(19)
@@ -4340,7 +4399,7 @@ def main(argv: list[str]) -> int:
         return 2
     dev = torch.device("cuda", 0)
     kind, smi_line = phase_card()
-    phase_build()
+    phase_build(None if argv else 3)
     if argv:
         # the timed flash shapes alone, on whatever routing the package
         # beside this script has: one side of an A/B between two trees
@@ -4349,7 +4408,7 @@ def main(argv: list[str]) -> int:
         print(json.dumps({"flash_times": timed, "block_k_sweep": sweep}))
         return 0
     kernels = [phase_hbm(dev, kind), phase_flash(dev, kind),
-               *phase_flash_generic(dev, kind), *phase_ring(dev, kind)]
+               *phase_flash_beyond_k2(dev, kind), *phase_ring(dev, kind)]
 
     # each path runs with its kernels' counts set to 0 just before it and
     # read just after
@@ -4370,13 +4429,12 @@ def main(argv: list[str]) -> int:
           "flash_fwd_wgmma": flash_mod.flash_wgmma,
           "flash_fwd_wide_wgmma": flash_mod.flash_wide_wgmma,
           "flash_fwd_wide_tf32": flash_mod.flash_wide_tf32}),
-        # flash_attention on each row of the routing table: K2s serves
-        # callers there, and K2w, K2dw and K2dt at heads off 8 and 4, at
-        # widths no Ulysses call reaches
+        # flash_attention on each row of the routing table: K2dt at f32
+        # heads up to 256 serves callers there, and K2w, K2dw and K2dt at
+        # heads off 8 and 4, at widths no Ulysses call reaches
         ("flash by route", (phase_flash_routes,),
          {"flash_fwd": flash_mod.flash_attention,
           "flash_fwd_wgmma": flash_mod.flash_wgmma,
-          "flash_fwd_generic": flash_mod.flash_generic,
           "flash_fwd_wide_wgmma": flash_mod.flash_wide_wgmma,
           "flash_fwd_wide_tf32": flash_mod.flash_wide_tf32}),
         ("health monitor", (phase_health_monitor, phase_health_probes),

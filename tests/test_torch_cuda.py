@@ -105,10 +105,10 @@ def test_flash_kernel_gives_the_same_bits_twice(cuda):
 
 def test_flash_kernel_rejects_what_it_cannot_take(cuda, monkeypatch):
     """Only a dtype outside f32, f16 and bf16 is refused; every other CUDA
-    input goes to K2, K2w, K2dw, K2s or K2dt, heads off 8 or 4 included,
-    never to the plain version. K2s's and K2w's own wrappers refuse heads wider
-    than theirs. bf16 with D = 128 and T a multiple of 64 keeps K2, whatever
-    blocks were asked for."""
+    input goes to K2, K2w, K2dw or K2dt, heads off 8 or 4 included, never
+    to the plain version. K2w's own wrapper refuses heads wider than its
+    own, K2dt's every 16-bit input. bf16 with D = 128 and T a multiple of 64
+    keeps K2, whatever blocks were asked for."""
     def refuse(*a, **kw):
         raise AssertionError("a CUDA input reached the plain version")
     monkeypatch.setattr(flash_mod, "attention_plain", refuse)
@@ -117,15 +117,14 @@ def test_flash_kernel_rejects_what_it_cannot_take(cuda, monkeypatch):
     with pytest.raises(ValueError, match="float32, float16 and bfloat16"):
         flash_mod.flash_attention(xd, xd, xd)
     wide = torch.zeros((256, 640), device=cuda)
-    with pytest.raises(ValueError, match="head dim at most 256"):
-        flash_mod.flash_generic(wide, wide, wide)
     wide16 = wide.to(torch.bfloat16)
+    with pytest.raises(ValueError, match="K2dt takes float32"):
+        flash_mod.flash_wide_tf32(wide16, wide16, wide16)
     with pytest.raises(ValueError, match="at most 256, got 640"):
         flash_mod.flash_wgmma(wide16, wide16, wide16)
     xb = x.to(torch.bfloat16)
     counters = (flash_mod.flash_attention, flash_mod.flash_wgmma,
-                flash_mod.flash_generic, flash_mod.flash_wide_wgmma,
-                flash_mod.flash_wide_tf32)
+                flash_mod.flash_wide_wgmma, flash_mod.flash_wide_tf32)
     counts = [fn.launches for fn in counters]
     flash_mod.flash_attention(xb, xb, xb, block_q=128, block_k=128)
     flash_mod.flash_attention(x, x, x)
@@ -136,7 +135,9 @@ def test_flash_kernel_rejects_what_it_cannot_take(cuda, monkeypatch):
     off8 = torch.zeros((256, 1001), device=cuda, dtype=torch.bfloat16)
     flash_mod.flash_attention(off8, off8, off8)
     torch.cuda.synchronize()
-    assert [fn.launches for fn in counters] == [n + 1 for n in counts]
+    # K2 once, K2w once, K2dw once, K2dt twice (f32 at D = 128 and 642)
+    assert [fn.launches for fn in counters] == [
+        n + added for n, added in zip(counts, (1, 1, 1, 2))]
 
 
 def _within(out, q, k, v, causal):
@@ -151,29 +152,31 @@ def _within(out, q, k, v, causal):
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("d", [64, 96, 128, 256, 384, 512, 3, 100, 320])
+@pytest.mark.parametrize("d", [64, 96, 128, 256, 384, 512, 3, 100, 250,
+                               320])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
                                    torch.bfloat16])
 def test_generic_kernel_matches_plain(cuda, dtype, d, causal):
-    """K2s over its head-dim buckets and D off them, at a T its 64-row
-    tiles divide and ones they do not, with two heads; an input K2s does
-    not take (16-bit, or f32 past its widest head) is refused by its
-    wrapper, launches nothing, and goes to the kernel the routing names."""
+    """K2dt over the head-dim buckets that the CUDA-core K2s took until it
+    was retired (its chunks of 64, 128 and 256 columns) and D off them and
+    past them, at a T its 64-row tiles divide and ones they do not, with
+    two heads; a 16-bit input is refused by K2dt's wrapper, launches
+    nothing, and goes to the kernel the routing names."""
     gen = torch.Generator(device=cuda).manual_seed(d)
-    takes = dtype == torch.float32 and d <= flash_mod.MAX_HEAD_DIM
+    takes = dtype == torch.float32
     for t in (1024, 200, 96, 1):
         q, k, v = (torch.randn((2, t, d), generator=gen, device=cuda)
                    .to(dtype) for _ in range(3))
-        before = flash_mod.flash_generic.launches
+        before = flash_mod.flash_wide_tf32.launches
         if takes:
-            out = flash_mod.flash_generic(q, k, v, causal=causal)
+            out = flash_mod.flash_wide_tf32(q, k, v, causal=causal)
         else:
-            with pytest.raises(ValueError, match="K2s takes"):
-                flash_mod.flash_generic(q, k, v, causal=causal)
+            with pytest.raises(ValueError, match="K2dt takes"):
+                flash_mod.flash_wide_tf32(q, k, v, causal=causal)
             out = flash_mod.flash_attention(q, k, v, causal=causal,
                                             block_q=t, block_k=t)
         torch.cuda.synchronize()
-        assert flash_mod.flash_generic.launches == before + takes
+        assert flash_mod.flash_wide_tf32.launches == before + takes
         assert out.dtype == dtype and out.shape == q.shape
         assert _within(out, q, k, v, causal), t
 
@@ -213,17 +216,18 @@ def test_wide_kernel_matches_plain(cuda, dtype, d, causal):
                                    torch.bfloat16])
 def test_wide_kernel_against_the_generic_kernel_where_both_take_it(cuda,
                                                                   dtype):
-    """At a head off 8 and 4 below 256 (D = 250), which the routing keeps
-    on K2s (f32) or K2w (16-bit), the wide kernel's launch (K2dt's or
+    """At a head off 8 and 4 below 256 (D = 250), which the routing sends
+    to K2dt (f32) or K2w (16-bit), the wide kernel's launch (K2dt's or
     K2dw's, which take any D) and the narrow kernel's wrapper agree within
-    the limit each is held to against the plain version."""
+    the limit each is held to against the plain version; in f32, where no
+    narrow kernel is left, K2dt against the plain version."""
     gen = torch.Generator(device=cuda).manual_seed(5)
     d = 250
     q, k, v = (torch.randn((2, 1024, d), generator=gen, device=cuda)
                .to(dtype) for _ in range(3))
     if dtype == torch.float32:
         wide = flash_mod._wide_tf32_launch(q, k, v, d ** -0.5, True)
-        generic = flash_mod.flash_generic(q, k, v, causal=True)
+        generic = flash_mod.attention_plain(q, k, v, causal=True)
     else:
         wide = flash_mod._wide_wgmma_launch(q, k, v, d ** -0.5, True)
         generic = flash_mod.flash_wgmma(q, k, v, causal=True)
@@ -241,8 +245,8 @@ def _zero_padded(x, width):
     return torch.nn.functional.pad(x, (0, width - x.shape[-1]))
 
 
-WIDE_COUNTERS = ("flash_attention", "flash_wgmma", "flash_generic",
-                 "flash_wide_wgmma", "flash_wide_tf32")
+WIDE_COUNTERS = ("flash_attention", "flash_wgmma", "flash_wide_wgmma",
+                 "flash_wide_tf32")
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -363,17 +367,39 @@ def test_wide_tf32_kernel_off_4_is_the_kernel_on_zero_padded_heads(cuda):
             assert torch.equal(got, padded[..., :d]), (d, causal)
 
 
-def test_wide_tf32_kernel_is_the_tf32_schedule(cuda):
+@pytest.mark.parametrize("narrow,padded", [(250, 252), (3, 4)])
+def test_narrow_tf32_kernel_off_4_is_the_kernel_on_zero_padded_heads(
+        cuda, narrow, padded):
+    """At D = 250 and 3 (chunks of 256 and 64 columns, heads off 4) K2dt
+    gives the bits of K2dt at D = 252 and 4 on the same heads padded with
+    zero columns at the same scale, cut back to D: TMA's zero fill keeps the
+    pad out of S and P V, and no store passes D."""
+    gen = torch.Generator(device=cuda).manual_seed(narrow)
+    for t in (1024, 200):
+        q, k, v = (torch.randn((2, t, narrow), generator=gen, device=cuda)
+                   for _ in range(3))
+        for causal in (True, False):
+            got = flash_mod.flash_wide_tf32(q, k, v, causal=causal)
+            wide = flash_mod.flash_wide_tf32(
+                *(_zero_padded(x, padded) for x in (q, k, v)),
+                sm_scale=1.0 / math.sqrt(narrow), causal=causal)
+            assert _within(got, q, k, v, causal)
+            assert torch.equal(got, wide[..., :narrow]), (t, causal)
+
+
+@pytest.mark.parametrize("d", [64, 128, 1024])
+def test_wide_tf32_kernel_is_the_tf32_schedule(cuda, d):
     """K2dt on the card against its arithmetic in plain PyTorch
-    (``flash_chunked_tf32_plain`` on the card's tensors) and against one
-    TF32 product: within half the f32 tolerance of the first (the tensor
-    core adds its products in another order than the CPU's f32 sums), and
-    the single product more than the tolerance away from the exact f32
-    output, so the kernel's agreement is the split's doing."""
+    (``flash_chunked_tf32_plain`` on the card's tensors, at K2dt's chunk
+    width for D: 64, 128 and 256) and against one TF32 product: within
+    half the f32 tolerance of the first (the tensor core adds its products
+    in another order than the CPU's f32 sums), and the single product more
+    than the tolerance away from the exact f32 output, so the kernel's
+    agreement is the split's doing."""
     gen = torch.Generator(device=cuda).manual_seed(9)
-    q, k, v = (torch.randn((128, 1024), generator=gen, device=cuda)
+    q, k, v = (torch.randn((128, d), generator=gen, device=cuda)
                for _ in range(3))
-    tol = attention_tolerance(torch.float32, 1024, "cuda")
+    tol = attention_tolerance(torch.float32, d, "cuda")
     out = flash_mod.flash_wide_tf32(q, k, v, causal=True)
     model = flash_mod.flash_chunked_tf32_plain(q, k, v, True)
     one = flash_mod.flash_chunked_tf32_plain(q, k, v, True,
@@ -384,12 +410,12 @@ def test_wide_tf32_kernel_is_the_tf32_schedule(cuda):
 
 
 def test_wide_tf32_wrapper_refuses_what_it_does_not_take(cuda):
-    """On the card K2dt's wrapper refuses 16-bit, D = 256 and D = 130 and
-    launches nothing; nothing falls back to another kernel or the plain
-    version."""
+    """On the card K2dt's wrapper refuses 16-bit inputs at any head dim
+    (D = 1024, 256 and 130) and launches nothing; nothing falls back to
+    another kernel or the plain version."""
     before = {n: getattr(flash_mod, n).launches for n in WIDE_COUNTERS}
-    for dtype, d in ((torch.bfloat16, 1024), (torch.float32, 256),
-                     (torch.float32, 130)):
+    for dtype, d in ((torch.bfloat16, 1024), (torch.float16, 256),
+                     (torch.bfloat16, 130)):
         x = torch.zeros((128, d), device=cuda, dtype=dtype)
         with pytest.raises(ValueError, match="K2dt takes"):
             flash_mod.flash_wide_tf32(x, x, x)
@@ -397,21 +423,23 @@ def test_wide_tf32_wrapper_refuses_what_it_does_not_take(cuda):
         before
 
 
-@pytest.mark.parametrize("cols", [768, 1026])
-def test_wide_tf32_kernel_refuses_a_narrow_workspace(cuda, cols):
+@pytest.mark.parametrize("d,cols", [(1000, 768), (1000, 1026), (100, 64),
+                                    (60, 60)])
+def test_wide_tf32_kernel_refuses_a_narrow_workspace(cuda, d, cols):
     """K2dt's C entry, like K2dw's, refuses a partials workspace whose rows
-    are narrower than D rounded up to its 256-column chunks, or not a
-    multiple of 4 floats, with cudaErrorInvalidValue and no launch."""
+    are narrower than D rounded up to its chunk width (256 past D = 256,
+    the head bucket up to it), or not a multiple of 4 floats, with
+    cudaErrorInvalidValue and no launch."""
     from tpu_operator_torch import _native
-    q = torch.randn((1, 256, 1000), device=cuda)
+    q = torch.randn((1, 256, d), device=cuda)
     out, heads, work, _workspace = flash_mod._schedule(
         q, True, flash_mod.SPLIT, 1024)
-    split = torch.empty((2, 1000, 256), device=cuda)
+    split = torch.empty((2, d, 256), device=cuda)
     before = flash_mod.flash_wide_tf32.launches
     err = _native.library().flash_fwd_wide_tf32(
         q.data_ptr(), q.data_ptr(), q.data_ptr(), out.data_ptr(), *work, cols,
         split.data_ptr(), split.data_ptr(), split.data_ptr(), heads, 256,
-        1000, 1000 ** -0.5, 1, torch.cuda.current_stream().cuda_stream)
+        d, d ** -0.5, 1, torch.cuda.current_stream().cuda_stream)
     assert err == 1   # cudaErrorInvalidValue
     assert flash_mod.flash_wide_tf32.launches == before
 
@@ -544,29 +572,13 @@ def test_wgmma_kernel_refuses_a_missing_pad_workspace(cuda):
     assert flash_mod.flash_wgmma.launches == before
 
 
-@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
-def test_generic_kernel_refuses_16_bit_inputs(cuda, dtype):
-    """K2s's C entry, f32 only now, refuses dtypes 1 (f16) and 2 (bf16)
-    with cudaErrorInvalidValue and no launch."""
-    from tpu_operator_torch import _native
-    q = torch.randn((1, 256, 100), device=cuda).to(dtype)
-    out, heads, work, _workspace = flash_mod._schedule(
-        q, True, flash_mod.SPLIT, 128)
-    before = flash_mod.flash_generic.launches
-    err = _native.library().flash_fwd_generic(
-        q.data_ptr(), q.data_ptr(), q.data_ptr(), out.data_ptr(), *work,
-        flash_mod.DTYPE_CODES[dtype], heads, 256, 100, 100 ** -0.5, 1,
-        torch.cuda.current_stream().cuda_stream)
-    assert err == 1   # cudaErrorInvalidValue
-    assert flash_mod.flash_generic.launches == before
-
-
 @pytest.mark.parametrize("dtype,d,t,kernel", [
     (torch.bfloat16, 128, 512, "K2"), (torch.bfloat16, 128, 200, "K2w"),
     (torch.float16, 128, 512, "K2w"), (torch.bfloat16, 256, 512, "K2w"),
     (torch.float16, 100, 512, "K2w"), (torch.bfloat16, 384, 256, "K2dw"),
     (torch.float16, 512, 200, "K2dw"), (torch.bfloat16, 264, 96, "K2dw"),
-    (torch.float32, 128, 512, "K2s"), (torch.float32, 512, 96, "K2dt"),
+    (torch.float32, 128, 512, "K2dt"), (torch.float32, 512, 96, "K2dt"),
+    (torch.float32, 64, 200, "K2dt"), (torch.float32, 250, 96, "K2dt"),
     (torch.bfloat16, 640, 256, "K2dw"), (torch.float16, 1000, 200, "K2dw"),
     (torch.float16, 1001, 200, "K2dw"), (torch.bfloat16, 1001, 96, "K2dw"),
     (torch.bfloat16, 300, 200, "K2dw"), (torch.float16, 202, 96, "K2w"),
@@ -583,7 +595,6 @@ def test_flash_attention_launches_the_kernel_the_routing_names(
                for _ in range(3))
     counters = {"K2": flash_mod.flash_attention,
                 "K2w": flash_mod.flash_wgmma,
-                "K2s": flash_mod.flash_generic,
                 "K2dw": flash_mod.flash_wide_wgmma,
                 "K2dt": flash_mod.flash_wide_tf32}
     before = {name: fn.launches for name, fn in counters.items()}
@@ -617,7 +628,7 @@ def test_wgmma_kernel_keeps_bf16_head_dim_128(cuda):
     q, k, v = (torch.randn((4, 512, 128), generator=gen, device=cuda)
                .to(torch.bfloat16) for _ in range(3))
     counters = (flash_mod.flash_attention, flash_mod.flash_wgmma,
-                flash_mod.flash_generic)
+                flash_mod.flash_wide_tf32)
     counts = [fn.launches for fn in counters]
     out = flash_mod.flash_attention(q, k, v, causal=True, block_q=32,
                                     block_k=256)
@@ -998,12 +1009,15 @@ def test_validator_on_four_ranks_runs_the_hand_rings(cuda, tmp_path):
     (256, "flash_wgmma", torch.bfloat16),
     (384, "flash_wide_wgmma", torch.bfloat16),
     (1024, "flash_wide_wgmma", torch.bfloat16),
-    (1024, "flash_wide_tf32", torch.float32)])
+    (1024, "flash_wide_tf32", torch.float32),
+    (128, "flash_wide_tf32", torch.float32),
+    (256, "flash_wide_tf32", torch.float32)])
 def test_ulysses_head_dim_256_goes_through_the_generic_kernel(cuda, d,
                                                               kernel, dtype):
     """Dh = 256 goes through K2w (the tensor-core kernel that replaced the
     generic one there), Dh = 384 through K2dw, Dh = 1024 through K2dw in
-    bf16 and K2dt in f32, once per rank."""
+    bf16 and K2dt in f32, and f32 at Dh = 128 and 256 through K2dt, once
+    per rank."""
     from tpu_operator_torch.parallel.mesh import MeshPlan, make_mesh
     from tpu_operator_torch.parallel.ring_attention import ulysses_attention
     n, t, h = 4, 256, 8

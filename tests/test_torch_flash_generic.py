@@ -1,8 +1,8 @@
 """Flash attention's inputs beyond K2's: f32, f16 and head dims up to 512
 through the port's ``flash_attention`` (on the CPU, its plain version)
 against the reference's Pallas kernel in interpret mode on the same numpy
-inputs; which CUDA inputs go to K2, which to K2w, K2dw, K2s and K2dt; what
-each wrapper refuses (K2s every 16-bit input, and f32 past 256); and
+inputs; which CUDA inputs go to K2, which to K2w, K2dw and K2dt; what
+each wrapper refuses (K2dt every 16-bit input, at any head dim); and
 Ulysses at Dh = 256, 384, 512, 640 and 1024, which take the flash route as
 the reference does, and at a Dh off the multiples of 128, which runs dense
 as the reference does. Heads past 512 (K2dw, K2dt) are held in
@@ -28,8 +28,7 @@ from tpu_operator_torch.parallel.ring_attention import ulysses_attention
 # each kernel's wrapper, by the name ``kernel_for`` gives it (K2's instance
 # has none: K2w's wrapper takes its inputs)
 WRAPPERS = {"K2": port.flash_wgmma, "K2w": port.flash_wgmma,
-            "K2s": port.flash_generic, "K2dw": port.flash_wide_wgmma,
-            "K2dt": port.flash_wide_tf32}
+            "K2dw": port.flash_wide_wgmma, "K2dt": port.flash_wide_tf32}
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "float16": (jnp.float16, torch.float16),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -102,9 +101,9 @@ def test_routing_between_the_two_kernels(dtype, t, d, wgmma):
     (torch.bfloat16, 3, 256, "K2w"),
     (torch.bfloat16, 384, 4096, "K2dw"),    # past K2w's widest bucket
     (torch.float16, 512, 1024, "K2dw"),
-    (torch.float32, 128, 4096, "K2s"),
-    (torch.float32, 512, 96, "K2dt"),       # past K2s's widest bucket
-    (torch.float32, 5, 7, "K2s"),
+    (torch.float32, 128, 4096, "K2dt"),     # every f32 head
+    (torch.float32, 512, 96, "K2dt"),
+    (torch.float32, 5, 7, "K2dt"),
 ])
 def test_kernel_for_routes_each_input(dtype, d, t, kernel):
     assert port.kernel_for(dtype, d, t) == kernel
@@ -115,34 +114,36 @@ def test_kernel_for_routes_each_input(dtype, d, t, kernel):
                                       (264, None), (384, None), (385, None),
                                       (512, None)])
 def test_head_dim_buckets(d, bucket):
-    """K2w's and K2s's buckets, 64, 128 and 256; no kernel that takes a
-    bucket takes a wider head (K2dw and K2dt do, by chunks)."""
+    """K2w's buckets, 64, 128 and 256, which are K2dt's chunk widths up to
+    256; K2w takes no wider head (K2dw and K2dt do, by 256-column
+    chunks)."""
     if bucket is not None:
         assert port.head_bucket(d) == bucket
-        assert d <= port.MAX_HEAD_DIM and d <= port.WGMMA_MAX_HEAD_DIM
+        assert d <= port.WGMMA_MAX_HEAD_DIM and port.tf32_chunk(d) == bucket
     else:
         with pytest.raises(ValueError, match=f"head dim {d} above 256"):
             port.head_bucket(d)
 
 
-@pytest.mark.parametrize("dtype,d,match", [
-    (torch.float32, 640, "head dim at most 256, got 640"),
-    (torch.bfloat16, 520, "K2s takes float32, got torch.bfloat16"),
-    (torch.float64, 64, "take float32, float16 and bfloat16"),
-    (torch.int8, 64, "take float32, float16 and bfloat16"),
-    (torch.float32, 256, "unsupported device"),
+@pytest.mark.parametrize("dtype,d,routed,k2dt", [
+    (torch.float32, 640, "unsupported device", "unsupported device"),
+    (torch.bfloat16, 520, "unsupported device",
+     "K2dt takes float32, got torch.bfloat16"),
+    (torch.float64, 64, "take float32, float16 and bfloat16",
+     "K2dt takes float32, got torch.float64"),
+    (torch.int8, 64, "take float32, float16 and bfloat16",
+     "K2dt takes float32, got torch.int8"),
+    (torch.float32, 256, "unsupported device", "unsupported device"),
 ])
-def test_what_the_kernels_refuse_raises(dtype, d, match):
+def test_what_the_kernels_refuse_raises(dtype, d, routed, k2dt):
     """Off the CPU, only a dtype outside f32/f16/bf16 is refused for what it
-    is, and by K2s's own wrapper a 16-bit input or an f32 head dim past 256
-    (``flash_attention`` takes those on K2w, K2dw or K2dt); a meta tensor,
-    which no kernel takes, is refused for its device."""
+    is by ``flash_attention``, and by K2dt's own wrapper every dtype but f32
+    (``flash_attention`` takes the 16-bit ones on K2w or K2dw); a meta
+    tensor, which no kernel takes, is refused for its device."""
     x = torch.empty((64, d), dtype=dtype, device="meta")
-    wide = d > port.MAX_HEAD_DIM
-    for fn in (port.flash_attention, port.flash_generic):
-        refused = match if fn is port.flash_generic or not wide \
-            else "unsupported device"
-        with pytest.raises(ValueError, match=refused):
+    for fn, match in ((port.flash_attention, routed),
+                      (port.flash_wide_tf32, k2dt)):
+        with pytest.raises(ValueError, match=match):
             fn(x, x, x)
 
 
@@ -153,7 +154,7 @@ def test_what_the_kernels_refuse_raises(dtype, d, match):
 ])
 def test_what_k2w_refuses_raises(dtype, d, match):
     """K2w's own wrapper refuses, on any device, what its wgmma shapes
-    cannot take; ``flash_attention`` sends f32 to K2s or K2dt, and 16-bit
+    cannot take; ``flash_attention`` sends f32 to K2dt, and 16-bit
     heads past 256 to K2dw."""
     for device in ("cpu", "meta"):
         x = torch.zeros((64, d), dtype=dtype, device=device)
@@ -181,24 +182,42 @@ def test_k2w_takes_heads_off_8(dtype, d):
 
 
 @pytest.mark.parametrize("device", ["cpu", "meta"])
-@pytest.mark.parametrize("dtype,d,match", [
-    (torch.float16, 64, "K2s takes float32, got torch.float16"),
-    (torch.bfloat16, 100, "K2s takes float32, got torch.bfloat16"),
-    (torch.float16, 256, "K2s takes float32, got torch.float16"),
-    (torch.float32, 257, "head dim at most 256, got 257")])
-def test_k2s_refuses_what_moved_off_it(dtype, d, match, device):
-    """K2s takes f32 up to 256 only: its wrapper refuses f16 and bf16 (K2w
-    or K2dw takes them) and f32 past 256 (K2dt takes it) on any device,
-    the CPU included."""
+@pytest.mark.parametrize("dtype,d", [(torch.float16, 64),
+                                     (torch.bfloat16, 100),
+                                     (torch.float16, 256),
+                                     (torch.bfloat16, 1024)])
+def test_k2dt_refuses_16_bit_inputs(dtype, d, device):
+    """K2dt takes f32 only: its wrapper refuses f16 and bf16 (K2w or K2dw
+    takes them) at any head dim, on any device, the CPU included."""
     x = torch.zeros((64, d), dtype=dtype, device=device)
-    with pytest.raises(ValueError, match=match):
-        port.flash_generic(x, x, x)
+    with pytest.raises(ValueError, match=f"K2dt takes float32, got {dtype}"):
+        port.flash_wide_tf32(x, x, x)
+
+
+@pytest.mark.parametrize("d", [1, 3, 64, 96, 100, 128, 250, 256, 257, 1024])
+def test_k2dt_takes_f32_at_every_head_dim(d):
+    """K2dt's wrapper takes f32 at any D, the buckets up to 256 (the CUDA-
+    core kernel's before it) as much as past them: a meta tensor is refused
+    only for its device, the routing names K2dt, and on the CPU the wrapper
+    is the plain version, bit for bit."""
+    x = torch.empty((64, d), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        port.flash_wide_tf32(x, x, x)
+    assert port.kernel_for(torch.float32, d, 64) == "K2dt"
+    assert port.wide_tf32_takes(torch.float32, d)
+    rng = np.random.default_rng(d + 1)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 96, d),
+                                                    dtype=np.float32))
+               for _ in range(3))
+    torch.testing.assert_close(port.flash_wide_tf32(q, k, v, causal=True),
+                               port.attention_plain(q, k, v, causal=True),
+                               rtol=0, atol=0)
 
 
 def test_mixed_inputs_are_refused():
     q = torch.empty((64, 64), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
-        port.flash_generic(q, q.to(torch.float16), q)
+        port.flash_wide_tf32(q, q.to(torch.float16), q)
 
 
 def test_blocks_are_checked_as_the_reference_checks_them():
@@ -212,10 +231,10 @@ def test_blocks_are_checked_as_the_reference_checks_them():
 
 
 def test_cpu_calls_launch_no_kernel():
-    counters = (port.flash_attention, port.flash_wgmma, port.flash_generic)
+    counters = (port.flash_attention, port.flash_wgmma, port.flash_wide_tf32)
     before = [fn.launches for fn in counters]
     x = torch.ones((2, 96, 256), dtype=torch.float16)
-    port.flash_generic(x.float(), x.float(), x.float(), causal=True)
+    port.flash_wide_tf32(x.float(), x.float(), x.float(), causal=True)
     port.flash_wgmma(x, x, x, causal=True)
     port.flash_attention(x, x, x, block_q=32, block_k=32)
     assert [fn.launches for fn in counters] == before

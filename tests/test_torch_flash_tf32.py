@@ -1,6 +1,6 @@
-"""K2dt's arithmetic and the routing after it: f32 heads past 256 on the
-tensor cores in three TF32 products (3xTF32), 16-bit heads past 256 on
-K2dw.
+"""K2dt's arithmetic and the routing after it: every f32 head on the
+tensor cores in three TF32 products (3xTF32), at a chunk as wide as the
+head up to 256; 16-bit heads past 256 on K2dw.
 
 On the card K2dt splits every operand x into big = tf32(x) and small =
 tf32(x − big) and forms each product of Q·Kᵀ and P·V as small·big +
@@ -85,16 +85,54 @@ def test_tf32_schedule_matches_the_pallas_kernel_off_4(t, d, blocks, causal):
     assert _error_share(got, want, d) <= 1.0
 
 
+# the heads up to 256 that K2dt took from K2s, each at the chunk width of
+# its bucket (tf32_chunk: 64, 128 or 256 output columns a block): the
+# buckets, 96 between two of them, and 3, 100 and 250, off 4 and 8
+NARROW = [(t, d, (64, 64) if t == 128 else (40, 200))
+          for d in (3, 64, 96, 100, 128, 250, 256) for t in (128, 200)]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("t,d,blocks", NARROW)
+def test_tf32_schedule_at_the_heads_chunk_matches_the_pallas_kernel(
+        t, d, blocks, causal):
+    """The 3xTF32 model at K2dt's own chunk width for D ≤ 256 (the head
+    bucket) within the card's f32 tolerance of the reference's Pallas
+    kernel, and the same bits as at a chunk of 256 (a block's columns
+    enter no other column's arithmetic)."""
+    arrays, want = _case(t, d, causal, blocks)
+    q, k, v = (torch.from_numpy(a) for a in arrays)
+    got = port.flash_chunked_tf32_plain(q, k, v, causal,
+                                        chunk=port.tf32_chunk(d))
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    assert _error_share(got, want, d) <= 1.0
+    torch.testing.assert_close(port.flash_chunked_tf32_plain(q, k, v, causal),
+                               got, rtol=0, atol=0)
+
+
+def test_tf32_chunk_is_the_head_bucket_up_to_256():
+    """K2dt's chunk width: the head bucket (64, 128, 256) up to D = 256,
+    256 past it; its workspace row is D rounded up to it."""
+    for d in range(1, 2049):
+        want = port.head_bucket(d) if d <= 256 else 256
+        assert port.tf32_chunk(d) == want
+        assert port.wide_columns(d, want) == -(-d // want) * want
+    assert [port.tf32_chunk(d) for d in (1, 64, 65, 128, 129, 256, 257)] == [
+        64, 64, 128, 128, 256, 256, 256]
+
+
 # the planted faults: one TF32 product, and each of the three left out
 FAULTS = {"one_tf32_product": ("big_big",),
           "no_small_big": ("big_small", "big_big"),
           "no_big_small": ("small_big", "big_big"),
           "no_big_big": ("small_big", "big_small")}
+# the fault cases: the wide heads, and the chunks of 64 and 128 columns
+FAULT_CASES = CASES + [case for case in NARROW if case[1] in (64, 128)]
 
 
 @pytest.mark.parametrize("fault", list(FAULTS))
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("t,d,blocks", CASES)
+@pytest.mark.parametrize("t,d,blocks", FAULT_CASES)
 def test_a_missing_product_fails_the_tolerance(t, d, blocks, causal, fault):
     arrays, want = _case(t, d, causal, blocks)
     q, k, v = (torch.from_numpy(a) for a in arrays)
@@ -161,7 +199,7 @@ ROUTES = [
     (torch.float16, 256, "K2w"), (torch.bfloat16, 64, "K2w"),
     (torch.bfloat16, 264, "K2dw"), (torch.float16, 384, "K2dw"),
     (torch.bfloat16, 512, "K2dw"), (torch.bfloat16, 1024, "K2dw"),
-    (torch.float32, 128, "K2s"), (torch.float32, 384, "K2dt"),
+    (torch.float32, 128, "K2dt"), (torch.float32, 384, "K2dt"),
     (torch.float32, 512, "K2dt"), (torch.float16, 100, "K2w"),
     (torch.bfloat16, 250, "K2w"), (torch.float32, 300, "K2dt"),
     (torch.bfloat16, 510, "K2dw"), (torch.bfloat16, 300, "K2dw"),
@@ -182,12 +220,12 @@ def test_kernel_for_gives_the_routing_table(dtype, d, kernel, t):
 @pytest.mark.parametrize("dtype,d,match", [
     (torch.float16, 1024, "K2dt takes float32, got torch.float16"),
     (torch.bfloat16, 1024, "K2dt takes float32"),
-    (torch.float32, 256, "above 256, got 256"),
+    (torch.float16, 256, "K2dt takes float32, got torch.float16"),
     (torch.bfloat16, 1001, "K2dt takes float32, got torch.bfloat16"),
-    (torch.float32, 130, "above 256, got 130")])
+    (torch.bfloat16, 130, "K2dt takes float32, got torch.bfloat16")])
 def test_tf32_wrapper_refuses_what_it_does_not_take(dtype, d, match):
-    """Refused before any device is asked: K2s or a 16-bit kernel takes
-    these, never K2dt."""
+    """Refused before any device is asked: a 16-bit kernel takes these,
+    never K2dt."""
     x = torch.empty((64, d), dtype=dtype, device="meta")
     with pytest.raises(ValueError, match=match):
         port.flash_wide_tf32(x, x, x)
@@ -205,12 +243,12 @@ def test_wide_wgmma_wrapper_refuses_below_its_range(dtype, d, match):
 
 
 def test_each_wide_wrapper_takes_what_the_routing_sends_it():
-    """For every D from 257 to 2048 and every dtype, K2dt's and K2dw's
+    """For every D from 1 to 2048 and every dtype, K2dt's and K2dw's
     wrappers take an input (and then ask for its device) exactly where
     ``kernel_for`` names them, and refuse it elsewhere."""
     wrappers = {"K2dt": port.flash_wide_tf32, "K2dw": port.flash_wide_wgmma}
     for dtype in (torch.float32, torch.float16, torch.bfloat16):
-        for d in range(257, 2049):
+        for d in range(1, 2049):
             x = torch.empty((64, d), dtype=dtype, device="meta")
             kernel = port.kernel_for(dtype, d, 64)
             for name, wrapper in wrappers.items():
@@ -223,7 +261,7 @@ def test_each_wide_wrapper_takes_what_the_routing_sends_it():
 def test_tf32_wrapper_on_the_cpu_runs_the_plain_version():
     """K2dt's wrapper on CPU tensors is the plain version, bit for bit, and
     launches no kernel."""
-    counters = (port.flash_attention, port.flash_wgmma, port.flash_generic,
+    counters = (port.flash_attention, port.flash_wgmma,
                 port.flash_wide_wgmma, port.flash_wide_tf32)
     before = [fn.launches for fn in counters]
     rng = np.random.default_rng(7)

@@ -172,8 +172,8 @@ def test_chunked_schedule_on_heads(causal):
 
 
 def test_one_chunk_is_the_split_schedule():
-    """A chunk as wide as D leaves one block a unit: the schedule is K2s's
-    (``flash_split_plain``) bit for bit."""
+    """A chunk as wide as D leaves one block a unit: the schedule is the
+    unchunked one (``flash_split_plain``) bit for bit."""
     arrays, _ = _case("bfloat16", RAGGED, True, RAGGED_BLOCKS)
     q, k, v = _torch(arrays, "bfloat16")
     torch.testing.assert_close(
@@ -233,20 +233,21 @@ def test_kernel_for_sends_every_head_past_512_to_a_tensor_core_kernel(
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
                                    torch.bfloat16])
 def test_kernel_for_keeps_512_and_below_where_they_were(dtype):
-    """Up to 256, f32 stays on K2s and 16-bit heads go to K2w, off 8 or
-    not; past 256 up to 512, K2dt takes f32 and K2dw 16-bit, at any D."""
+    """Up to 256, f32 goes to K2dt (the CUDA-core K2s's inputs until it was
+    retired) and 16-bit heads go to K2w, off 8 or not; past 256 up to 512,
+    K2dt takes f32 and K2dw 16-bit, at any D."""
     wide = "K2dt" if dtype == torch.float32 else "K2dw"
     assert port.kernel_for(dtype, 512, 4096) == wide
     assert port.kernel_for(dtype, 384, 4096) == wide
     assert port.kernel_for(dtype, 300, 4096) == wide
     assert port.kernel_for(dtype, 256, 4096) == (
-        "K2s" if dtype == torch.float32 else "K2w")
+        "K2dt" if dtype == torch.float32 else "K2w")
     assert port.kernel_for(dtype, 250, 4096) == (
-        "K2s" if dtype == torch.float32 else "K2w")
+        "K2dt" if dtype == torch.float32 else "K2w")
 
 
-COUNTERS = ("flash_attention", "flash_wgmma", "flash_generic",
-            "flash_wide_wgmma", "flash_wide_tf32")
+COUNTERS = ("flash_attention", "flash_wgmma", "flash_wide_wgmma",
+            "flash_wide_tf32")
 
 
 def test_wide_wrapper_on_the_cpu_launches_nothing():
@@ -312,7 +313,7 @@ def test_wide_wgmma_wrapper_on_the_cpu_runs_the_plain_version():
     (torch.float16, 200, "above 256, got 200")])
 def test_wide_wgmma_wrapper_refuses_what_it_does_not_take(dtype, d, match):
     """f32, D = 256 and D = 200 are refused before any device is asked:
-    K2dt, K2w or K2s takes them, never K2dw."""
+    K2dt or K2w takes them, never K2dw."""
     x = torch.empty((64, d), dtype=dtype, device="meta")
     with pytest.raises(ValueError, match=match):
         port.flash_wide_wgmma(x, x, x)

@@ -50,8 +50,6 @@ _SIGNATURES = {
                        _I, _P),
     "flash_fwd_wgmma": (_P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _I,
                         _I, _I, _I, _F, _I, _P),
-    "flash_fwd_generic": (_P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I,
-                          _I, _F, _I, _P),
     "flash_fwd_wide_wgmma": (_P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _P,
                              _I, _I, _I, _I, _F, _I, _P),
     "flash_fwd_wide_tf32": (_P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _P,

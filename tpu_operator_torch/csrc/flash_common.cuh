@@ -1,6 +1,6 @@
-// What the flash-attention kernels share: K2 and K2w (flash_fwd.cu), K2s
-// (flash_fwd_generic.cu), K2dw (flash_fwd_wide_wgmma.cu) and K2dt
-// (flash_fwd_wide_tf32.cu) run the same work list of units
+// What the flash-attention kernels share: K2 and K2w (flash_fwd.cu), K2dw
+// (flash_fwd_wide_wgmma.cu) and K2dt (flash_fwd_wide_tf32.cu) run the same
+// work list of units
 // (ops/flash_attention.py::work_list; K2dw and K2dt cut each unit by output
 // columns) and merge the units of a split q tile with the same kernel, whose
 // row stride is an argument. The tensor-core kernels (K2, K2w, K2dw, K2dt)
@@ -47,27 +47,6 @@ __device__ __forceinline__ __half from_float<__half>(float x) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
-}
-
-// a 16-byte copy into shared memory (L2 only); zeros where !valid
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
-               :: "r"(d), "l"(src), "r"(valid ? 16 : 0) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;" ::: "memory");
-}
-
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
 }
 
 // two values rounded to a 16-bit type, packed as one 32-bit word (low first)

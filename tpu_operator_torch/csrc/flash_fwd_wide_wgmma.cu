@@ -25,7 +25,7 @@
 //      across kv steps; no thread of the consumer touches them.
 //
 // Design:
-//   - The schedule: the units of K2, K2w and K2s (flash_common.cuh; at most
+//   - The schedule: the units of K2 and K2w (flash_common.cuh; at most
 //     SPLIT kv tiles of 64 keys, longest first), each cut into ceil(D / 256)
 //     chunks of kDC = 256 output columns, one block a (unit, chunk); a
 //     partial workspace with rows of D rounded up to 256, and the shared

@@ -22,7 +22,7 @@ second kernel merges them by the log-sum-exp rule in a fixed order (no
 atomics: the same bits on every run). :func:`flash_split_plain` is that
 schedule in plain PyTorch.
 
-Five kernels run that schedule (:func:`kernel_for` routes a CUDA input):
+Four kernels run that schedule (:func:`kernel_for` routes a CUDA input):
 
 - K2 (``csrc/flash_fwd.cu``, the instance the node validator runs): bf16,
   D = 128, T a multiple of 64; wgmma and TMA.
@@ -34,12 +34,10 @@ Five kernels run that schedule (:func:`kernel_for` routes a CUDA input):
   block a (unit, chunk), and each block forms the scores from all of D
   again; :func:`flash_chunked_plain` is that schedule in plain PyTorch.
 - K2dt (:func:`flash_wide_tf32`, ``csrc/flash_fwd_wide_tf32.cu``): f32
-  with D > :data:`WGMMA_MAX_HEAD_DIM`, any T; K2dw's schedule on the tensor
-  cores, every product split into three TF32 products (3xTF32) so that it
-  keeps f32 grade; :func:`flash_chunked_tf32_plain` is its arithmetic in
-  plain PyTorch.
-- K2s (:func:`flash_generic`, ``csrc/flash_fwd_generic.cu``): f32 with D ≤
-  :data:`MAX_HEAD_DIM`, any T; CUDA cores, register-tiled.
+  at any D and T; K2dw's schedule on the tensor cores at a chunk of
+  :func:`tf32_chunk` columns (the head bucket up to 256), every product
+  split into three TF32 products (3xTF32) so that it keeps f32 grade;
+  :func:`flash_chunked_tf32_plain` is its arithmetic in plain PyTorch.
 
 TMA, which feeds K2w, K2dw and K2dt, needs a row stride of a multiple of
 16 bytes. They take a head dim off it through a padded row stride of
@@ -68,12 +66,11 @@ BLOCK = 64          # the kernels' q tile rows and the work list's kv tiles
 HEAD_DIM = 128      # K2's head dimension
 SPLIT = 8           # kv tiles per unit at most, from chip_smoke.py's sweep
 MASK_FILL = -1e30   # the causal mask's fill, as in the reference
-MAX_HEAD_DIM = 256  # the largest D K2s takes (f32)
-# the largest D K2w takes (16-bit); past it K2dw takes 16-bit and K2dt f32
+# the largest D K2w takes (16-bit); past it K2dw takes 16-bit
 WGMMA_MAX_HEAD_DIM = 256
-# K2dw's and K2dt's output columns a block (``kDC`` in
-# ``csrc/flash_fwd_wide*.cu``, whose C entries refuse a workspace narrower
-# than D rounded up to it)
+# K2dw's output columns a block (``kDC`` in ``csrc/flash_fwd_wide_wgmma.cu``,
+# whose C entry refuses a workspace narrower than D rounded up to it), and
+# K2dt's past D = 256 (:func:`tf32_chunk`)
 WIDE_CHUNK = 256
 # the kernels' element types, by the code their C entry points take
 DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
@@ -82,8 +79,9 @@ WGMMA_BLOCK_K = {64: 64, 128: 64, 256: 32}
 
 
 def head_bucket(d: int) -> int:
-    """The padded head dim DP that K2w and K2s are built for: the smallest
-    of 64, 128 and 256 that holds ``d``."""
+    """The padded head dim DP that K2w is built for, and K2dt's chunk width
+    up to 256 (:func:`tf32_chunk`): the smallest of 64, 128 and 256 that
+    holds ``d``."""
     for dp in (64, 128, 256):
         if d <= dp:
             return dp
@@ -94,19 +92,16 @@ def kernel_for(dtype: torch.dtype, d: int, t: int) -> str:
     """Which kernel a CUDA input of ``dtype`` and shape [.., t, d] goes to:
     "K2" (bf16, D = 128, T a multiple of 64); for the other f16 and bf16
     inputs, "K2w" up to :data:`WGMMA_MAX_HEAD_DIM` and "K2dw" past it; for
-    f32, "K2s" up to :data:`MAX_HEAD_DIM` and "K2dt" past the same cut; any
-    D (a head off 16 bytes a row goes through :func:`padded_width`). Each
-    wrapper takes exactly its rows (:func:`wide_wgmma_takes`,
-    :func:`wide_tf32_takes`)."""
+    f32, "K2dt"; any D (a head off 16 bytes a row goes through
+    :func:`padded_width`). Each wrapper takes exactly its rows
+    (:func:`wide_wgmma_takes`, :func:`wide_tf32_takes`)."""
     if dtype == torch.bfloat16 and d == HEAD_DIM and t % BLOCK == 0:
         return "K2"
     if wide_wgmma_takes(dtype, d):
         return "K2dw"
     if wide_tf32_takes(dtype, d):
         return "K2dt"
-    if dtype in (torch.float16, torch.bfloat16):
-        return "K2w"
-    return "K2s"
+    return "K2w"
 
 
 def wide_wgmma_takes(dtype: torch.dtype, d: int) -> bool:
@@ -115,9 +110,8 @@ def wide_wgmma_takes(dtype: torch.dtype, d: int) -> bool:
 
 
 def wide_tf32_takes(dtype: torch.dtype, d: int) -> bool:
-    """K2dt's range: f32 past :data:`WGMMA_MAX_HEAD_DIM` (K2dw's cut), any
-    D."""
-    return dtype == torch.float32 and d > WGMMA_MAX_HEAD_DIM
+    """K2dt's range: f32, any D ≥ 1."""
+    return dtype == torch.float32 and d >= 1
 
 
 def padded_width(dtype: torch.dtype, d: int) -> int:
@@ -129,10 +123,18 @@ def padded_width(dtype: torch.dtype, d: int) -> int:
     return -(-d // per_16_bytes) * per_16_bytes
 
 
-def wide_columns(d: int) -> int:
-    """K2dw's and K2dt's partial-workspace row: D rounded up to
-    :data:`WIDE_CHUNK`, the columns of all of a unit's chunk blocks."""
-    return -(-d // WIDE_CHUNK) * WIDE_CHUNK
+def tf32_chunk(d: int) -> int:
+    """K2dt's output columns a block (``DC`` in
+    ``csrc/flash_fwd_wide_tf32.cu``): the head bucket (:func:`head_bucket`:
+    64, 128 or 256) up to D = 256, :data:`WIDE_CHUNK` past it."""
+    return head_bucket(d) if d <= WGMMA_MAX_HEAD_DIM else WIDE_CHUNK
+
+
+def wide_columns(d: int, chunk: int = WIDE_CHUNK) -> int:
+    """K2dw's and K2dt's partial-workspace row: D rounded up to the chunk
+    width (K2dw's :data:`WIDE_CHUNK`, K2dt's :func:`tf32_chunk`), the
+    columns of all of a unit's chunk blocks."""
+    return -(-d // chunk) * chunk
 
 
 def attention_plain(q, k, v, sm_scale: float | None = None,
@@ -353,15 +355,17 @@ def tf32_matmul(products=TF32_PRODUCTS):
 
 
 def flash_chunked_tf32_plain(q, k, v, causal: bool = False,
-                             split: int = SPLIT, chunk: int = WIDE_CHUNK,
+                             split: int = SPLIT, chunk: int | None = None,
                              sm_scale: float | None = None,
                              products=TF32_PRODUCTS):
     """K2dt's arithmetic in plain PyTorch, for f32 inputs: K2dw's chunked
-    schedule (:func:`flash_chunked_plain`) with Q·Kᵀ and P·V each formed
-    from TF32 parts (:func:`tf32_matmul` of ``products``), scores, softmax
-    state and output in f32."""
+    schedule (:func:`flash_chunked_plain`) at ``chunk`` output columns a
+    block (K2dt's own, :func:`tf32_chunk` of D, by default) with Q·Kᵀ and
+    P·V each formed from TF32 parts (:func:`tf32_matmul` of ``products``),
+    scores, softmax state and output in f32."""
     if q.dtype != torch.float32:
         raise ValueError(f"K2dt's arithmetic is for float32, got {q.dtype}")
+    chunk = chunk or tf32_chunk(q.shape[-1])
     return flash_chunked_plain(q, k, v, causal, split, chunk, sm_scale,
                                matmul=tf32_matmul(products))
 
@@ -428,7 +432,7 @@ def flash_wgmma(q, k, v, sm_scale: float | None = None,
     Launches the tensor-core kernel (``csrc/flash_fwd.cu``) for CUDA
     tensors and runs :func:`attention_plain` for CPU tensors; the output
     has the input dtype. Another dtype or a wider head is refused on any
-    device (K2s, K2dw or K2dt takes it)."""
+    device (K2dw or K2dt takes it)."""
     _check_shapes(q, k, v)
     d = q.shape[-1]
     if q.dtype not in (torch.float16, torch.bfloat16):
@@ -482,47 +486,6 @@ def _padded_workspace(q, heads: int):
             torch.empty((3, heads, t, dp), dtype=q.dtype, device=q.device))
 
 
-def flash_generic(q, k, v, sm_scale: float | None = None,
-                  causal: bool = False):
-    """K2s's wrapper: softmax(q·Kᵀ·scale)·V for q, k, v of shape [T, D] or
-    [H, T, D], f32, D ≤ :data:`MAX_HEAD_DIM`, any T. Launches
-    ``csrc/flash_fwd_generic.cu`` for CUDA tensors and runs
-    :func:`attention_plain` for CPU tensors; the output is f32. A 16-bit
-    input or a wider head is refused on any device (K2w, K2dw or K2dt takes
-    it)."""
-    _check_shapes(q, k, v)
-    d = q.shape[-1]
-    if q.dtype in (torch.float16, torch.bfloat16):
-        raise ValueError(f"K2s takes float32, got {q.dtype}")
-    if d > MAX_HEAD_DIM:
-        raise ValueError(f"K2s takes head dim at most {MAX_HEAD_DIM}, got "
-                         f"{d}")
-    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
-    if q.device.type == "cpu":
-        return attention_plain(q, k, v, scale, causal)
-    return _generic_launch(*_cuda_inputs(q, k, v), scale, causal)
-
-
-flash_generic.launches = 0
-
-
-def _generic_launch(q, k, v, scale: float, causal: bool):
-    """Launch K2s on inputs :func:`_cuda_inputs` checked; the output, not
-    yet synchronised."""
-    out, heads, work, _workspace = _schedule(q, causal, SPLIT,
-                                             head_bucket(q.shape[-1]))
-    lib = _native.library()
-    with torch.cuda.device(q.device):
-        err = lib.flash_fwd_generic(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                    out.data_ptr(), *work,
-                                    DTYPE_CODES[q.dtype], heads, q.shape[-2],
-                                    q.shape[-1], scale, int(causal),
-                                    torch.cuda.current_stream().cuda_stream)
-    _native.check(err, "flash_fwd_generic")
-    flash_generic.launches += 1
-    return out
-
-
 def flash_wide_wgmma(q, k, v, sm_scale: float | None = None,
                      causal: bool = False):
     """K2dw's wrapper: softmax(q·Kᵀ·scale)·V for q, k, v of shape [T, D] or
@@ -530,7 +493,7 @@ def flash_wide_wgmma(q, k, v, sm_scale: float | None = None,
     Launches the tensor-core kernel (``csrc/flash_fwd_wide_wgmma.cu``) for
     CUDA tensors and runs :func:`attention_plain` for CPU tensors; the
     output has the input dtype. Another dtype or head dim is refused on any
-    device (K2w, K2s or K2dt takes it)."""
+    device (K2w or K2dt takes it)."""
     _check_shapes(q, k, v)
     d = q.shape[-1]
     if q.dtype not in (torch.float16, torch.bfloat16):
@@ -572,18 +535,14 @@ def _wide_wgmma_launch(q, k, v, scale: float, causal: bool):
 def flash_wide_tf32(q, k, v, sm_scale: float | None = None,
                     causal: bool = False):
     """K2dt's wrapper: softmax(q·Kᵀ·scale)·V for q, k, v of shape [T, D] or
-    [H, T, D], f32, D > :data:`WGMMA_MAX_HEAD_DIM` (any D), any T.
-    Launches the 3xTF32 tensor-core kernel (``csrc/flash_fwd_wide_tf32.cu``)
-    for CUDA tensors and runs :func:`attention_plain` for CPU tensors; the
-    output is f32. Another dtype or head dim is refused on any device (K2s
-    or a 16-bit kernel takes it)."""
+    [H, T, D], f32, any D and T. Launches the 3xTF32 tensor-core kernel
+    (``csrc/flash_fwd_wide_tf32.cu``) for CUDA tensors and runs
+    :func:`attention_plain` for CPU tensors; the output is f32. Another
+    dtype is refused on any device (a 16-bit kernel takes it)."""
     _check_shapes(q, k, v)
     d = q.shape[-1]
     if q.dtype != torch.float32:
         raise ValueError(f"K2dt takes float32, got {q.dtype}")
-    if not wide_tf32_takes(q.dtype, d):
-        raise ValueError(f"K2dt takes a head dim above "
-                         f"{WGMMA_MAX_HEAD_DIM}, got {d}")
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
     if q.device.type == "cpu":
         return attention_plain(q, k, v, scale, causal)
@@ -595,13 +554,13 @@ flash_wide_tf32.launches = 0
 
 def _wide_tf32_launch(q, k, v, scale: float, causal: bool):
     """Launch K2dt on inputs :func:`_cuda_inputs` checked; the output, not
-    yet synchronised. Its work list and partial workspace are K2dw's; the
-    C entry's pre-pass writes the TF32 parts into three more workspaces,
+    yet synchronised. Its work list is K2dw's, its partial workspace's rows
+    D rounded up to :func:`tf32_chunk`; the C entry's pre-pass writes the TF32 parts into three more workspaces,
     Q's and K's [2H, T, Dp] (Dp: :func:`padded_width`, the pad columns
     never written or read) and V's transposed [2H, D, Tp] (Tp: T rounded
     up to :data:`BLOCK`)."""
     t, d = q.shape[-2:]
-    cols = wide_columns(d)
+    cols = wide_columns(d, tf32_chunk(d))
     out, heads, work, _workspace = _schedule(q, causal, SPLIT, cols)
     split_q = torch.empty((2 * heads, t, padded_width(q.dtype, d)),
                           dtype=torch.float32, device=q.device)
@@ -659,8 +618,8 @@ def flash_attention(q, k, v, sm_scale: float | None = None,
     dtype. On the card the blocks are a tiling hint only: each kernel tiles
     by its own rows. A CUDA input goes to the kernel :func:`kernel_for`
     names: K2 (counted here), K2w (:func:`flash_wgmma`), K2dw
-    (:func:`flash_wide_wgmma`), K2s (:func:`flash_generic`) or K2dt
-    (:func:`flash_wide_tf32`); other dtypes raise.
+    (:func:`flash_wide_wgmma`) or K2dt (:func:`flash_wide_tf32`); other
+    dtypes raise.
     """
     _check_shapes(q, k, v)
     t, d = q.shape[-2:]
@@ -676,8 +635,6 @@ def flash_attention(q, k, v, sm_scale: float | None = None,
     kernel = kernel_for(q.dtype, d, t)
     if kernel == "K2w":
         return _wgmma_launch(q, k, v, scale, causal)
-    if kernel == "K2s":
-        return _generic_launch(q, k, v, scale, causal)
     if kernel == "K2dw":
         return _wide_wgmma_launch(q, k, v, scale, causal)
     if kernel == "K2dt":

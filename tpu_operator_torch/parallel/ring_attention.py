@@ -183,8 +183,9 @@ def ulysses_attention(q, k, v, mesh: Mesh, axis_name: str = "model",
     K/V rotations. The per-head attention runs at platform precision, not the
     oracle's pin: on flash attention ([H/n, T, Dh], made contiguous for it)
     by the reference's rule, a Dh that is a multiple of 128 and a full T
-    that the blocks divide, at any Dh (K2, K2w and K2s take heads up to 256,
-    K2dw and K2dt the wider ones); else dense."""
+    that the blocks divide, at any Dh (in 16 bits K2 and K2w take heads up
+    to 256, K2dw the wider ones; in f32 K2dt takes every head); else
+    dense."""
     # here, not at the top: ops.flash_attention imports this module
     from tpu_operator_torch.ops.flash_attention import BLOCK, flash_attention
     n = mesh.shape[axis_name]
