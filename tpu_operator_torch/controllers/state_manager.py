@@ -862,7 +862,7 @@ class StateManager:
                             scheduled.add(name)
                         elif name not in state_spans:
                             sp = _state_span(name)
-                            if sp is not trace.NULL_SPAN:
+                            if isinstance(sp, trace.Span):
                                 gate_spans[name] = sp.tracer.child_of(
                                     sp, "gate-wait",
                                     deps=sorted(deps[name] - completed))

@@ -54,11 +54,13 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.autograd import profiler as autograd_profiler
 
 from tpu_operator_torch import _native
 from tpu_operator_torch.parallel.ring_attention import (_softmax_attention,
                                                         pinned_f32,
                                                         softmax_weights)
+from tpu_operator_torch.utils import trace
 from tpu_operator_torch.utils.device import resolve_device
 from tpu_operator_torch.utils.timing import measure_best, median_differential
 
@@ -392,12 +394,15 @@ def _device_work(device: torch.device, heads: int, t: int, causal: bool,
     return _works[key]
 
 
-def _schedule(q, causal: bool, split: int, dp: int):
+def _schedule(q, causal: bool, split: int, dp: int, steps=None):
     """The output, the heads, and the arguments every kernel's C entry
     point takes after q, k, v and o: the work list, its counts and a
     partials workspace of ``dp`` columns, with the workspace's tensors,
-    which the caller keeps until it has launched."""
+    which the caller keeps until it has launched. With ``steps`` (see
+    :class:`_Steps`) it opens ``flash_op.schedule``."""
     heads = 1 if q.dim() == 2 else q.shape[0]
+    if steps is not None:
+        steps.step("flash_op.schedule")
     units, merges, n_units, n_merges, slots = _device_work(
         q.device, heads, q.shape[-2], causal, split)
     part_acc = torch.empty((slots, BLOCK, dp), dtype=torch.float32,
@@ -410,11 +415,17 @@ def _schedule(q, causal: bool, split: int, dp: int):
                         part_ml.data_ptr()), (part_acc, part_ml)
 
 
-def flash_launch(q, k, v, scale: float, causal: bool, split: int = SPLIT):
+def flash_launch(q, k, v, scale: float, causal: bool, split: int = SPLIT,
+                 steps=None):
     """Launch K2 on checked inputs (see :func:`flash_attention`) with units
     of at most ``split`` kv tiles; the output, not yet synchronised.
-    ``chip_smoke.py`` sweeps ``split`` through here."""
-    out, heads, work, _workspace = _schedule(q, causal, split, HEAD_DIM)
+    ``chip_smoke.py`` sweeps ``split`` through here. With ``steps``, as in
+    each route's launcher, the work list and the workspaces are the
+    ``flash_op.schedule`` step and the rest the ``flash_op.launch`` step."""
+    out, heads, work, _workspace = _schedule(q, causal, split, HEAD_DIM,
+                                             steps)
+    if steps is not None:
+        steps.step("flash_op.launch")
     lib = _native.library()
     with torch.cuda.device(q.device):
         err = lib.flash_fwd_bf16(q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -450,7 +461,7 @@ flash_wgmma.launches = 0
 
 
 def _wgmma_launch(q, k, v, scale: float, causal: bool,
-                  block_k: int | None = None):
+                  block_k: int | None = None, steps=None):
     """Launch K2w on inputs :func:`_cuda_inputs` checked, with kv steps of
     ``block_k`` keys (the bucket's :data:`WGMMA_BLOCK_K` by default;
     ``chip_smoke.py`` sweeps it at DP = 256); the output, not yet
@@ -459,8 +470,10 @@ def _wgmma_launch(q, k, v, scale: float, causal: bool,
     K2dw's does."""
     t, d = q.shape[-2:]
     dp = head_bucket(d)
-    out, heads, work, _workspace = _schedule(q, causal, SPLIT, dp)
+    out, heads, work, _workspace = _schedule(q, causal, SPLIT, dp, steps)
     padded = _padded_workspace(q, heads)
+    if steps is not None:
+        steps.step("flash_op.launch")
     lib = _native.library()
     with torch.cuda.device(q.device):
         err = lib.flash_fwd_wgmma(q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -510,7 +523,7 @@ def flash_wide_wgmma(q, k, v, sm_scale: float | None = None,
 flash_wide_wgmma.launches = 0
 
 
-def _wide_wgmma_launch(q, k, v, scale: float, causal: bool):
+def _wide_wgmma_launch(q, k, v, scale: float, causal: bool, steps=None):
     """Launch K2dw on inputs :func:`_cuda_inputs` checked; the output, not
     yet synchronised. The partial workspace's rows are
     :func:`wide_columns`; where D is off :func:`padded_width`, the C entry
@@ -518,8 +531,10 @@ def _wide_wgmma_launch(q, k, v, scale: float, causal: bool):
     width)."""
     d = q.shape[-1]
     out, heads, work, _workspace = _schedule(q, causal, SPLIT,
-                                             wide_columns(d))
+                                             wide_columns(d), steps)
     padded = _padded_workspace(q, heads)
+    if steps is not None:
+        steps.step("flash_op.launch")
     lib = _native.library()
     with torch.cuda.device(q.device):
         err = lib.flash_fwd_wide_wgmma(
@@ -552,7 +567,7 @@ def flash_wide_tf32(q, k, v, sm_scale: float | None = None,
 flash_wide_tf32.launches = 0
 
 
-def _wide_tf32_launch(q, k, v, scale: float, causal: bool):
+def _wide_tf32_launch(q, k, v, scale: float, causal: bool, steps=None):
     """Launch K2dt on inputs :func:`_cuda_inputs` checked; the output, not
     yet synchronised. Its work list is K2dw's, its partial workspace's rows
     D rounded up to :func:`tf32_chunk`; the C entry's pre-pass writes the TF32 parts into three more workspaces,
@@ -561,12 +576,14 @@ def _wide_tf32_launch(q, k, v, scale: float, causal: bool):
     up to :data:`BLOCK`)."""
     t, d = q.shape[-2:]
     cols = wide_columns(d, tf32_chunk(d))
-    out, heads, work, _workspace = _schedule(q, causal, SPLIT, cols)
+    out, heads, work, _workspace = _schedule(q, causal, SPLIT, cols, steps)
     split_q = torch.empty((2 * heads, t, padded_width(q.dtype, d)),
                           dtype=torch.float32, device=q.device)
     split_k = torch.empty_like(split_q)
     split_v = torch.empty((2 * heads, d, -(-t // BLOCK) * BLOCK),
                           dtype=torch.float32, device=q.device)
+    if steps is not None:
+        steps.step("flash_op.launch")
     lib = _native.library()
     with torch.cuda.device(q.device):
         err = lib.flash_fwd_wide_tf32(
@@ -608,6 +625,27 @@ def _contiguous_aligned(x):
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
+class _Steps:
+    """A ``flash_op.call`` span and its steps, one open at a time, made
+    only while something records (``utils/trace.py``): :meth:`step` closes
+    the open step and opens the next, :meth:`finish` closes the step and
+    the call."""
+
+    def __init__(self):
+        self.call = trace.span("flash_op.call").__enter__()
+        self.open = None
+
+    def step(self, name: str) -> None:
+        if self.open is not None:
+            self.open.__exit__(None, None, None)
+        self.open = trace.span(name).__enter__()
+
+    def finish(self, *exc) -> None:
+        if self.open is not None:
+            self.open.__exit__(*exc)
+        self.call.__exit__(*exc)
+
+
 def flash_attention(q, k, v, sm_scale: float | None = None,
                     causal: bool = False, block_q: int | None = None,
                     block_k: int | None = None):
@@ -620,28 +658,51 @@ def flash_attention(q, k, v, sm_scale: float | None = None,
     names: K2 (counted here), K2w (:func:`flash_wgmma`), K2dw
     (:func:`flash_wide_wgmma`) or K2dt (:func:`flash_wide_tf32`); other
     dtypes raise.
+
+    While something records (``utils/trace.py``), the call is a
+    ``flash_op.call`` span with three steps on the card:
+    ``flash_op.prepare`` (the checks, the contiguous copies and the
+    route), ``flash_op.schedule`` and ``flash_op.launch``
+    (:class:`_Steps`); on the CPU the call alone. With nothing recording
+    the host path pays two plain reads: no span open on any thread, no
+    profiler in the process.
     """
-    _check_shapes(q, k, v)
-    t, d = q.shape[-2:]
-    block_q = min(block_q or BLOCK, t)
-    block_k = min(block_k or BLOCK, t)
-    if t % block_q or t % block_k:
-        raise ValueError(f"T={t} not divisible by blocks "
-                         f"({block_q}, {block_k})")
-    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
-    if q.device.type == "cpu":
-        return attention_plain(q, k, v, scale, causal)
-    q, k, v = _cuda_inputs(q, k, v)
-    kernel = kernel_for(q.dtype, d, t)
-    if kernel == "K2w":
-        return _wgmma_launch(q, k, v, scale, causal)
-    if kernel == "K2dw":
-        return _wide_wgmma_launch(q, k, v, scale, causal)
-    if kernel == "K2dt":
-        return _wide_tf32_launch(q, k, v, scale, causal)
-    out = flash_launch(q, k, v, scale, causal)
-    flash_attention.launches += 1
-    return out
+    steps = (_Steps() if (trace.Tracer.active
+                          or autograd_profiler._is_profiler_enabled)
+             and trace.Tracer.recording() else None)
+    try:
+        cuda = q.device.type != "cpu"
+        if steps is not None and cuda:
+            steps.step("flash_op.prepare")
+        _check_shapes(q, k, v)
+        t, d = q.shape[-2:]
+        block_q = min(block_q or BLOCK, t)
+        block_k = min(block_k or BLOCK, t)
+        if t % block_q or t % block_k:
+            raise ValueError(f"T={t} not divisible by blocks "
+                             f"({block_q}, {block_k})")
+        scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
+        if not cuda:
+            return attention_plain(q, k, v, scale, causal)
+        q, k, v = _cuda_inputs(q, k, v)
+        kernel = kernel_for(q.dtype, d, t)
+        if kernel == "K2w":
+            return _wgmma_launch(q, k, v, scale, causal, None, steps)
+        if kernel == "K2dw":
+            return _wide_wgmma_launch(q, k, v, scale, causal, steps)
+        if kernel == "K2dt":
+            return _wide_tf32_launch(q, k, v, scale, causal, steps)
+        out = flash_launch(q, k, v, scale, causal, SPLIT, steps)
+        flash_attention.launches += 1
+        return out
+    except BaseException as e:
+        if steps is not None:
+            steps.finish(type(e), e, e.__traceback__)
+            steps = None
+        raise
+    finally:
+        if steps is not None:
+            steps.finish(None, None, None)
 
 
 flash_attention.launches = 0

@@ -27,6 +27,7 @@ import torch
 
 from tpu_operator_torch import _native
 from tpu_operator_torch.ops.matmul import peak_lookup
+from tpu_operator_torch.utils import trace
 from tpu_operator_torch.utils.device import resolve_device
 from tpu_operator_torch.utils.timing import measure_best, median_differential
 
@@ -119,9 +120,12 @@ class HbmReport:
 
 
 def _alloc(size_mb: int, device: torch.device):
+    """The probe array, allocated and filled with ones in an ``hbm.alloc``
+    span, and its bytes."""
     rows = max(CHUNK_ROWS, (size_mb * 1024 * 1024) // (LANES * 4))
     rows -= rows % CHUNK_ROWS
-    x = torch.ones((rows, LANES), dtype=torch.float32, device=device)
+    with trace.span("hbm.alloc"):
+        x = torch.ones((rows, LANES), dtype=torch.float32, device=device)
     return x, rows * LANES * 4
 
 
@@ -129,15 +133,17 @@ def _measure(x: torch.Tensor, sweeps: int, iters: int) -> float:
     """Best-of-``iters`` seconds for one ``sweeps``-deep launch over ``x``.
     The checksum is fetched with ``.item()``, the completion barrier, and
     the first (warm-up) run is gated on it: the probe proves the reads
-    return the right data before it times them."""
+    return the right data before it times them. The gated run is an
+    ``hbm.gate`` span, each timed one an ``hbm.timed`` span."""
     def run():
         return read_sum(x, sweeps).item()
 
     expect = float(x.numel()) * sweeps
-    got = run()
+    with trace.span("hbm.gate"):
+        got = run()
     if abs(got - expect) > 1e-6 * expect:
         raise ProbeError(f"hbm probe checksum {got} != {expect}: bad reads?")
-    return measure_best(run, iters=iters, warmup=0)
+    return measure_best(run, iters=iters, warmup=0, span="hbm")
 
 
 def _backend(device: torch.device) -> str:

@@ -17,6 +17,7 @@ from dataclasses import asdict, dataclass
 
 import torch
 
+from tpu_operator_torch.utils import trace
 from tpu_operator_torch.utils.device import resolve_device
 from tpu_operator_torch.utils.timing import measure_best, median_differential
 
@@ -72,13 +73,16 @@ def matmul_tflops(m: int = 4096, k: int = 4096, n: int = 4096,
                   dtype: torch.dtype = torch.bfloat16, depth: int = 32,
                   iters: int = 5, device="cuda") -> MatmulReport:
     """Achieved TFLOP/s of a depth-``depth`` matmul chain (best of
-    ``iters``)."""
+    ``iters``). Spans: ``matmul.inputs`` (making and casting the
+    operands), then ``matmul.warmup`` and ``matmul.timed``, a chain
+    each."""
     if k != n:
         raise ValueError("chain requires k == n (square b)")
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    a = torch.randn((m, k), generator=gen, device=dev).to(dtype)
-    b = torch.randn((k, n), generator=gen, device=dev).to(dtype)
+    with trace.span("matmul.inputs"):
+        gen = torch.Generator(device=dev).manual_seed(0)
+        a = torch.randn((m, k), generator=gen, device=dev).to(dtype)
+        b = torch.randn((k, n), generator=gen, device=dev).to(dtype)
 
     def run():
         x = a
@@ -86,7 +90,7 @@ def matmul_tflops(m: int = 4096, k: int = 4096, n: int = 4096,
             x = torch.matmul(x, b).mul_(1e-2)
         return x.float().sum().item()  # completion barrier
 
-    t = measure_best(run, iters=iters)
+    t = measure_best(run, iters=iters, span="matmul")
     flops = 2 * m * k * n * depth
     return MatmulReport(m, k, n, depth, str(dtype).removeprefix("torch."), t,
                         flops / t / 1e12)

@@ -12,17 +12,28 @@ from __future__ import annotations
 import time
 from typing import Callable
 
+from tpu_operator_torch.utils import trace
 
-def measure_best(fn: Callable, *args, iters: int = 5, warmup: int = 2) -> float:
+
+def measure_best(fn: Callable, *args, iters: int = 5, warmup: int = 2,
+                 span: str | None = None) -> float:
     """Best-of-``iters`` wall time in seconds for ``fn(*args)``, after
-    ``warmup`` untimed calls. ``fn`` must block until the device is done."""
+    ``warmup`` untimed calls. ``fn`` must block until the device is done.
+    With a ``span`` prefix (the probe's: ``"hbm"``, ``"matmul"``) each
+    untimed call is a ``<span>.warmup`` span and each timed one a
+    ``<span>.timed`` span, the clock read inside it."""
+    warm = timed = None
+    if span is not None:
+        warm, timed = f"{span}.warmup", f"{span}.timed"
     for _ in range(warmup):
-        fn(*args)
+        with trace.span(warm) if warm else trace.NULL_SPAN:
+            fn(*args)
     best = float("inf")
     for _ in range(iters):
-        t0 = time.perf_counter()
-        fn(*args)
-        best = min(best, time.perf_counter() - t0)
+        with trace.span(timed) if timed else trace.NULL_SPAN:
+            t0 = time.perf_counter()
+            fn(*args)
+            best = min(best, time.perf_counter() - t0)
     return best
 
 

@@ -33,6 +33,18 @@ Per-request serving traces (relay/tracing.py) extend the model three ways:
 * loud ring-buffer eviction: filing a trace into a full ring counts the
   evicted one in ``dropped_total`` and fires ``on_drop`` so the owner can
   export ``*_traces_dropped_total`` instead of losing traces silently.
+
+The device trace. While a profiler records on the calling thread, every
+span site (``span()``, a root from ``Tracer.start_trace``, a span opened
+under ``use()``) is also an annotation of the same name in the profiler's
+trace, with or without a tracer's span active: the program's spans then
+share the device trace's clock. This module stays free of device code: the
+profiler comes in through one hook, ``Tracer.profiler``, ``None`` until
+the port's device code installs it (``utils/device.py``). With nothing
+recording (no span active on the thread, no profiler), a span site returns
+``NULL_SPAN`` and makes no object; ``Tracer.recording()`` lets a hot path
+ask once and skip its sites, and ``Tracer.active`` (spans open on any
+thread) answers most of that in one plain read.
 """
 
 from __future__ import annotations
@@ -47,8 +59,24 @@ from collections import deque
 # thread-local active-span stack, shared across Tracer instances so a span
 # started by one component is the parent of spans from any other
 _ctx = threading.local()
+_active_lock = threading.Lock()   # guards Tracer.active
 
 DEFAULT_KEEP = 32
+
+
+def _annotate(name: str):
+    """An open profiler annotation of ``name`` (its handle), or None where
+    no profiler records on this thread."""
+    hook = Tracer.profiler
+    if hook is None or not hook[0]():
+        return None
+    return hook[1](name)
+
+
+def _close(mark) -> None:
+    hook = Tracer.profiler
+    if hook is not None:
+        hook[2](mark)
 
 
 def _stack() -> list:
@@ -56,6 +84,27 @@ def _stack() -> list:
     if st is None:
         st = _ctx.stack = []
     return st
+
+
+def _push(sp) -> None:
+    _stack().append(sp)
+    with _active_lock:
+        Tracer.active += 1
+
+
+def _pop(sp) -> None:
+    """Undo a :func:`_push`: the count falls even where the span leaves on
+    another thread than it entered."""
+    st = _stack()
+    if st and st[-1] is sp:
+        st.pop()
+    else:  # defensive: unbalanced exit must not corrupt the stack
+        try:
+            st.remove(sp)
+        except ValueError:
+            pass
+    with _active_lock:
+        Tracer.active -= 1
 
 
 def current() -> "Span | None":
@@ -69,7 +118,7 @@ class Span:
     the span list is owned (and locked) by its tracer."""
 
     __slots__ = ("tracer", "trace_id", "span_id", "parent_id", "name",
-                 "start", "end", "attrs", "tid", "links")
+                 "start", "end", "attrs", "tid", "links", "mark")
 
     def __init__(self, tracer: "Tracer", trace_id: int, span_id: int,
                  parent_id: int | None, name: str, attrs: dict):
@@ -83,6 +132,7 @@ class Span:
         self.attrs = attrs
         self.tid = threading.get_ident()
         self.links: list[tuple[int, int]] | None = None
+        self.mark = None      # the profiler annotation while active
 
     def set(self, **attrs):
         self.attrs.update(attrs)
@@ -108,18 +158,15 @@ class Span:
 
     # -- context-manager protocol: activate on this thread ---------------
     def __enter__(self) -> "Span":
-        _stack().append(self)
+        _push(self)
+        self.mark = _annotate(self.name)
         return self
 
     def __exit__(self, exc_type, exc, tb):
-        st = _stack()
-        if st and st[-1] is self:
-            st.pop()
-        else:  # defensive: unbalanced exit must not corrupt the stack
-            try:
-                st.remove(self)
-            except ValueError:
-                pass
+        if self.mark is not None:
+            _close(self.mark)
+            self.mark = None
+        _pop(self)
         if exc_type is not None:
             self.attrs.setdefault("error", f"{exc_type.__name__}: {exc}")
         self.finish()
@@ -153,6 +200,26 @@ class _NullSpan:
 NULL_SPAN = _NullSpan()
 
 
+class _Annotation(_NullSpan):
+    """No active trace on this thread, but a profiler records (``span()``
+    asked): the site is an annotation in the profiler's trace and nothing
+    else."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.mark = None
+
+    def __enter__(self):
+        self.mark = Tracer.profiler[1](self.name)
+        return self
+
+    def __exit__(self, *a):
+        if self.mark is not None:
+            _close(self.mark)
+            self.mark = None
+        return False
+
+
 class use:
     """Re-activate an existing span on the current thread — the executor
     thread-hop bridge: capture the span before submit(), ``with use(span):``
@@ -162,29 +229,26 @@ class use:
         self.span = span
 
     def __enter__(self):
-        if self.span is not NULL_SPAN:
-            _stack().append(self.span)
+        if isinstance(self.span, Span):
+            _push(self.span)
         return self.span
 
     def __exit__(self, *a):
-        if self.span is not NULL_SPAN:
-            st = _stack()
-            if st and st[-1] is self.span:
-                st.pop()
-            else:
-                try:
-                    st.remove(self.span)
-                except ValueError:
-                    pass
+        if isinstance(self.span, Span):
+            _pop(self.span)
         return False
 
 
 def span(name: str, **attrs) -> Span | _NullSpan:
     """Child span of whatever is active on this thread (no-op when nothing
-    is). The ONE call instrumentation sites need — they never see a Tracer."""
+    is, an annotation alone while only a profiler records). The ONE call
+    instrumentation sites need — they never see a Tracer."""
     parent = current()
     if parent is None or parent is NULL_SPAN:
-        return NULL_SPAN
+        hook = Tracer.profiler
+        if hook is None or not hook[0]():
+            return NULL_SPAN
+        return _Annotation(name)
     return parent.tracer.child_of(parent, name, **attrs)
 
 
@@ -206,6 +270,25 @@ class Tracer:
         self._traces: deque[list[Span]] = deque(maxlen=keep)
         self._open: dict[int, list[Span]] = {}  # trace_id -> spans
         self.dropped_total = 0
+
+    #: the profiler hook, shared by every tracer and span site: None, or
+    #: (recording, enter, exit), where ``recording()`` says whether a
+    #: profiler records on the calling thread, ``enter(name)`` opens an
+    #: annotation of that name in its trace and returns its handle, and
+    #: ``exit(handle)`` closes it
+    profiler = None
+    #: spans active on all threads' stacks: 0 says, in one plain read for
+    #: a hot path, that no span site records but under a profiler
+    active = 0
+
+    @staticmethod
+    def recording() -> bool:
+        """Whether a span site on the calling thread records anything: a
+        span is active there, or a profiler records."""
+        if Tracer.active and _stack():
+            return True
+        hook = Tracer.profiler
+        return hook is not None and hook[0]()
 
     # -- span creation ----------------------------------------------------
     def start_trace(self, name: str, **attrs) -> Span:

@@ -59,6 +59,7 @@ import time
 
 import torch
 
+from tpu_operator_torch.utils import trace
 from tpu_operator_torch.utils.nvml import find_driver_library
 
 log = logging.getLogger("gpu-validator")
@@ -335,7 +336,15 @@ class WorkloadComponent(Component):
     number of cards (1 on the CPU). Ranks go one a card on the machine's
     first cards when it has that many, and are virtual ranks of ``device``
     otherwise (on the CPU, or when more ranks are asked for than there are
-    cards)."""
+    cards).
+
+    ``validate()`` is a ``validator.validate`` span with a child a leg
+    (``validator.matmul``, ``.hbm``, ``.flash``, ``.collectives``,
+    ``.ring_attention``) and ``validator.runtime_build``; the probes'
+    spans nest in their legs. It is the child of a span already active on
+    the thread, else a root of the component's own monotonic tracer.
+    ``leg_seconds`` are the leg spans' durations, so under an active span
+    they read that span's tracer's clock."""
 
     name = "workload"
 
@@ -346,6 +355,7 @@ class WorkloadComponent(Component):
                  ranks: int | None = None, driver_root: str | None = None,
                  **kw):
         super().__init__(**kw)
+        self._tracer = trace.Tracer(keep=1)   # the root where none is active
         self.matmul_dim = int(matmul_dim or os.environ.get(
             "WORKLOAD_MATMUL_DIM", 4096))
         self.min_efficiency = float(min_efficiency if min_efficiency
@@ -402,9 +412,10 @@ class WorkloadComponent(Component):
         q, k, v = (torch.randn((t, d), generator=gen, device=device)
                    .to(torch.bfloat16) for _ in range(3))
         out = flash_attention(q, k, v, causal=True)
-        ref = reference_attention(q, k, v, causal=True)
-        tol = attention_tolerance(q.dtype, d, platform=device.type)
-        err = (out.float() - ref.float()).abs().max().item()
+        with trace.span("validator.flash_reference"):
+            ref = reference_attention(q, k, v, causal=True)
+            tol = attention_tolerance(q.dtype, d, platform=device.type)
+            err = (out.float() - ref.float()).abs().max().item()
         if not (math.isfinite(err) and err <= tol):
             raise ValidationFailed(
                 f"flash attention diverged from the pinned-precision "
@@ -442,48 +453,52 @@ class WorkloadComponent(Component):
                 "tolerance": tol}
 
     def validate(self) -> dict:
+        parent = trace.current()
+        root = (trace.span("validator.validate") if parent is not None
+                else self._tracer.start_trace("validator.validate"))
+        with root:
+            return self._validate()
+
+    def _validate(self) -> dict:
         from tpu_operator_torch.ops.hbm import ProbeError, hbm_device_gbps
         from tpu_operator_torch.ops.matmul import matmul_device_tflops
         from tpu_operator_torch.utils.device import device_kind
         dev = _check_platform(self.device, self.require_gpu)
         on_gpu = dev.type == "cuda"
-        legs = {}   # wall seconds of each leg, each ending in a device sync
-        t0 = time.perf_counter()
-        dim = self.matmul_dim if on_gpu else min(self.matmul_dim, 512)
-        rep = matmul_device_tflops(m=dim, k=dim, n=dim,
-                                   depth_hi=64 if on_gpu else 8,
-                                   depth_lo=16 if on_gpu else 2,
-                                   iters=3, device=dev)
-        kind = device_kind(dev)
-        peak = eff = None
-        matched = False
-        if on_gpu:
-            peak, eff, matched = _efficiency_gate(rep.tflops, kind,
-                                                  self.min_efficiency)
-        info = {"devices": torch.cuda.device_count() if on_gpu else 1,
-                "platform": dev.type,
-                "matmul_tflops": _significant(rep.tflops),
-                "efficiency": round(eff, 4) if eff is not None else None,
-                # denominator provenance, so a green gate is auditable
-                "device_kind": kind, "peak_tflops": peak,
-                "peak_matched": matched}
-        legs["matmul"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        try:
-            # on the card the function defaults own the tuning (256 MiB,
-            # second-scale windows); on the CPU a small array keeps the
-            # plain path covered
-            hbm = (hbm_device_gbps(device=dev) if on_gpu else
-                   hbm_device_gbps(size_mb=8, sweeps_hi=8, sweeps_lo=2,
-                                   iters=1, device=dev, repeats=1))
-        except ProbeError as e:
-            raise ValidationFailed(str(e)) from None
-        info["hbm_read_gbps"] = _significant(hbm.read_gbps)
-        info["hbm_backend"] = hbm.backend
-        legs["hbm"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        info["flash_attention"] = self._check_flash(dev, on_gpu)
-        legs["flash"] = time.perf_counter() - t0
+        legs = {}   # each leg's span; every leg ends in a device sync
+        with trace.span("validator.matmul") as legs["matmul"]:
+            dim = self.matmul_dim if on_gpu else min(self.matmul_dim, 512)
+            rep = matmul_device_tflops(m=dim, k=dim, n=dim,
+                                       depth_hi=64 if on_gpu else 8,
+                                       depth_lo=16 if on_gpu else 2,
+                                       iters=3, device=dev)
+            kind = device_kind(dev)
+            peak = eff = None
+            matched = False
+            if on_gpu:
+                peak, eff, matched = _efficiency_gate(rep.tflops, kind,
+                                                      self.min_efficiency)
+            info = {"devices": torch.cuda.device_count() if on_gpu else 1,
+                    "platform": dev.type,
+                    "matmul_tflops": _significant(rep.tflops),
+                    "efficiency": round(eff, 4) if eff is not None else None,
+                    # denominator provenance, so a green gate is auditable
+                    "device_kind": kind, "peak_tflops": peak,
+                    "peak_matched": matched}
+        with trace.span("validator.hbm") as legs["hbm"]:
+            try:
+                # on the card the function defaults own the tuning (256
+                # MiB, second-scale windows); on the CPU a small array
+                # keeps the plain path covered
+                hbm = (hbm_device_gbps(device=dev) if on_gpu else
+                       hbm_device_gbps(size_mb=8, sweeps_hi=8, sweeps_lo=2,
+                                       iters=1, device=dev, repeats=1))
+            except ProbeError as e:
+                raise ValidationFailed(str(e)) from None
+            info["hbm_read_gbps"] = _significant(hbm.read_gbps)
+            info["hbm_backend"] = hbm.backend
+        with trace.span("validator.flash") as legs["flash"]:
+            info["flash_attention"] = self._check_flash(dev, on_gpu)
         ranks = self.ranks if self.ranks is not None else (
             torch.cuda.device_count() if on_gpu else 1)
         if ranks > 1:
@@ -492,28 +507,31 @@ class WorkloadComponent(Component):
             from tpu_operator_torch.parallel.mesh import (MeshPlan, fabric,
                                                           make_mesh,
                                                           rank_devices)
-            t0 = time.perf_counter()
-            devices = rank_devices(ranks, dev)
-            if fabric(devices) == "peer":
-                FabricComponent(validations_dir=self.dir,
-                                require_gpu=self.require_gpu).check_nvlink(
-                                    devices)
-            mesh = make_mesh(ranks, MeshPlan(data=1, model=ranks),
-                             devices=devices)
-            reports = run_collective_suite(mesh, "model",
-                                           mbytes=self.collective_mb, iters=3)
-            info["collectives"] = {r.op: _significant(r.busbw_gbps)
-                                   for r in reports}
-            # "loopback": every rank on one device, the figures cross no link
-            info["fabric"] = fabric(devices)
-            info["rank_devices"] = [str(d) for d in devices]
-            legs["collectives"] = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            info["ring_attention"] = self._check_ring_attention(mesh, dev)
-            legs["ring_attention"] = time.perf_counter() - t0
-        info["leg_seconds"] = {name: round(s, 4) for name, s in legs.items()}
+            with trace.span("validator.collectives") as legs["collectives"]:
+                devices = rank_devices(ranks, dev)
+                if fabric(devices) == "peer":
+                    FabricComponent(validations_dir=self.dir,
+                                    require_gpu=self.require_gpu
+                                    ).check_nvlink(devices)
+                mesh = make_mesh(ranks, MeshPlan(data=1, model=ranks),
+                                 devices=devices)
+                reports = run_collective_suite(mesh, "model",
+                                               mbytes=self.collective_mb,
+                                               iters=3)
+                info["collectives"] = {r.op: _significant(r.busbw_gbps)
+                                       for r in reports}
+                # "loopback": every rank on one device, the figures cross
+                # no link
+                info["fabric"] = fabric(devices)
+                info["rank_devices"] = [str(d) for d in devices]
+            with trace.span("validator.ring_attention") as \
+                    legs["ring_attention"]:
+                info["ring_attention"] = self._check_ring_attention(mesh, dev)
+        info["leg_seconds"] = {name: round(sp.duration_s, 4)
+                               for name, sp in legs.items()}
         if on_gpu:
-            self._record_runtime_build()
+            with trace.span("validator.runtime_build"):
+                self._record_runtime_build()
         return info
 
 
