@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --flash-times   # the timed flash shapes alone
+    python3 chip_smoke.py --k2-sweep      # K2's unit-length sweeps alone
 
 Run from the repository root on a machine with one NVIDIA Hopper card and
 the CUDA toolkit (nvcc). The script builds the port's CUDA kernels from
@@ -14,9 +15,11 @@ the machine's own device nodes, driver library and kernel module, then the
 gate on their status files; the workload's HBM and flash-attention legs
 must go through the kernels. K2 (flash attention) is timed inside a CUDA
 graph, so that the host's time per call is not in it, with a sweep of the
-most kv tiles a unit of its work takes, and beside every SDPA backend
-(flash, cuDNN, memory-efficient, math) on the 4-D form of the same inputs;
-the fastest is its library time; it is also held and timed at the
+most kv tiles a unit of its work takes at the validator's shape and the
+bench's (each length's units and partial states beside its time, the
+length K2's rule takes on the card among them), and beside every SDPA
+backend (flash, cuDNN, memory-efficient, math) on the 4-D form of the
+same inputs; the fastest is its library time; it is also held and timed at the
 bench's shape, bf16 [16384, 128] causal. K2w (K2's kernel template at
 every other f16 or bf16 input with D ≤ 256, any D: a head off 8 through a
 padded row stride), K2dw (the D-chunked tensor-core kernel: f16 and bf16
@@ -457,29 +460,57 @@ def sdpa_times(q, k, v, causal: bool, ref32, tag: str = "K2") -> dict:
     return times
 
 
-# kv tiles per unit; None: one unit per q tile (no combine)
-SWEEP_SPLITS = (2, 4, 8, 16, None)
+# kv tiles per unit swept below a row's kv tiles, beside the whole row (no
+# combine) and the length K2's rule takes on the card (``k2_split``)
+SWEEP_SPLITS = (2, 4, 8, 16, 32, 64, 128)
+# K2's shapes swept, bf16 causal, one head: the validator's and the bench's
+K2_SWEEP_T = (4096, 16384)
 
 
 def flash_sweep(q, k, v, causal, ref32, limit) -> dict:
     """K2's time by the most kv tiles a unit takes, each result held to the
-    per-element limit."""
+    per-element limit, with the launch's units and the partial states its
+    split q tiles write: :data:`SWEEP_SPLITS` below the row, the whole row
+    ("none") and the rule's own length, which a call with no length must
+    take. {label: {ms, units, partial_slots, rule}}."""
     from tpu_operator_torch.ops import flash_attention as flash
     scale = 1.0 / math.sqrt(q.shape[-1])
+    heads = 1 if q.dim() == 2 else q.shape[0]
+    t = q.shape[-2]
+    nq = t // flash.BLOCK
+    slots = flash.card_slots(q.device)
+    rule = flash.k2_split(heads, t, causal, slots)
+    flash.flash_launch(q, k, v, scale, causal)
+    by_rule = (flash.flash_launch.units, flash.flash_launch.partial_slots)
     times = {}
-    for split in SWEEP_SPLITS:
-        s = split or q.shape[-2] // flash.BLOCK
-        out = flash.flash_launch(q, k, v, scale, causal, s)
+    for split in sorted({s for s in SWEEP_SPLITS if s < nq} | {rule, nq}):
+        out = flash.flash_launch(q, k, v, scale, causal, split)
+        units = flash.flash_launch.units
+        partial = flash.flash_launch.partial_slots
         ratio = limit_ratio(out, ref32, limit)
-        check(ratio <= 1.0, f"K2 split {split}: error {ratio:.3f}x its "
+        label = "none" if split == nq else str(split)
+        check(ratio <= 1.0, f"K2 split {label}: error {ratio:.3f}x its "
                             "per-element limit")
-        label = str(split or "none")
-        times[label] = graph_ms(
-            lambda: flash.flash_launch(q, k, v, scale, causal, s), iters=20)
-        units = len(flash.work_list(1, q.shape[-2], causal, s)[0])
-        print(f"[K2] split sweep: at most {label} kv tiles a unit "
-              f"({units} units): {times[label]:.4f} ms, limit ratio "
-              f"{ratio:.3f}")
+        if split == rule:
+            check((units, partial) == by_rule,
+                  f"K2's own schedule {by_rule} is not its rule's "
+                  f"{(units, partial)}")
+        ms = graph_ms(
+            lambda: flash.flash_launch(q, k, v, scale, causal, split),
+            iters=20)
+        times[label] = {"ms": ms, "units": units, "partial_slots": partial,
+                        "rule": split == rule}
+        print(f"[K2] split sweep at [{t}, {q.shape[-1]}] causal={causal}: "
+              f"at most {label} kv tiles a unit ({units} units, {partial} "
+              f"partial slots"
+              + (f"; the rule's on {slots} slots" if split == rule else "")
+              + f"): {ms:.4f} ms, limit ratio {ratio:.3f}")
+    best = min(times, key=lambda label: times[label]["ms"])
+    mine = next(label for label, r in times.items() if r["rule"])
+    over = times[mine]["ms"] / times[best]["ms"] - 1
+    print(f"[K2] split sweep at [{t}, {q.shape[-1]}]: the rule's {mine} "
+          f"{times[mine]['ms']:.4f} ms, {over:+.2%} against the best, "
+          f"{best} ({times[best]['ms']:.4f} ms)")
     return times
 
 
@@ -544,6 +575,7 @@ def phase_flash(dev, kind) -> dict:
           "TF32 is on: the plain f32 version would not be f32")
     gen = torch.Generator(device=dev).manual_seed(1)
     main = None
+    sweeps = {}
     # (heads, T, D, causal); the first is the validator's main-path shape,
     # the last the bench's (flash_vs_sdpa_tflops)
     for h, t, d, causal in ((None, 4096, 128, True), (None, 4096, 128, False),
@@ -572,14 +604,9 @@ def phase_flash(dev, kind) -> dict:
                   in k2_faults(q, k, v, ref32, causal).items()}
         check(all(r > 1.0 for r in faults.values()),
               f"K2 limit passes a planted fault: {faults}")
-        sweep = profiled = None
-        if main is None:
-            sweep = flash_sweep(q, k, v, causal, ref32, limit)
-            profiled = flash_profile(q, k, v, causal)
-            print("[K2] device time per call by kernel (torch.profiler): "
-                  + (", ".join(f"{name} {us:.2f} us"
-                               for name, us in profiled.items())
-                     or "none seen"))
+        if causal and h is None and t in K2_SWEEP_T:
+            sweeps[f"bf16 [{t}, {d}] causal"] = k2_sweep(q, k, v, ref32,
+                                                          limit)
         del limit
         # the kernels alone, and a call of the wrapper from the host
         ms = graph_ms(lambda: flash_attention(q, k, v, causal=causal),
@@ -618,9 +645,37 @@ def phase_flash(dev, kind) -> dict:
                     "bound_by": bound_by, "library_ms": library_ms,
                     "library_backend": backend,
                     "library_math_ms": sdpa["MATH"],
-                    "shape": f"bf16 [{t}, {d}] causal", "split_sweep": sweep,
-                    "profiled_us": profiled}
+                    "shape": f"bf16 [{t}, {d}] causal"}
+    main["split_sweeps"] = sweeps
     return main
+
+
+def k2_sweep(q, k, v, ref32, limit) -> dict:
+    """At one causal K2 shape: :func:`flash_sweep`, and the device time
+    a call of the unit kernel and the merge under K2's own schedule
+    (:func:`flash_profile`)."""
+    sweep = flash_sweep(q, k, v, True, ref32, limit)
+    profiled = flash_profile(q, k, v, True)
+    print(f"[K2] [{q.shape[-2]}, {q.shape[-1]}] causal: device time per "
+          "call by kernel (torch.profiler): "
+          + (", ".join(f"{name} {us:.2f} us" for name, us in profiled.items())
+             or "none seen"))
+    return {"split_sweep": sweep, "profiled_us": profiled}
+
+
+def k2_sweeps(dev) -> dict:
+    """:func:`k2_sweep` at each of :data:`K2_SWEEP_T`, bf16 [T, 128]
+    causal, one head, on seeded inputs."""
+    from tpu_operator_torch.ops.flash_attention import kernel_error_limit
+    gen = torch.Generator(device=dev).manual_seed(1)
+    sweeps = {}
+    for t in K2_SWEEP_T:
+        q, k, v = (torch.randn((t, 128), generator=gen, device=dev)
+                   .to(torch.bfloat16) for _ in range(3))
+        ref32, limit = kernel_error_limit(q, k, v, causal=True)
+        sweeps[f"bf16 [{t}, 128] causal"] = k2_sweep(q, k, v, ref32, limit)
+        del ref32, limit
+    return sweeps
 
 
 # K2w's, K2dw's and K2dt's grid: each dtype, the head-dim buckets K2w and
@@ -4393,13 +4448,18 @@ def main(argv: list[str]) -> int:
     from tpu_operator_torch.ops import hbm as hbm_mod
     from tpu_operator_torch.parallel import ring as ring_mod
 
-    if argv not in ([], ["--flash-times"]):
-        print(f"chip_smoke: unknown arguments {argv}; takes none, or "
-              "--flash-times", file=sys.stderr)
+    if argv not in ([], ["--flash-times"], ["--k2-sweep"]):
+        print(f"chip_smoke: unknown arguments {argv}; takes none, "
+              "--flash-times or --k2-sweep", file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
     kind, smi_line = phase_card()
     phase_build(None if argv else 3)
+    if argv == ["--k2-sweep"]:
+        sweeps = k2_sweeps(dev)
+        print(smi_line)
+        print(json.dumps({"k2_sweeps": sweeps}))
+        return 0
     if argv:
         # the timed flash shapes alone, on whatever routing the package
         # beside this script has: one side of an A/B between two trees

@@ -93,6 +93,24 @@ def test_flash_kernel_units_of_any_length(cuda, split):
         assert bool(((out.float() - ref).abs() <= limit).all())
 
 
+@pytest.mark.parametrize("t", [4096, 16384])
+def test_flash_kernel_takes_the_rules_units(cuda, t):
+    """K2's own schedule is its rule's for the shape on this card: the
+    launch's units and partial states are those of the work list at
+    ``k2_split``'s length, and the output keeps the per-element limit."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v = (torch.randn((t, 128), generator=gen, device=cuda)
+               .to(torch.bfloat16) for _ in range(3))
+    out = flash_mod.flash_attention(q, k, v, causal=True)
+    split = flash_mod.k2_split(1, t, True, flash_mod.card_slots(cuda))
+    units, merges = flash_mod.work_list(1, t, True, split)
+    assert (flash_mod.flash_launch.units,
+            flash_mod.flash_launch.partial_slots) == (
+        len(units), sum(count for *_, count in merges))
+    ref, limit = flash_mod.kernel_error_limit(q, k, v, causal=True)
+    assert bool(((out.float() - ref).abs() <= limit).all())
+
+
 def test_flash_kernel_gives_the_same_bits_twice(cuda):
     gen = torch.Generator(device=cuda).manual_seed(4)
     q, k, v = (torch.randn((4096, 128), generator=gen, device=cuda)

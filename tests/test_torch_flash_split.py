@@ -68,6 +68,93 @@ def test_work_list_at_the_main_path_shape():
         port.work_list(1, 4096, True, 0)
 
 
+#: (heads, T, causal, slots, K2's unit length): an H100 SXM's 132 SMs hold
+#: 264 K2 blocks, an H100 PCIe's 114 hold 228
+K2_SPLITS = [
+    (1, 4096, True, 264, 8),        # the validator's flash leg: as before
+    (1, 16384, True, 264, 128),     # the bench's probe: 384 units, not 4,224
+    (16, 4096, True, 264, 64),      # many rows: no split at all
+    (1, 4096, False, 264, 16),
+    (4, 16384, False, 264, 256),
+    (8, 1024, True, 264, 8),        # few tiles for the slots: the shortest
+    (1, 16384, True, 228, 16),      # fewer slots, another answer
+    (1, 4096, True, 228, 10),       # the even share, rounded up
+    (1, 576, True, 8, 8),
+]
+
+
+@pytest.mark.parametrize("heads,t,causal,slots,want", K2_SPLITS)
+def test_k2_split_is_the_longest_candidate_within_five_percent(
+        heads, t, causal, slots, want):
+    split = port.k2_split(heads, t, causal, slots)
+    assert split == want
+    nq = t // port.BLOCK
+    tiles = heads * (nq * (nq + 1) // 2 if causal else nq * nq)
+    even = tiles / slots
+    end = port.schedule_makespan(heads, t, causal, split, slots)
+    assert end >= even
+    longer = [s for s in (16, 32, 64, 128, 256, 512, nq) if split < s <= nq]
+    ends = [port.schedule_makespan(heads, t, causal, s, slots)
+            for s in longer]
+    if end <= 1.05 * even:
+        # no longer candidate ends within 5% of the even share
+        assert all(e > 1.05 * even for e in ends)
+    else:
+        # none can: the earliest end, by the longest unit that gives it
+        assert end <= port.schedule_makespan(heads, t, causal, port.SPLIT,
+                                             slots)
+        assert all(e > end for e in ends)
+
+
+def test_k2_split_at_the_bench_shape_cuts_a_row_into_few_units():
+    """bf16 [16384, 128] causal on 264 slots: at most 3 units a q tile (2
+    here), the schedule's end within 5% of the even share, and 256 partial
+    states for 128 merges in place of 4,216 for 248."""
+    split = port.k2_split(1, 16384, True, 264)
+    units, merges = port.work_list(1, 16384, True, split)
+    per_tile = collections.Counter(row for row, *_ in units)
+    assert max(per_tile.values()) <= 3
+    assert port.schedule_makespan(1, 16384, True, split, 264) <= \
+        1.05 * (256 * 257 // 2) / 264
+    assert (len(units), len(merges)) == (384, 128)
+    assert sum(count for *_, count in merges) == 256
+    today = port.work_list(1, 16384, True, port.SPLIT)
+    assert (len(today[0]), sum(count for *_, count in today[1])) == \
+        (4224, 4216)
+
+
+def test_the_validators_k2_work_list_is_unchanged(monkeypatch):
+    """On a card of 132 SMs K2's own work list for one head at T = 4096
+    causal is the one of units of :data:`SPLIT` kv tiles, unit for unit
+    and merge for merge."""
+    monkeypatch.setattr(port, "_works", {})
+    monkeypatch.setattr(port, "card_slots", lambda device: 132 * 2)
+    cpu = torch.device("cpu")
+    units, merges, n_units, n_merges, slots = port._device_work(
+        cpu, 1, 4096, True, None)
+    want_units, want_merges = port.work_list(1, 4096, True, port.SPLIT)
+    assert torch.equal(units, port._int4s(want_units, cpu))
+    assert torch.equal(merges, port._int4s([(*m, 0) for m in want_merges],
+                                           cpu))
+    assert (n_units, n_merges, slots) == (288, 56, 280)
+
+
+@pytest.mark.parametrize("heads,slots", [(1, 16), (2, 32)])
+def test_the_split_plain_at_the_rules_length_keeps_the_limit(heads, slots):
+    """At T = 1024 causal on few slots the rule cuts rows into units of 9
+    kv tiles; the schedule's plain twin there stays within the kernel's
+    per-element limit."""
+    split = port.k2_split(heads, 1024, True, slots)
+    assert split == 9
+    gen = torch.Generator().manual_seed(heads)
+    q, k, v = (torch.randn((heads, 1024, 128), generator=gen)
+               .to(torch.bfloat16) for _ in range(3))
+    ref, limit = port.kernel_error_limit(q, k, v, causal=True)
+    got = port.flash_split_plain(q, k, v, True, split)
+    assert len(port.split_partials(q, k, v, True, split)[15]) == 2
+    assert limit_ratio(got, ref, limit) <= 1.0
+
+
 def _merged(parts, merge):
     return torch.cat([merge(parts[row]) for row in range(len(parts))],
                      dim=-2).to(torch.bfloat16)

@@ -13,14 +13,15 @@ and do not carry over.
 
 The card's schedule. The TPU kernel walks the kv tiles of a q tile in order
 on one core. On the card the kv loop of a q tile is cut into *units* of at
-most :data:`SPLIT` kv tiles of 64 keys, so that a long causal row of tiles
-does not become one long chain on one SM while others idle.
-:func:`work_list` builds the units, longest first. A q tile with one unit
-writes its output; the units of a split q tile write their partial softmax
-state (row max m, row sum l, unnormalised f32 acc) to a workspace, and a
-second kernel merges them by the log-sum-exp rule in a fixed order (no
-atomics: the same bits on every run). :func:`flash_split_plain` is that
-schedule in plain PyTorch.
+most a few kv tiles of 64 keys, so that a long causal row of tiles does not
+become one long chain on one SM while others idle: K2's length comes from
+the shape and the card (:func:`k2_split`), the other kernels' is
+:data:`SPLIT`. :func:`work_list` builds the units, longest first. A q tile
+with one unit writes its output; the units of a split q tile write their
+partial softmax state (row max m, row sum l, unnormalised f32 acc) to a
+workspace, and a second kernel merges them by the log-sum-exp rule in a
+fixed order (no atomics: the same bits on every run).
+:func:`flash_split_plain` is that schedule in plain PyTorch.
 
 Four kernels run that schedule (:func:`kernel_for` routes a CUDA input):
 
@@ -51,6 +52,7 @@ kernel takes has a kernel.
 
 from __future__ import annotations
 
+import heapq
 import math
 
 import torch
@@ -66,7 +68,15 @@ from tpu_operator_torch.utils.timing import measure_best, median_differential
 
 BLOCK = 64          # the kernels' q tile rows and the work list's kv tiles
 HEAD_DIM = 128      # K2's head dimension
-SPLIT = 8           # kv tiles per unit at most, from chip_smoke.py's sweep
+# kv tiles per unit at most for K2w, K2dw and K2dt, and K2's shortest
+# (:func:`k2_split`): chip_smoke.py's sweep at T = 4096 found shorter units
+# slower
+SPLIT = 8
+# K2's blocks resident on one SM: its 80 KiB of shared memory
+# (``Smem<128, 64>`` in ``csrc/flash_fwd.cu``) lets two share an SM's
+# 227 KiB, a third does not fit, and two blocks of 128 threads at 125
+# registers use a quarter of the register file
+K2_BLOCKS_PER_SM = 2
 MASK_FILL = -1e30   # the causal mask's fill, as in the reference
 # the largest D K2w takes (16-bit); past it K2dw takes 16-bit
 WGMMA_MAX_HEAD_DIM = 256
@@ -216,6 +226,66 @@ def work_list(heads: int, t: int, causal: bool, split: int):
             slots += 1
     units.sort(key=lambda u: (u[1] - u[2], u[0], u[1]))
     return units, merges
+
+
+def card_slots(device: torch.device) -> int:
+    """The K2 blocks ``device`` holds at once: its SMs times
+    :data:`K2_BLOCKS_PER_SM`."""
+    return (torch.cuda.get_device_properties(device).multi_processor_count
+            * K2_BLOCKS_PER_SM)
+
+
+def schedule_makespan(heads: int, t: int, causal: bool, split: int,
+                      slots: int) -> int:
+    """The kv tiles after which the last of ``slots`` ends when the units
+    of :func:`work_list`, in its order (longest first), go each to the slot
+    that frees first, as the card's block scheduler hands out a grid: the
+    list schedule of K2's grid, a unit costing its kv tiles."""
+    units, _ = work_list(heads, t, causal, split)
+    ends = [0] * min(slots, len(units))
+    for _, j0, j1, _ in units:
+        heapq.heapreplace(ends, ends[0] + j1 - j0)
+    return max(ends)
+
+
+def k2_split(heads: int, t: int, causal: bool, slots: int) -> int:
+    """K2's kv tiles a unit at most for [heads, t, 128] inputs on a card
+    that holds ``slots`` K2 blocks at once (:func:`card_slots`).
+
+    Each unit pays its own Q load and pipeline fill, and each unit of a
+    split q tile writes a partial state that the merge reads back, so the
+    longer the units the less the schedule costs beside the work; but units
+    as long as a causal row leave most slots idle while the longest rows
+    run. The candidates are :data:`SPLIT` and its doublings below the row's
+    ⌈t / 64⌉ kv tiles, the whole row (no split) and the even share of the
+    kv tiles a slot, rounded up, none shorter than :data:`SPLIT`. Of these
+    the longest is taken whose :func:`schedule_makespan` ends within 5% of
+    the even share; where none does (few tiles for the slots), the longest
+    of those that end first."""
+    nq = -(-t // BLOCK)
+    tiles = heads * (nq * (nq + 1) // 2 if causal else nq * nq)
+    # The list schedule counts kv tiles alone, while a unit's prologue and
+    # the masked diagonal tile of a causal row make block times differ by a
+    # few percent: an end within 5% of the even share is as balanced as the
+    # count can tell apart, and a longer unit within it costs fewer
+    # prologues, partials and merges.
+    target = 1.05 * tiles / slots
+    candidates = {nq, min(max(-(-tiles // slots), SPLIT), nq)}
+    split = SPLIT
+    while split < nq:
+        candidates.add(split)
+        split *= 2
+    order = sorted(candidates, reverse=True)
+    for split in order:
+        # a unit of min(split, nq) tiles alone ends past the target
+        if (min(split, nq) <= target
+                and schedule_makespan(heads, t, causal, split,
+                                      slots) <= target):
+            return split
+    ends = {split: schedule_makespan(heads, t, causal, split, slots)
+            for split in order}
+    return max(split for split, end in ends.items()
+               if end == min(ends.values()))
 
 
 def split_partials(q, k, v, causal: bool, split: int,
@@ -382,11 +452,15 @@ def _int4s(rows, device):
 
 
 def _device_work(device: torch.device, heads: int, t: int, causal: bool,
-                 split: int):
-    """The work list on the card, built once per (device, shape, split):
-    units [U, 4] and merges [C, 4] int32, and the workspace slots."""
+                 split: int | None):
+    """The work list on the card, built once per (device, shape, split),
+    a ``split`` of None standing for K2's own (:func:`k2_split` on the
+    card's :func:`card_slots`): units [U, 4] and merges [C, 4] int32, their
+    counts, and the workspace slots."""
     key = (device, heads, t, causal, split)
     if key not in _works:
+        if split is None:
+            split = k2_split(heads, t, causal, card_slots(device))
         units, merges = work_list(heads, t, causal, split)
         _works[key] = (_int4s(units, device),
                        _int4s([(*m, 0) for m in merges], device), len(units),
@@ -394,11 +468,12 @@ def _device_work(device: torch.device, heads: int, t: int, causal: bool,
     return _works[key]
 
 
-def _schedule(q, causal: bool, split: int, dp: int, steps=None):
+def _schedule(q, causal: bool, split: int | None, dp: int, steps=None):
     """The output, the heads, and the arguments every kernel's C entry
     point takes after q, k, v and o: the work list, its counts and a
     partials workspace of ``dp`` columns, with the workspace's tensors,
-    which the caller keeps until it has launched. With ``steps`` (see
+    which the caller keeps until it has launched. ``split`` as
+    :func:`_device_work` takes it. With ``steps`` (see
     :class:`_Steps`) it opens ``flash_op.schedule``."""
     heads = 1 if q.dim() == 2 else q.shape[0]
     if steps is not None:
@@ -415,15 +490,18 @@ def _schedule(q, causal: bool, split: int, dp: int, steps=None):
                         part_ml.data_ptr()), (part_acc, part_ml)
 
 
-def flash_launch(q, k, v, scale: float, causal: bool, split: int = SPLIT,
-                 steps=None):
+def flash_launch(q, k, v, scale: float, causal: bool,
+                 split: int | None = None, steps=None):
     """Launch K2 on checked inputs (see :func:`flash_attention`) with units
-    of at most ``split`` kv tiles; the output, not yet synchronised.
-    ``chip_smoke.py`` sweeps ``split`` through here. With ``steps``, as in
-    each route's launcher, the work list and the workspaces are the
-    ``flash_op.schedule`` step and the rest the ``flash_op.launch`` step."""
-    out, heads, work, _workspace = _schedule(q, causal, split, HEAD_DIM,
-                                             steps)
+    of at most ``split`` kv tiles, :func:`k2_split`'s for the shape on this
+    card by default; the output, not yet synchronised. ``chip_smoke.py``
+    sweeps ``split`` through here. ``flash_launch.units`` and
+    ``.partial_slots`` then hold the launch's units and the partial states
+    its split q tiles write. With ``steps``, as in each route's launcher,
+    the work list and the workspaces are the ``flash_op.schedule`` step
+    and the rest the ``flash_op.launch`` step."""
+    out, heads, work, workspace = _schedule(q, causal, split, HEAD_DIM,
+                                            steps)
     if steps is not None:
         steps.step("flash_op.launch")
     lib = _native.library()
@@ -433,7 +511,12 @@ def flash_launch(q, k, v, scale: float, causal: bool, split: int = SPLIT,
                                  HEAD_DIM, scale, int(causal),
                                  torch.cuda.current_stream().cuda_stream)
     _native.check(err, "flash_fwd_bf16")
+    flash_launch.units, flash_launch.partial_slots = (work[1],
+                                                      workspace[0].shape[0])
     return out
+
+
+flash_launch.units = flash_launch.partial_slots = 0
 
 
 def flash_wgmma(q, k, v, sm_scale: float | None = None,
@@ -692,7 +775,7 @@ def flash_attention(q, k, v, sm_scale: float | None = None,
             return _wide_wgmma_launch(q, k, v, scale, causal, steps)
         if kernel == "K2dt":
             return _wide_tf32_launch(q, k, v, scale, causal, steps)
-        out = flash_launch(q, k, v, scale, causal, SPLIT, steps)
+        out = flash_launch(q, k, v, scale, causal, None, steps)
         flash_attention.launches += 1
         return out
     except BaseException as e:
